@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: nothing in peneo_tpu_torch/ or
+chip_smoke.py imports jax, flax or peneo_tpu, and the package, its models
+and its serving pipeline import with those three modules blocked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "peneo_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "peneo_tpu_torch")):
+        files += [os.path.join(root, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    return files
+
+
+def _forbidden(name):
+    return any(name == m or name.startswith(m + ".") for m in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_flax_or_peneo_tpu_import(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_imports_with_jax_flax_and_peneo_tpu_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import peneo_tpu_torch, peneo_tpu_torch.models.peneo\n"
+        "import peneo_tpu_torch.pipeline.infer, peneo_tpu_torch.serve\n"
+        "import peneo_tpu_torch.models.convert\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
