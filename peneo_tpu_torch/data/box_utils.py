@@ -1,5 +1,5 @@
 """Bounding-box geometry utilities (host-side, numpy; the port's copy of
-``peneo_tpu/data/box_utils.py`` without the train-time augmentation).
+``peneo_tpu/data/box_utils.py``).
 
 Behavioral parity targets (reference: data/data_utils.py):
 - ``box_two_point_convert``  :7-28
@@ -7,11 +7,15 @@ Behavioral parity targets (reference: data/data_utils.py):
 - ``merge_bbox``             :62-76
 - ``sort_boxes``             :79-119  (reading order; parity-critical — packing
   order determines token indices and therefore every label)
+- ``box_augmentation``       :122-170 (train-time jitter; the reference's
+  vertical branch always moves DOWN regardless of direction draw — a quirk
+  fixed here by honoring the drawn direction, gated by ``reference_quirk``)
 - ``string_f2h``             :173-195
 """
 
 from __future__ import annotations
 
+import random
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -78,6 +82,42 @@ def sort_boxes(boxes: Sequence[Sequence[float]]) -> List[int]:
         start, end = sel[0], sel[0] + len(sel)
         order[start:end] = order[start:end][np.argsort(cx[order[start:end]])]
     return order.tolist()
+
+
+def box_augmentation(
+    bbox: Sequence[float],
+    image_w: int,
+    image_h: int,
+    reference_quirk: bool = False,
+) -> Tuple[int, int, int, int]:
+    """Random translation jitter: up to 10% of width in x, 30% of height in y.
+
+    ``reference_quirk=True`` reproduces data/data_utils.py:155-160, where both
+    vertical branches shift downward; the default honors the drawn direction.
+    """
+    left, top, right, bot = bbox
+    x_dir = random.randint(0, 1)
+    y_dir = random.randint(0, 1)
+    dx = (right - left) * (random.randint(0, 10) / 100)
+    dy = (bot - top) * (random.randint(0, 30) / 100)
+
+    if not x_dir:
+        dx = -dx
+    if reference_quirk:
+        pass  # always shift down
+    elif not y_dir:
+        dy = -dy
+
+    new_left = min(max(left + dx, 0), image_w)
+    new_right = min(max(right + dx, 0), image_w)
+    new_top = min(max(top + dy, 0), image_h)
+    new_bot = min(max(bot + dy, 0), image_h)
+    return (
+        int(round(new_left)),
+        int(round(new_top)),
+        int(round(new_right)),
+        int(round(new_bot)),
+    )
 
 
 # full-width → half-width map (U+FF01..U+FF5E and ideographic space);

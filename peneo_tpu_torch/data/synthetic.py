@@ -1,5 +1,5 @@
-"""Synthetic RFUND-schema document generator + toy tokenizer (the port's
-copy of ``peneo_tpu/data/synthetic.py`` without the dataset writers).
+"""Synthetic RFUND-schema document generator, dataset writers and toy
+tokenizer (the port's copy of ``peneo_tpu/data/synthetic.py``).
 
 No RFUND/SIBR data ships with this environment, so tests, the end-to-end
 training demo, and the benchmark run on generated documents that follow the
@@ -15,6 +15,8 @@ entities spanning multiple lines (exercising line grouping), plus 'other' and
 
 from __future__ import annotations
 
+import json
+import os
 import random
 from typing import Dict, List, Tuple
 
@@ -149,6 +151,48 @@ def make_document(
         "entities": entities,
         "relations": {"kv_entity": kv_rel, "line_grouping": lg_rel},
     }
+
+
+def write_rfund_dataset(
+    root: str,
+    language: str = "en",
+    n_train: int = 16,
+    n_val: int = 8,
+    seed: int = 0,
+    image_size: Tuple[int, int] = (1000, 1400),
+) -> str:
+    """Materialize a synthetic RFUND-layout dataset directory."""
+    rng = random.Random(seed)
+    os.makedirs(os.path.join(root, "images", language), exist_ok=True)
+    for split, n in (("train", n_train), ("val", n_val)):
+        docs = [
+            make_document(rng, f"{split}_{i:04d}.png", image_size=image_size)
+            for i in range(n)
+        ]
+        with open(os.path.join(root, f"{language}.{split}.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"documents": docs}, f)
+    return root
+
+
+def write_sibr_dataset(root: str, n_train: int = 8, n_test: int = 4,
+                       seed: int = 1) -> str:
+    """Materialize a synthetic SIBR-layout dataset directory."""
+    rng = random.Random(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "converted_label"), exist_ok=True)
+    for split, n in (("train", n_train), ("test", n_test)):
+        names = []
+        for i in range(n):
+            doc = make_document(rng, f"{split}_{i:04d}.jpg")
+            label_name = f"{split}_{i:04d}.json"
+            with open(os.path.join(root, "converted_label", label_name), "w",
+                      encoding="utf-8") as f:
+                json.dump(doc, f)
+            names.append(label_name)
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names))
+    return root
 
 
 def render_page(doc: Dict):

@@ -1,5 +1,6 @@
 """Pair-label ("handshaking") tagging in dense (L, L) matrix form (the
-port's copy of the prediction-side helper of ``peneo_tpu/data/tagging.py``).
+port's copy of ``peneo_tpu/data/tagging.py:25-107``: the label scatter of
+the collator, the spot extraction of decode, and the flattened-triu view).
 
 The reference flattens the upper-triangular token-pair grid into a length
 L(L+1)/2 "shaking" sequence (reference: model/peneo_decoder.py:12-115, data/
@@ -16,9 +17,28 @@ downstream parsing keeps first-seen entries on ties (pipeline/decode.py:45-67).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+Spot = Tuple[int, int, int]  # (start_idx, end_idx, tag)
+
+
+def spots_to_matrix(spots: Sequence[Spot], seq_len: int, out: np.ndarray = None) -> np.ndarray:
+    """Scatter spot labels into a dense (seq_len, seq_len) int32 matrix
+    (reference: model/peneo_decoder.py:34-73, one sample, dense layout)."""
+    m = out if out is not None else np.zeros((seq_len, seq_len), dtype=np.int32)
+    for i, j, tag in spots:
+        m[i, j] = tag
+    return m
+
+
+def batch_spots_to_matrix(batch_spots: Sequence[Sequence[Spot]], seq_len: int) -> np.ndarray:
+    """(B, L, L) int32 label tensor from per-sample spot lists."""
+    out = np.zeros((len(batch_spots), seq_len, seq_len), dtype=np.int32)
+    for b, spots in enumerate(batch_spots):
+        spots_to_matrix(spots, seq_len, out=out[b])
+    return out
 
 
 def matrix_to_spots(
@@ -43,3 +63,10 @@ def matrix_to_spots(
         sc = np.asarray(scores)[ii, jj]
     tg = tags[ii, jj]
     return [(int(i), int(j), int(t), float(s)) for i, j, t, s in zip(ii, jj, tg, sc)]
+
+
+def flatten_triu(matrix: np.ndarray) -> np.ndarray:
+    """Dense (L, L[, C]) → flattened (L(L+1)/2[, C]) in shaking order."""
+    seq_len = matrix.shape[0]
+    ii, jj = np.triu_indices(seq_len)
+    return matrix[ii, jj]

@@ -1,31 +1,40 @@
-"""PEneo decoder, inference path: shrink MLP, split handshaking combine,
-block-wise upper-triangle pair head with five classifiers, on-device top-k
-spot compaction and packing.
+"""PEneo decoder: shrink MLP, split handshaking combine, block-wise
+upper-triangle pair head with five classifiers; on-device top-k spot
+compaction and packing (inference) and the class-weighted CE losses
+(training and eval).
 
-Counterpart of ``peneo_tpu/models/decoder.py`` (``:34-123, 149-216,
-320-364, 426-490``). Parameter names are the reference's torch keys
-(model/peneo_decoder.py): ``shrink_projection.{0,3}``,
-``handshaking_kernel.combine_fc`` and ``{head}_fc.{0,3}`` (Sequential
-indices of Linear → SiLU → Dropout → Linear; the dropout slots are identity
-at inference).
+Counterpart of ``peneo_tpu/models/decoder.py`` (``:34-364, 426-504``).
+Parameter names are the reference's torch keys (model/peneo_decoder.py):
+``shrink_projection.{0,3}``, ``handshaking_kernel.combine_fc`` and
+``{head}_fc.{0,3}`` (Sequential indices of Linear → SiLU → Dropout →
+Linear; dropout at ``hidden_dropout_prob``, active in training mode).
 
 ``Linear([h_i; h_j]) = h_i·W_a + h_j·W_b + b``: the combine keeps the
 reference's one ``(H, 2H)`` ``combine_fc`` weight and applies its two
 column halves separately, so ``A = h·W_aᵀ + b`` and ``Bm = h·W_bᵀ`` are
 computed once (O(L·H²)) and each row block's pair features are
 ``silu(A[:, i_blk, None] + Bm[:, None, j >= i_blk_start])`` — only the upper
-triangle's columns, never the (B, L, L, 2H) concat.
+triangle's columns, never the (B, L, L, 2H) concat. In training each row
+block's pair bank runs under ``torch.utils.checkpoint`` (the JAX package's
+``nn.remat(PairBlockBank)``), so the pair features stay O(L·H) in memory.
+
+Labels are per head either compact ``(B, S, 3)`` spot arrays, scattered
+into dense matrices on the device, or dense int8 ``(B, Ld, Ld)`` matrices;
+the loss covers the upper triangle of the first Ld positions, and
+``label_row_mask`` drops rows (eval's edge-padded ragged batch) from it.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import PEneoConfig
+from ..ops.losses import weighted_cross_entropy
 
 HEAD_NAMES = (
     "line_extraction",
@@ -43,14 +52,15 @@ HEAD_CLASSES = {
 }
 
 
-def pair_classifier(hidden: int, num_classes: int, num_layers: int) -> nn.Module:
+def pair_classifier(hidden: int, num_classes: int, num_layers: int,
+                    dropout: float) -> nn.Module:
     """Reference build_classifier (model/peneo_decoder.py:231-271): one
     Linear, or [Linear, SiLU, Dropout] × (n-1) + [Linear]."""
     if num_layers == 1:
         return nn.Linear(hidden, num_classes)
     layers = []
     for _ in range(num_layers - 1):
-        layers += [nn.Linear(hidden, hidden), nn.SiLU(), nn.Identity()]
+        layers += [nn.Linear(hidden, hidden), nn.SiLU(), nn.Dropout(dropout)]
     layers.append(nn.Linear(hidden, num_classes))
     return nn.Sequential(*layers)
 
@@ -70,13 +80,38 @@ class HandshakingKernel(nn.Module):
                 F.linear(h, w[:, H:]))
 
 
-class PEneoDecoder(nn.Module):
-    """Pair-extraction head stack (inference).
+def dense_labels_from_spots(spots: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """(B, S, 3) padded spot array → dense (B, seq_len, seq_len) int64
+    labels, scattered on the spots' device. Spots are (i, j, tag); padding
+    rows use i = j = seq_len (a border that is sliced off) or tag 0."""
+    B, S, _ = spots.shape
+    spots = spots.long()
+    dense = torch.zeros((B, seq_len + 1, seq_len + 1), dtype=torch.int64,
+                        device=spots.device)
+    b_idx = torch.arange(B, device=spots.device)[:, None].expand(B, S)
+    dense[b_idx, spots[..., 0], spots[..., 1]] = spots[..., 2]
+    return dense[:, :seq_len, :seq_len]
 
-    ``forward(sequence_output)`` returns, per head, the compact top-k spots
-    (``max_spots_per_head > 0``) or the dense ``tags``/``scores`` (B, Ld, Ld)
-    maps; ``return_logits=True`` adds the dense ``logits`` (B, Ld, Ld, C)
-    (lower triangle zero) and keeps the dense maps.
+
+def triu_valid_mask(row0: int, bs: int, n_cols: int, valid_len: int,
+                    col0: int = 0, device=None) -> torch.Tensor:
+    """(bs, n_cols) bool: upper-triangular and within the first valid_len.
+    ``col0`` offsets the column coordinates (triu-sliced blocks)."""
+    rows = row0 + torch.arange(bs, device=device)[:, None]
+    cols = col0 + torch.arange(n_cols, device=device)[None, :]
+    return (rows <= cols) & (rows < valid_len) & (cols < valid_len)
+
+
+class PEneoDecoder(nn.Module):
+    """Pair-extraction head stack.
+
+    - ``labels`` None: per head the compact top-k spots
+      (``max_spots_per_head > 0``) or the dense ``tags``/``scores``
+      (B, Ld, Ld) maps; ``return_logits=True`` adds the dense ``logits``
+      (B, Ld, Ld, C) (lower triangle zero) and keeps the dense maps.
+    - ``labels`` given: the five head losses and ``total`` (reference
+      model/peneo_decoder.py:375-428); with ``also_decode`` the pair
+      ``(losses, outputs)`` from one pass over the grid.
     """
 
     def __init__(self, cfg: PEneoConfig):
@@ -85,18 +120,20 @@ class PEneoDecoder(nn.Module):
         bc = cfg.backbone_config or {}
         backbone_hidden = bc.get("hidden_size", 768)
         d_in = cfg.downstream_input_size()
+        drop = bc.get("hidden_dropout_prob", 0.1)
         if cfg.peneo_decoder_shrink:
             self.shrink_projection = nn.Sequential(
-                nn.Linear(d_in, backbone_hidden), nn.SiLU(), nn.Identity(),
+                nn.Linear(d_in, backbone_hidden), nn.SiLU(), nn.Dropout(drop),
                 nn.Linear(backbone_hidden, backbone_hidden // 2), nn.SiLU(),
-                nn.Identity())
+                nn.Dropout(drop))
         else:
             self.shrink_projection = nn.Identity()
         dec_h = cfg.decoder_hidden_size()
         self.handshaking_kernel = HandshakingKernel(dec_h)
         for name in HEAD_NAMES:
             setattr(self, f"{name}_fc", pair_classifier(
-                dec_h, HEAD_CLASSES[name], cfg.peneo_classifier_num_layers))
+                dec_h, HEAD_CLASSES[name], cfg.peneo_classifier_num_layers,
+                drop))
 
     def pair_block(self, a_blk, b_cols) -> Dict[str, torch.Tensor]:
         """One row block through the five heads: the pair features are
@@ -104,7 +141,22 @@ class PEneoDecoder(nn.Module):
         pair = F.silu(a_blk[:, :, None, :] + b_cols[:, None, :, :])
         return {name: getattr(self, f"{name}_fc")(pair) for name in HEAD_NAMES}
 
-    def forward(self, sequence_output, return_logits: bool = False):
+    def _pair_logits(self, a_blk, b_cols):
+        """The five heads' logits of one row block as a tuple, recomputed in
+        the backward when gradients are being recorded."""
+        def bank(x, y):
+            out = self.pair_block(x, y)
+            return tuple(out[name] for name in HEAD_NAMES)
+
+        if torch.is_grad_enabled() and (a_blk.requires_grad
+                                        or b_cols.requires_grad):
+            return checkpoint(bank, a_blk, b_cols, use_reentrant=False)
+        return bank(a_blk, b_cols)
+
+    def forward(self, sequence_output, return_logits: bool = False,
+                labels: Optional[Dict[str, torch.Tensor]] = None,
+                also_decode: bool = False,
+                label_row_mask: Optional[torch.Tensor] = None):
         cfg = self.cfg
         B, Ld, _ = sequence_output.shape
         dtype = self.handshaking_kernel.combine_fc.weight.dtype
@@ -116,6 +168,9 @@ class PEneoDecoder(nn.Module):
         if Lp != Ld:
             a = F.pad(a, (0, 0, 0, Lp - Ld))
             b = F.pad(b, (0, 0, 0, Lp - Ld))
+        if labels is not None:
+            return self._losses(a, b, Ld, Lp, bs, labels, also_decode,
+                                label_row_mask)
 
         dev = sequence_output.device
         tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
@@ -138,18 +193,81 @@ class PEneoDecoder(nn.Module):
                 if return_logits:
                     logits[name][:, r0:r0 + bs, r0:] = lg
 
+        result = self._spot_outputs(tags, scores, Ld, return_logits)
+        if return_logits:
+            for name in HEAD_NAMES:
+                result[name]["logits"] = logits[name][:, :Ld, :Ld]
+        return result
+
+    def _spot_outputs(self, tags, scores, Ld, dense: bool = False):
+        k = self.cfg.max_spots_per_head
         result = {}
-        k = cfg.max_spots_per_head
         for name in HEAD_NAMES:
             t = tags[name][:, :Ld, :Ld]
             s = scores[name][:, :Ld, :Ld]
-            if k > 0 and not return_logits:
+            if k > 0 and not dense:
                 result[name] = compact_spots(t, s, k)
             else:
                 result[name] = {"tags": t, "scores": s}
-            if return_logits:
-                result[name]["logits"] = logits[name][:, :Ld, :Ld]
         return result
+
+    def _losses(self, a, b, Ld, Lp, bs, labels, also_decode, label_row_mask):
+        """Per-block weighted-CE sums over the upper triangle (the default
+        configuration; OHEM is not ported yet); with ``also_decode`` the
+        argmax tags/scores of the same blocks."""
+        cfg = self.cfg
+        if cfg.peneo_ohem_num_positive != -1 \
+                or cfg.peneo_ohem_num_negative != -1:
+            raise NotImplementedError("OHEM losses are not ported yet")
+        dev = a.device
+        weights = torch.tensor(cfg.peneo_category_weights,
+                               dtype=torch.float32, device=dev)
+        lbl = {}
+        for name in HEAD_NAMES:
+            m = labels[name]
+            if m.dim() == 3 and m.shape[-1] == 3 and m.shape[1] != m.shape[2]:
+                m = dense_labels_from_spots(m, Lp)   # compact spots
+            else:
+                m = m.long()                          # dense int8
+                if Lp != Ld:
+                    m = F.pad(m, (0, Lp - Ld, 0, Lp - Ld))
+            lbl[name] = m
+        rowm = (None if label_row_mask is None
+                else (label_row_mask > 0)[:, None, None])
+        nums = {name: 0.0 for name in HEAD_NAMES}
+        dens = {name: 0.0 for name in HEAD_NAMES}
+        B = a.shape[0]
+        if also_decode:
+            tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
+                    for n in HEAD_NAMES}
+            scores = {n: torch.zeros((B, Lp, Lp), dtype=torch.float32,
+                                     device=dev) for n in HEAD_NAMES}
+        for r0 in range(0, Lp, bs):
+            blk = self._pair_logits(a[:, r0:r0 + bs], b[:, r0:])
+            mask = triu_valid_mask(r0, bs, Lp - r0, Ld, col0=r0,
+                                   device=dev)[None]
+            if rowm is not None:
+                mask = mask & rowm
+            for name, lg in zip(HEAD_NAMES, blk):
+                if also_decode:
+                    s_blk, t_blk = torch.max(
+                        torch.softmax(lg.float(), dim=-1), dim=-1)
+                    tags[name][:, r0:r0 + bs, r0:] = t_blk.to(torch.int32)
+                    scores[name][:, r0:r0 + bs, r0:] = s_blk
+                w = weights[:2] if name == "line_extraction" else weights
+                num, den = weighted_cross_entropy(
+                    lg, lbl[name][:, r0:r0 + bs, r0:], w,
+                    mask.expand(lg.shape[:3]), return_sum_and_weight=True)
+                nums[name] = nums[name] + num
+                dens[name] = dens[name] + den
+        losses = {name: nums[name] / torch.clamp_min(dens[name], 1e-12)
+                  for name in HEAD_NAMES}
+        ratios = cfg.peneo_loss_ratio or [1.0] * 5
+        losses["total"] = sum(r * losses[name]
+                              for r, name in zip(ratios, HEAD_NAMES))
+        if also_decode:
+            return losses, self._spot_outputs(tags, scores, Ld)
+        return losses
 
 
 def compact_spots(tags: torch.Tensor, scores: torch.Tensor, k: int):

@@ -1,18 +1,25 @@
 """LiLT backbone in PyTorch — dual-stream (text + layout) transformer.
 
-Counterpart of ``peneo_tpu/models/lilt.py`` (inference path). Module and
-parameter names are the reference's torch key names
-(model/backbone/lilt/modeling_lilt.py), so a reference ``pytorch_model.bin``
-loads unchanged and ``peneo_tpu/models/convert.py`` reads the port's
-``state_dict``. Dropout is identity at inference and is left out.
+Counterpart of ``peneo_tpu/models/lilt.py``. Module and parameter names are
+the reference's torch key names (model/backbone/lilt/modeling_lilt.py), so a
+reference ``pytorch_model.bin`` loads unchanged and
+``peneo_tpu/models/convert.py`` reads the port's ``state_dict``.
 
 BiACM: the reference's text and layout streams share ONE coupled score
 matrix ``s_t/√d + s_l/√(d/r)`` and one softmax; each stream applies it to its
-own values. By default that runs through
-:func:`peneo_tpu_torch.ops.biacm_attention.biacm_attention` (the CUDA kernel
-on the card, its plain twin on the CPU);
-``LiltModel.set_attention_impl("plain")`` forces the plain twin on any device
-(tests and the on-card parity check only).
+own values. In eval mode that runs through
+:func:`peneo_tpu_torch.ops.biacm_attention.biacm_attention` (kernel #1 on the
+card, its plain twin on the CPU); in training mode through
+:func:`~peneo_tpu_torch.ops.biacm_attention.biacm_attention_train` (kernels
+#2/#3 with in-kernel attention dropout, two masks, one per stream), each
+layer drawing one seed per step from the ``generator`` its caller passes.
+``LiltModel.set_attention_impl("plain")`` forces the plain twins on any
+device (tests and the on-card parity checks only). Hidden dropout is
+``F.dropout`` on the embeddings and in every ``ResidualOutput``;
+``gradient_checkpointing`` recomputes each layer in the backward, with the
+attention seed drawn outside the checkpoint so the recompute replays the
+same masks (hidden dropout replays through the checkpoint's saved RNG
+state).
 
 The text embedding sum and LayerNorm run in fp32 and only the output is cast
 to the compute dtype (the embedding tables stay fp32; see
@@ -26,9 +33,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LiltConfig
-from ..ops.biacm_attention import biacm_attention, biacm_attention_reference
+from ..ops.biacm_attention import (attention_dropout_bits, biacm_attention,
+                                   biacm_attention_reference,
+                                   biacm_attention_train,
+                                   biacm_attention_train_reference)
 
 ACT = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -63,13 +74,15 @@ class LiltTextEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = cfg.hidden_dropout_prob
 
     def forward(self, input_ids, position_ids, dtype):
         # token_type_ids are always zeros in the PEneo pipeline
         x = (self.word_embeddings(input_ids)
              + self.token_type_embeddings.weight[0]
              + self.position_embeddings(position_ids))
-        return self.LayerNorm(x.float()).to(dtype)
+        x = self.LayerNorm(x.float()).to(dtype)
+        return F.dropout(x, self.dropout, self.training)
 
 
 class LiltLayoutEmbeddings(nn.Module):
@@ -89,6 +102,7 @@ class LiltLayoutEmbeddings(nn.Module):
         self.box_position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, lay_h)
         self.LayerNorm = nn.LayerNorm(lay_h, eps=cfg.layer_norm_eps)
+        self.dropout = cfg.hidden_dropout_prob
 
     def forward(self, bbox, position_ids):
         x, y = self.x_position_embeddings, self.y_position_embeddings
@@ -100,7 +114,7 @@ class LiltLayoutEmbeddings(nn.Module):
         ], dim=-1)
         out = (self.box_linear_embeddings(spatial)
                + self.box_position_embeddings(position_ids))
-        return self.LayerNorm(out)
+        return F.dropout(self.LayerNorm(out), self.dropout, self.training)
 
 
 class LiltSelfAttention(nn.Module):
@@ -115,6 +129,7 @@ class LiltSelfAttention(nn.Module):
         self.dh = h // self.nh
         self.dh_l = self.dh // cfg.channel_shrink_ratio
         self.attention_impl = "kernel"
+        self.dropout = cfg.attention_probs_dropout_prob
         self.query = nn.Linear(h, h)
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
@@ -122,37 +137,49 @@ class LiltSelfAttention(nn.Module):
         self.layout_key = nn.Linear(lay_h, lay_h)
         self.layout_value = nn.Linear(lay_h, lay_h)
 
-    def forward(self, text, layout, bias):
+    def forward(self, text, layout, bias, seed: int = 0):
+        """``seed`` keys the attention-dropout masks of a training step."""
         B, L, _ = text.shape
 
         def heads(lin, x, d):
             # (B, L, nh, d) projection viewed as (B, nh, L, d): no copy, the
-            # kernel reads it through strides
+            # kernels read it through strides
             return lin(x).view(B, L, self.nh, d).transpose(1, 2)
 
-        args = (heads(self.query, text, self.dh), heads(self.key, text, self.dh),
-                heads(self.value, text, self.dh),
-                heads(self.layout_query, layout, self.dh_l),
-                heads(self.layout_key, layout, self.dh_l),
-                heads(self.layout_value, layout, self.dh_l),
-                bias, 1.0 / self.dh ** 0.5, 1.0 / self.dh_l ** 0.5)
-        fn = (biacm_attention_reference if self.attention_impl == "plain"
-              else biacm_attention)
-        ctx_t, ctx_l = fn(*args)
+        qkv = (heads(self.query, text, self.dh), heads(self.key, text, self.dh),
+               heads(self.value, text, self.dh),
+               heads(self.layout_query, layout, self.dh_l),
+               heads(self.layout_key, layout, self.dh_l),
+               heads(self.layout_value, layout, self.dh_l))
+        scales = (1.0 / self.dh ** 0.5, 1.0 / self.dh_l ** 0.5)
+        plain = self.attention_impl == "plain"
+        if not self.training:
+            fn = biacm_attention_reference if plain else biacm_attention
+            ctx_t, ctx_l = fn(*qkv, bias, *scales)
+        elif plain:
+            bits = (attention_dropout_bits(seed, B, self.nh, L, text.device)
+                    if self.dropout > 0 else None)
+            ctx_t, ctx_l = biacm_attention_train_reference(
+                *qkv, bias, bits, *scales, self.dropout)
+        else:
+            ctx_t, ctx_l = biacm_attention_train(*qkv, bias, seed, *scales,
+                                                 self.dropout)
         return (ctx_t.transpose(1, 2).reshape(B, L, self.nh * self.dh),
                 ctx_l.transpose(1, 2).reshape(B, L, self.nh * self.dh_l))
 
 
 class ResidualOutput(nn.Module):
-    """Dense → LayerNorm(x + residual) (modeling_lilt.py:432-443)."""
+    """Dense → dropout → LayerNorm(x + residual) (modeling_lilt.py:432-443)."""
 
-    def __init__(self, d_in: int, d_out: int, eps: float):
+    def __init__(self, d_in: int, d_out: int, eps: float, dropout: float):
         super().__init__()
         self.dense = nn.Linear(d_in, d_out)
         self.LayerNorm = nn.LayerNorm(d_out, eps=eps)
+        self.dropout = dropout
 
     def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+        x = F.dropout(self.dense(x), self.dropout, self.training)
+        return self.LayerNorm(x + residual)
 
 
 class Intermediate(nn.Module):
@@ -173,11 +200,12 @@ class LiltAttention(nn.Module):
         h = cfg.hidden_size
         lay_h = h // cfg.channel_shrink_ratio
         self.self = LiltSelfAttention(cfg)
-        self.output = ResidualOutput(h, h, cfg.layer_norm_eps)
-        self.layout_output = ResidualOutput(lay_h, lay_h, cfg.layer_norm_eps)
+        eps, p = cfg.layer_norm_eps, cfg.hidden_dropout_prob
+        self.output = ResidualOutput(h, h, eps, p)
+        self.layout_output = ResidualOutput(lay_h, lay_h, eps, p)
 
-    def forward(self, text, layout, bias):
-        ctx_t, ctx_l = self.self(text, layout, bias)
+    def forward(self, text, layout, bias, seed: int = 0):
+        ctx_t, ctx_l = self.self(text, layout, bias, seed)
         return self.output(ctx_t, text), self.layout_output(ctx_l, layout)
 
 
@@ -185,18 +213,18 @@ class LiltLayer(nn.Module):
     def __init__(self, cfg: LiltConfig):
         super().__init__()
         h, r = cfg.hidden_size, cfg.channel_shrink_ratio
-        eps = cfg.layer_norm_eps
+        eps, p = cfg.layer_norm_eps, cfg.hidden_dropout_prob
         self.attention = LiltAttention(cfg)
         self.intermediate = Intermediate(h, cfg.intermediate_size,
                                          cfg.hidden_act)
-        self.output = ResidualOutput(cfg.intermediate_size, h, eps)
+        self.output = ResidualOutput(cfg.intermediate_size, h, eps, p)
         self.layout_intermediate = Intermediate(
             h // r, cfg.intermediate_size // r, cfg.hidden_act)
         self.layout_output = ResidualOutput(cfg.intermediate_size // r,
-                                            h // r, eps)
+                                            h // r, eps, p)
 
-    def forward(self, text, layout, bias):
-        text, layout = self.attention(text, layout, bias)
+    def forward(self, text, layout, bias, seed: int = 0):
+        text, layout = self.attention(text, layout, bias, seed)
         text = self.output(self.intermediate(text), text)
         layout = self.layout_output(self.layout_intermediate(layout), layout)
         return text, layout
@@ -220,6 +248,8 @@ class LiltModel(nn.Module):
         self.embeddings = LiltTextEmbeddings(cfg)
         self.layout_embeddings = LiltLayoutEmbeddings(cfg)
         self.encoder = LiltEncoder(cfg)
+        # per-layer recompute in the backward (PEneoConfig's switch)
+        self.gradient_checkpointing = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -252,7 +282,10 @@ class LiltModel(nn.Module):
                         self.layout_embeddings.box_position_embeddings):
                 emb.weight[pad].zero_()
 
-    def forward(self, input_ids, bbox, attention_mask: Optional[torch.Tensor] = None):
+    def forward(self, input_ids, bbox, attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` (CPU) draws each layer's attention-dropout seed in
+        training mode (the default generator when None)."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         input_ids = input_ids.long()
@@ -261,8 +294,17 @@ class LiltModel(nn.Module):
         bias = key_mask_bias(attention_mask)
         text = self.embeddings(input_ids, position_ids, self.dtype)
         layout = self.layout_embeddings(bbox, position_ids)
+        draw = self.training and self.cfg.attention_probs_dropout_prob > 0
         for layer in self.encoder.layer:
-            text, layout = layer(text, layout, bias)
+            # the seed is drawn outside the checkpointed region: the
+            # recompute replays the same masks
+            seed = (int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+                    if draw else 0)
+            if self.gradient_checkpointing and self.training:
+                text, layout = checkpoint(layer, text, layout, bias, seed,
+                                          use_reentrant=False)
+            else:
+                text, layout = layer(text, layout, bias, seed)
         return {
             "last_hidden_state": torch.cat([text, layout], dim=-1),
             "semantic_output": text,

@@ -1,17 +1,19 @@
-"""PEneoModel: LiLT backbone + PEneo decoder (inference).
+"""PEneoModel: LiLT backbone + PEneo decoder.
 
 Counterpart of ``peneo_tpu/models/peneo.py:28-131`` for the LiLT family
 (reference: model/modeling_peneo.py:41-175). The wrapper runs the backbone,
-strips the CLS position per the family flags (modeling_peneo.py:138-163)
-and runs the decoder. Inputs are padded to a static L; the decoder works on
-Ld = L - 1 positions.
+strips the CLS position per the family flags (modeling_peneo.py:138-163),
+applies hidden dropout (training mode) and runs the decoder. Inputs are
+padded to a static L; the decoder works on Ld = L - 1 positions, and labels
+are (B, Ld, Ld) dense matrices or (B, S, 3) spot arrays.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import PEneoConfig
@@ -34,6 +36,7 @@ class PEneoModel(nn.Module):
         self.cfg = cfg
         self.flags = FAMILY_FLAGS[fam]
         self.backbone = LiltModel(cfg.backbone())
+        self.backbone.gradient_checkpointing = cfg.gradient_checkpointing
         self.peneo_decoder = PEneoDecoder(cfg)
 
     def set_attention_impl(self, attention_impl: str) -> None:
@@ -53,9 +56,21 @@ class PEneoModel(nn.Module):
         return self
 
     def forward(self, input_ids, bbox, attention_mask: Optional[torch.Tensor] = None,
-                return_logits: bool = False):
-        out = self.backbone(input_ids, bbox, attention_mask)
+                return_logits: bool = False,
+                labels: Optional[Dict[str, torch.Tensor]] = None,
+                also_decode: bool = False,
+                label_row_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Inference outputs, or with ``labels`` the losses (and with
+        ``also_decode`` the pair ``(losses, outputs)``). ``generator`` draws
+        the attention-dropout seeds in training mode."""
+        out = self.backbone(input_ids, bbox, attention_mask,
+                            generator=generator)
         hidden = out["last_hidden_state"]
         if self.flags["add_cls_token"]:
             hidden = hidden[:, 1:]
-        return self.peneo_decoder(hidden, return_logits=return_logits)
+        drop = (self.cfg.backbone_config or {}).get("hidden_dropout_prob", 0.1)
+        hidden = F.dropout(hidden, drop, self.training)
+        return self.peneo_decoder(hidden, return_logits=return_logits,
+                                  labels=labels, also_decode=also_decode,
+                                  label_row_mask=label_row_mask)

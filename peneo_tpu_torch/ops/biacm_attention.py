@@ -1,5 +1,6 @@
-"""Fused BiACM (dual-stream) attention of LiLT: the CUDA kernel and its
-plain twin.
+"""Fused BiACM (dual-stream) attention of LiLT: the CUDA kernels and their
+plain twins — the inference forward (kernel #1) and the training pair
+(kernels #2 and #3, forward with attention dropout and its backward).
 
 Counterpart of ``peneo_tpu/ops/biacm_attention.py:biacm_attention`` (the
 Pallas TPU inference kernel). Per (batch, head):
@@ -20,6 +21,28 @@ with a contiguous last dim — the LiLT layer passes transposed views of its
   fp32). It runs on the card only when a caller asks for it by name.
 - :func:`biacm_attention_cuda` is the kernel wrapper; its ``launches``
   attribute counts the launches.
+
+Training (counterpart of ``biacm_attention_train``, the custom-VJP pair of
+Pallas kernels ``_fwd_train_kernel`` / ``_bwd_train_kernel``): two
+independent dropout masks over the shared ``p``, one per stream, keep iff
+``bits < keep_threshold(rate)``, kept values scaled by ``1/(1-rate)``.
+
+- :func:`biacm_attention_train` is the entry point (the JAX function's
+  layout; ``rng`` an int seed or explicit ``(bits1, bits2)``). It applies
+  :class:`BiacmAttentionTrain`: on CUDA tensors the forward kernel and the
+  backward kernels (``csrc/biacm_attention_train.cu``), on CPU tensors the
+  plain twin and its autograd gradient.
+- :func:`biacm_attention_train_reference` is the plain twin, taking explicit
+  mask bits; autograd through it gives the reference gradients.
+- :func:`attention_dropout_bits` gives, in torch integer ops, exactly the
+  bits the kernels draw in-kernel: Philox4x32-10 of the counter
+  ``(j, i, h, b)`` under the key ``(seed mod 2³², seed >> 32)``, word 0 for
+  the text stream and word 1 for the layout stream. The bits are a pure
+  function of ``(seed, b, h, i, j, stream)``, so the forward, the backward
+  and a checkpoint recompute draw identical masks.
+- :func:`biacm_attention_train_fwd_cuda` / :func:`biacm_attention_train_bwd_cuda`
+  launch the kernels; each counts its launches in ``launches`` (the
+  backward counts one per call of its two kernels).
 """
 
 from __future__ import annotations
@@ -30,10 +53,12 @@ import threading
 import torch
 
 SOURCE = "biacm_attention.cu"
-HEAD_DIM_T = 64  # head dims the CUDA kernel is compiled for
+TRAIN_SOURCE = "biacm_attention_train.cu"
+HEAD_DIM_T = 64  # head dims the CUDA kernels are compiled for
 HEAD_DIM_L = 16
 
 _LIB = None
+_TRAIN_LIB = None
 _LIB_LOCK = threading.Lock()
 
 
@@ -88,17 +113,14 @@ def _check(name, x, shape, dtype, device):
                          f"{x.stride()})")
 
 
-def biacm_attention_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias,
-                         scale_t: float, scale_l: float):
-    """Launch the CUDA kernel on the current stream. Inputs bf16 on one CUDA
-    device, d_t = 64, d_l = 16, any L ≥ 1. Outputs are ``(B, nh, L, d)``
-    views of ``(B, L, nh, d)`` contiguous buffers."""
+def _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias):
+    """Wrapper checks shared by the CUDA launchers; returns (B, nh, L)."""
     if not q_t.is_cuda:
-        raise ValueError("biacm_attention_cuda takes CUDA tensors")
+        raise ValueError("the BiACM CUDA kernels take CUDA tensors")
     B, nh, L, dt = q_t.shape
     dl = q_l.shape[-1]
     if (dt, dl) != (HEAD_DIM_T, HEAD_DIM_L):
-        raise ValueError(f"the CUDA kernel is built for head dims "
+        raise ValueError(f"the CUDA kernels are built for head dims "
                          f"({HEAD_DIM_T}, {HEAD_DIM_L}), got ({dt}, {dl})")
     if L < 1:
         raise ValueError("L must be >= 1")
@@ -110,9 +132,21 @@ def biacm_attention_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias,
             or tuple(bias.shape) != (B, L) or bias.stride(-1) != 1:
         raise ValueError(f"bias: expected contiguous-row float32 (B, L) on "
                          f"{dev}, got {bias.dtype} {tuple(bias.shape)}")
+    return B, nh, L
+
+
+def biacm_attention_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias,
+                         scale_t: float, scale_l: float):
+    """Launch the CUDA kernel on the current stream. Inputs bf16 on one CUDA
+    device, d_t = 64, d_l = 16, any L ≥ 1. Outputs are ``(B, nh, L, d)``
+    views of ``(B, L, nh, d)`` contiguous buffers."""
+    B, nh, L = _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias)
+    dev = q_t.device
     lib = load_kernel()
-    out_t = torch.empty((B, L, nh, dt), dtype=torch.bfloat16, device=dev)
-    out_l = torch.empty((B, L, nh, dl), dtype=torch.bfloat16, device=dev)
+    out_t = torch.empty((B, L, nh, HEAD_DIM_T), dtype=torch.bfloat16,
+                        device=dev)
+    out_l = torch.empty((B, L, nh, HEAD_DIM_L), dtype=torch.bfloat16,
+                        device=dev)
     strides = (ctypes.c_int64 * 19)(
         *[s for x in (q_t, k_t, v_t, q_l, k_l, v_l)
           for s in (x.stride(0), x.stride(1), x.stride(2))], bias.stride(0))
@@ -141,3 +175,303 @@ def biacm_attention(q_t, k_t, v_t, q_l, k_l, v_l, bias,
                                     scale_t, scale_l)
     return biacm_attention_reference(q_t, k_t, v_t, q_l, k_l, v_l, bias,
                                      scale_t, scale_l)
+
+
+# ---------------------------------------------------------------------------
+# Training: forward with attention dropout (kernel #2) and backward (#3).
+# ---------------------------------------------------------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+_MODES = {"none": 0, "philox": 1, "bits": 2}
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold t with P(bits < t) = 1 - rate (the TPU kernels')."""
+    return min(int(round((1.0 - rate) * 4294967296.0)), 4294967295)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product m·x, for x an int64
+    tensor in [0, 2³²). m ≥ 2³¹ would overflow int64 in one product, so m
+    is split into 16-bit halves: m·x = (x·m_hi)·2¹⁶ + x·m_lo."""
+    a = x * (m & 0xFFFF)                    # < 2⁴⁸
+    b = x * (m >> 16)                       # < 2⁴⁸
+    t = a + ((b & 0xFFFF) << 16)            # < 2⁴⁹
+    return (b >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Random123's round and key schedule) on int64 tensors
+    holding uint32 words; broadcasts the four counter words. Returns the
+    four output words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_bits_at(seed: int, b, h, i, j):
+    """The two streams' uint32 dropout bits (as int64 tensors) at
+    broadcastable index tensors ``b, h, i, j`` (batch, head, query, key)."""
+    seed = int(seed)
+    out = philox4x32_10(j.long(), i.long(), h.long(), b.long(),
+                        seed & _U32, (seed >> 32) & _U32)
+    return out[0], out[1]
+
+
+def attention_dropout_bits(seed: int, B: int, nh: int, L: int, device=None):
+    """The bits the kernels draw in-kernel for one call: ``(bits1, bits2)``,
+    int64 ``(B, nh, L, L)`` in [0, 2³²), stream 1 (text) and stream 2
+    (layout)."""
+    def ix(n, axis):
+        shape = [1, 1, 1, 1]
+        shape[axis] = n
+        return torch.arange(n, device=device).view(shape)
+
+    b1, b2 = dropout_bits_at(seed, ix(B, 0), ix(nh, 1), ix(L, 2), ix(L, 3))
+    return b1.expand(B, nh, L, L), b2.expand(B, nh, L, L)
+
+
+def _u32(bits: torch.Tensor) -> torch.Tensor:
+    """Bits as int64 in [0, 2³²) (from int64, or int32 bit patterns)."""
+    return bits.to(torch.int64) & _U32
+
+
+def biacm_attention_train_reference(q_t, k_t, v_t, q_l, k_l, v_l, bias, bits,
+                                    scale_t: float, scale_l: float,
+                                    rate: float = 0.0):
+    """Plain PyTorch training BiACM attention with explicit mask bits
+    ``bits = (bits1, bits2)`` ((B, nh, L, L), ignored at ``rate == 0``).
+    As the TPU kernel: fp32 scores and softmax, ``p_s = keep_s ? p/(1-r) :
+    0`` rounded to the input dtype before the fp32 ``p_s·v_s`` products,
+    outputs in the input dtype. Returns ``(ctx_t, ctx_l)``."""
+    f = torch.float32
+    s = (torch.einsum("bhld,bhmd->bhlm", q_t.to(f), k_t.to(f)) * scale_t
+         + torch.einsum("bhld,bhmd->bhlm", q_l.to(f), k_l.to(f)) * scale_l
+         + bias.to(f)[:, None, None, :])
+    p = torch.softmax(s, dim=-1)
+    if rate > 0.0:
+        thr, inv = keep_threshold(rate), 1.0 / (1.0 - rate)
+        p1 = torch.where(_u32(bits[0]) < thr, p * inv, 0.0)
+        p2 = torch.where(_u32(bits[1]) < thr, p * inv, 0.0)
+    else:
+        p1 = p2 = p
+    ctx_t = torch.einsum("bhlm,bhmd->bhld", p1.to(q_t.dtype).to(f), v_t.to(f))
+    ctx_l = torch.einsum("bhlm,bhmd->bhld", p2.to(q_t.dtype).to(f), v_l.to(f))
+    return ctx_t.to(q_t.dtype), ctx_l.to(q_t.dtype)
+
+
+def load_train_kernel():
+    """The training kernels' CUDA library (built at first use, cached);
+    raises if it cannot be built or loaded."""
+    global _TRAIN_LIB
+    with _LIB_LOCK:
+        if _TRAIN_LIB is None:
+            from .cuda_build import build_library
+
+            lib = ctypes.CDLL(build_library(TRAIN_SOURCE))
+            args = [ctypes.POINTER(ctypes.c_uint64),
+                    ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                    ctypes.c_float, ctypes.c_void_p]
+            for fn in (lib.biacm_train_fwd, lib.biacm_train_bwd):
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.biacm_train_error_string.argtypes = [ctypes.c_int]
+            lib.biacm_train_error_string.restype = ctypes.c_char_p
+            _TRAIN_LIB = lib
+    return _TRAIN_LIB
+
+
+def _rng_args(rng, rate: float, shape, dev):
+    """(mode, seed_lo, seed_hi, bits1, bits2): ``rng`` is an int seed (the
+    in-kernel generator) or explicit ``(bits1, bits2)`` (B, nh, L, L)
+    int64 or int32 bit patterns, passed to the kernel as uint32."""
+    if rate <= 0.0:
+        return _MODES["none"], 0, 0, None, None
+    if isinstance(rng, (tuple, list)):
+        bits = []
+        for name, x in zip(("bits1", "bits2"), rng):
+            if tuple(x.shape) != tuple(shape) or x.device != dev:
+                raise ValueError(f"{name}: expected {tuple(shape)} on {dev}, "
+                                 f"got {tuple(x.shape)} on {x.device}")
+            if x.dtype == torch.int64:
+                x = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+            elif x.dtype != torch.int32:
+                raise ValueError(f"{name}: int64 or int32 bits, got {x.dtype}")
+            bits.append(x.to(torch.int32).contiguous())
+        return _MODES["bits"], 0, 0, bits[0], bits[1]
+    seed = int(rng)
+    return _MODES["philox"], seed & _U32, (seed >> 32) & _U32, None, None
+
+
+def _launch(fn, name, ptrs, strides, B, nh, L, scale_t, scale_l, rate, rng):
+    mode, lo, hi, _, _ = rng
+    rc = fn((ctypes.c_uint64 * len(ptrs))(*ptrs),
+            (ctypes.c_int64 * len(strides))(*strides), B, nh, L,
+            float(scale_t), float(scale_l), mode, lo, hi,
+            keep_threshold(rate) if rate > 0 else 0,
+            1.0 / (1.0 - rate) if rate > 0 else 1.0,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + load_train_kernel().biacm_train_error_string(
+                               rc).decode())
+
+
+def _strides3(*xs):
+    return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+
+
+def biacm_attention_train_fwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
+                                   scale_t: float, scale_l: float,
+                                   rate: float = 0.0):
+    """Launch the training forward (kernel #2) on the current stream.
+    Returns ``(ctx_t, ctx_l, stats)``: the outputs as ``(B, nh, L, d)``
+    views of ``(B, L, nh, d)`` bf16 buffers, and fp32 ``(B, nh, L, 2)`` row
+    statistics (max, log of the sum) for the backward."""
+    B, nh, L = _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias)
+    dev = q_t.device
+    rng = _rng_args(rng, rate, (B, nh, L, L), dev)
+    lib = load_train_kernel()
+    out_t = torch.empty((B, L, nh, HEAD_DIM_T), dtype=torch.bfloat16,
+                        device=dev)
+    out_l = torch.empty((B, L, nh, HEAD_DIM_L), dtype=torch.bfloat16,
+                        device=dev)
+    stats = torch.empty((B, nh, L, 2), dtype=torch.float32, device=dev)
+    ins = (q_t, k_t, v_t, q_l, k_l, v_l)
+    ptrs = [x.data_ptr() for x in ins] + [
+        bias.data_ptr(), *(0 if x is None else x.data_ptr() for x in rng[3:]),
+        stats.data_ptr(), out_t.data_ptr(), out_l.data_ptr()]
+    with torch.cuda.device(dev):
+        _launch(lib.biacm_train_fwd, "biacm_attention_train forward", ptrs,
+                _strides3(*ins) + [bias.stride(0)], B, nh, L, scale_t,
+                scale_l, rate, rng)
+    biacm_attention_train_fwd_cuda.launches += 1
+    return out_t.transpose(1, 2), out_l.transpose(1, 2), stats
+
+
+biacm_attention_train_fwd_cuda.launches = 0
+
+
+def biacm_attention_train_bwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
+                                   stats, dct, dcl, scale_t: float,
+                                   scale_l: float, rate: float = 0.0):
+    """Launch the training backward (kernel #3: the dq kernel, which also
+    sums ``D = rowsum(p ⊙ dP)``, then the dk/dv kernel) on the current
+    stream. ``stats`` are the forward's row statistics; ``dct``/``dcl`` the
+    output gradients (bf16, any strides with a contiguous, 16-byte aligned
+    last dim). Returns
+    ``(dq_t, dk_t, dv_t, dq_l, dk_l, dv_l)`` as ``(B, nh, L, d)`` views of
+    ``(B, L, nh, d)`` bf16 buffers (dk/dv accumulate in fp32 registers)."""
+    B, nh, L = _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias)
+    dev = q_t.device
+    for name, x, d in (("dct", dct, HEAD_DIM_T), ("dcl", dcl, HEAD_DIM_L)):
+        _check(name, x, (B, nh, L, d), torch.bfloat16, dev)
+    if tuple(stats.shape) != (B, nh, L, 2) or not stats.is_contiguous() \
+            or stats.dtype != torch.float32 or stats.device != dev:
+        raise ValueError("stats: expected the forward's contiguous float32 "
+                         f"(B, nh, L, 2) on {dev}")
+    rng = _rng_args(rng, rate, (B, nh, L, L), dev)
+    lib = load_train_kernel()
+    grads = [torch.empty((B, L, nh, d), dtype=torch.bfloat16, device=dev)
+             for d in (HEAD_DIM_T,) * 3 + (HEAD_DIM_L,) * 3]
+    delta = torch.empty((B, nh, L), dtype=torch.float32, device=dev)
+    ins = (q_t, k_t, v_t, q_l, k_l, v_l)
+    ptrs = ([x.data_ptr() for x in ins]
+            + [bias.data_ptr(),
+               *(0 if x is None else x.data_ptr() for x in rng[3:]),
+               stats.data_ptr(), dct.data_ptr(), dcl.data_ptr(),
+               delta.data_ptr()]
+            + [g.data_ptr() for g in grads])
+    strides = _strides3(*ins) + [bias.stride(0)] + _strides3(dct, dcl)
+    with torch.cuda.device(dev):
+        _launch(lib.biacm_train_bwd, "biacm_attention_train backward", ptrs,
+                strides, B, nh, L, scale_t, scale_l, rate, rng)
+    biacm_attention_train_bwd_cuda.launches += 1
+    return tuple(g.transpose(1, 2) for g in grads)
+
+
+biacm_attention_train_bwd_cuda.launches = 0
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernels can read it through its strides (last
+    dim contiguous, 16-byte rows), else a contiguous copy."""
+    vec = 16 // x.element_size()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 \
+            and all(s % vec == 0 for s in x.stride()[:-1]):
+        return x
+    return x.contiguous()
+
+
+def _cpu_bits(rng, rate, q_t):
+    if rate <= 0.0:
+        return None
+    if isinstance(rng, (tuple, list)):
+        return tuple(rng)
+    B, nh, L, _ = q_t.shape
+    return attention_dropout_bits(int(rng), B, nh, L, device=q_t.device)
+
+
+class BiacmAttentionTrain(torch.autograd.Function):
+    """Differentiable training BiACM attention. CUDA tensors: kernel #2
+    forward, kernel #3 backward; the seed (not the masks) is kept for the
+    backward. CPU tensors: the plain twin, and its autograd gradient
+    recomputed in the backward. The bias gets no gradient (a padding
+    mask)."""
+
+    @staticmethod
+    def forward(ctx, q_t, k_t, v_t, q_l, k_l, v_l, bias, rng, scale_t,
+                scale_l, rate):
+        ctx.args = (scale_t, scale_l, rate)
+        ins = (q_t, k_t, v_t, q_l, k_l, v_l)
+        if q_t.is_cuda:
+            ct, cl, stats = biacm_attention_train_fwd_cuda(
+                *ins, bias, rng, scale_t, scale_l, rate)
+            ctx.rng = rng
+            ctx.save_for_backward(*ins, bias, stats)
+            return ct, cl
+        ctx.rng = _cpu_bits(rng, rate, q_t)
+        ctx.save_for_backward(*ins, bias)
+        return biacm_attention_train_reference(*ins, bias, ctx.rng, scale_t,
+                                               scale_l, rate)
+
+    @staticmethod
+    def backward(ctx, dct, dcl):
+        scale_t, scale_l, rate = ctx.args
+        saved = ctx.saved_tensors  # once: a checkpoint unpacks it once
+        if saved[0].is_cuda:
+            *ins, bias, stats = saved
+            dq_t, dk_t, dv_t, dq_l, dk_l, dv_l = biacm_attention_train_bwd_cuda(
+                *ins, bias, ctx.rng, stats,
+                _aligned(dct.to(torch.bfloat16)),
+                _aligned(dcl.to(torch.bfloat16)), scale_t, scale_l, rate)
+            return dq_t, dk_t, dv_t, dq_l, dk_l, dv_l, None, None, None, \
+                None, None
+        *ins, bias = saved
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in ins]
+            outs = biacm_attention_train_reference(
+                *leaves, bias, ctx.rng, scale_t, scale_l, rate)
+            grads = torch.autograd.grad(outs, leaves, (dct, dcl))
+        return (*grads, None, None, None, None, None)
+
+
+def biacm_attention_train(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
+                          scale_t: float, scale_l: float, rate: float = 0.0):
+    """Differentiable BiACM attention with attention dropout at ``rate``
+    (two independent masks, one per stream). Layout of the JAX function:
+    q/k/v ``(B, nh, L, d)``, ``bias (B, L)`` fp32; ``rng`` an int seed (the
+    kernels' Philox bits, :func:`attention_dropout_bits` on the CPU) or
+    explicit ``(bits1, bits2)`` (B, nh, L, L). Returns ``(ctx_t, ctx_l)``."""
+    return BiacmAttentionTrain.apply(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
+                                     float(scale_t), float(scale_l),
+                                     float(rate))

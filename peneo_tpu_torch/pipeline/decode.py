@@ -1,6 +1,8 @@
 """Host-side decoding: pair-head outputs → key/value pairs.
 
-The port's copy of ``peneo_tpu/pipeline/decode.py`` (prediction path). The
+The port's copy of ``peneo_tpu/pipeline/decode.py`` (the prediction path,
+and the ground-truth half of eval: ``spots_from_label_matrices`` and
+``decode_batch``, ``:447-483``). The
 device half of decoding (softmax/argmax/score over the (L, L) pair grids and
 the top-k spot compaction) runs in the model (models/decoder.py). This
 module takes those small integer/float arrays and runs the inherently
@@ -427,3 +429,42 @@ def decode_page_record(
                   for t, b in lines],
         "seconds": dt,
     }
+
+
+def spots_from_label_matrices(
+    labels: Dict[str, np.ndarray], sample_idx: int, seq_len: int
+) -> Dict[str, List[Spot]]:
+    """Ground-truth spot lists (score = 1) from dense (Ld, Ld) label matrices
+    or compact (S, 3) spot arrays (collator labels_as_spots mode)."""
+    out = {}
+    for name in HEAD_NAMES:
+        m = np.asarray(labels[name][sample_idx])
+        if m.ndim == 2 and m.shape[-1] == 3 and m.shape[0] != m.shape[1]:
+            keep = (m[:, 2] != 0) & (m[:, 0] < seq_len) & (m[:, 1] < seq_len)
+            kept = m[keep]
+            order = np.lexsort((kept[:, 1], kept[:, 0]))  # row-major
+            out[name] = [(int(i), int(j), int(t), 1.0)
+                         for i, j, t in kept[order]]
+        else:
+            out[name] = matrix_to_spots(m[:seq_len, :seq_len])
+    return out
+
+
+def decode_batch(
+    texts: Sequence[Sequence[str]],
+    pred_outputs: Dict[str, Dict[str, np.ndarray]],
+    gt_labels: Dict[str, np.ndarray],
+    seq_lens: Sequence[int],
+    fnames: Sequence[str],
+    score_thresh: float = 0.0,
+):
+    """Decode predictions and ground truth for a batch (reference decode_peneo,
+    pipeline/decode.py:381-511). Returns (pred_results, gt_results, fnames)."""
+    all_pred, all_gt, all_fnames = [], [], []
+    for i, (text, seq_len, fname) in enumerate(zip(texts, seq_lens, fnames)):
+        gt_spots = spots_from_label_matrices(gt_labels, i, seq_len)
+        all_pred.append(decode_pred_sample(text, pred_outputs, i, seq_len,
+                                           score_thresh=score_thresh))
+        all_gt.append(decode_sample(text, gt_spots, decode_gt=True))
+        all_fnames.append(fname)
+    return all_pred, all_gt, all_fnames

@@ -94,6 +94,14 @@ BACKBONE_REGISTRY = {
 }
 
 
+# files of a model directory's tokenizer (copied next to trained weights)
+TOKENIZER_FILES = (
+    "tokenizer.json", "tokenizer_config.json", "sentencepiece.bpe.model",
+    "vocab.json", "vocab.txt", "merges.txt", "special_tokens_map.json",
+    "toy_tokenizer.json",
+)
+
+
 def get_backbone_info(name: str) -> BackboneInfo:
     if name in BACKBONE_REGISTRY:
         return BACKBONE_REGISTRY[name]

@@ -1,0 +1,215 @@
+"""Fine-tune / evaluate PEneo (LiLT) on RFUND with the PyTorch port.
+
+The single-device flag surface of ``start/run_rfund.py`` (reference:
+start/run_rfund.py:23-81), plus ``--device``:
+
+    python -m peneo_tpu_torch.run_rfund \\
+        --model_name_or_path /path/to/peneo-weights \\
+        --data_dir /path/to/rfund --language en \\
+        --output_dir out --do_train --do_eval \\
+        --max_steps 25000 --learning_rate 5e-5 --warmup_ratio 0.1 \\
+        --per_device_train_batch_size 4 --per_device_eval_batch_size 16
+
+``--synthetic_data`` writes a synthetic RFUND corpus (64 train, 16 dev
+pages) and uses the toy tokenizer with a seeded random model of the
+``--synthetic_model`` geometry: no downloads. Runs on ``cuda`` (the CUDA
+BiACM kernels, bf16) unless ``--device cpu`` is given; without a GPU and
+without ``--device`` it raises. Left out (single device, one attention
+path): the mesh, distributed, platform, quantization and ``--fused_*``
+flags, and ``--steps_per_call``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+SYNTHETIC_MODEL_PRESETS = {
+    "tiny": dict(hidden_size=48, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=96),
+    "small": dict(hidden_size=240, num_hidden_layers=4, num_attention_heads=4,
+                  intermediate_size=480),
+    # full lilt-infoxlm-base geometry (sans the 250k real vocab unless
+    # --synthetic_vocab 250002)
+    "base": dict(hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072),
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # model args (reference ModelArguments)
+    p.add_argument("--model_name_or_path", type=str, default=None)
+    p.add_argument("--backbone_name", type=str, default="lilt-infoxlm-base")
+    # data args (reference DataArguments)
+    p.add_argument("--data_dir", type=str, default=None)
+    p.add_argument("--language", type=str, default="en")
+    p.add_argument("--apply_box_aug", action="store_true")
+    p.add_argument("--box_aug_quirk", action="store_true",
+                   help="with --apply_box_aug: the reference's always-down "
+                        "vertical jitter (data_utils.py:155-160)")
+    p.add_argument("--detail_eval", action="store_true")
+    p.add_argument("--save_eval_detail", action="store_true")
+    p.add_argument("--start_eval_epoch", type=int, default=0)
+    # training args (HF TrainingArguments subset)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_eval", action="store_true")
+    p.add_argument("--max_steps", type=int, default=25000)
+    p.add_argument("--learning_rate", type=float, default=5e-5)
+    p.add_argument("--warmup_ratio", type=float, default=0.1)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--per_device_train_batch_size", type=int, default=4)
+    p.add_argument("--per_device_eval_batch_size", type=int, default=16)
+    p.add_argument("--logging_steps", type=int, default=100)
+    p.add_argument("--eval_steps", type=int, default=1000)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--save_total_limit", type=int, default=1)
+    p.add_argument("--metric_for_best_model", type=str, default="f1")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no_resume", action="store_true")
+    # port extensions
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default cuda (raises without a GPU)")
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--max_seq_len", type=int, default=512)
+    p.add_argument("--dense_labels", action="store_true",
+                   help="ship dense int8 label matrices instead of spots")
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="generate a synthetic corpus + toy tokenizer")
+    p.add_argument("--synthetic_model", type=str, default="small",
+                   choices=sorted(SYNTHETIC_MODEL_PRESETS),
+                   help="backbone size for --synthetic_data runs")
+    p.add_argument("--synthetic_vocab", type=int, default=None,
+                   help="backbone vocab_size for --synthetic_data runs "
+                        "(e.g. 250002, the real XLM vocab; the toy "
+                        "tokenizer's ids stay valid)")
+    return p
+
+
+def setup(args, dataset_cls_name: str = "rfund"):
+    """Shared run_rfund/run_sibr setup. Returns (cfg, model, train_ds,
+    eval_ds, collator, tokenizer)."""
+    import torch
+
+    from .config import LiltConfig, PEneoConfig
+    from .data.collator import PEneoCollator
+    from .data.datasets import RFUNDDataset, SIBRDataset
+    from .models.peneo import PEneoModel
+    from .pipeline.infer import load_weights
+    from .registry import get_backbone_info, load_tokenizer
+
+    data_dir = args.data_dir or os.path.join(args.output_dir, "synthetic_data")
+    if args.synthetic_data:
+        from .data.fetchers import fetch_xlm
+        from .data.synthetic import ToyTokenizer, write_rfund_dataset, \
+            write_sibr_dataset
+
+        if dataset_cls_name == "rfund":
+            if not os.path.exists(os.path.join(
+                    data_dir, f"{args.language}.train.json")):
+                write_rfund_dataset(data_dir, args.language, n_train=64,
+                                    n_val=16)
+        elif not os.path.exists(os.path.join(data_dir, "train.txt")):
+            write_sibr_dataset(data_dir, n_train=64, n_test=16)
+        tokenizer = ToyTokenizer()
+        fetcher = fetch_xlm
+        if args.model_name_or_path:
+            cfg = PEneoConfig.from_pretrained(args.model_name_or_path)
+        else:
+            cfg = PEneoConfig(
+                backbone_name=args.backbone_name,
+                backbone_config=LiltConfig(
+                    vocab_size=args.synthetic_vocab or tokenizer.vocab_size,
+                    pad_token_id=0,
+                    **SYNTHETIC_MODEL_PRESETS[args.synthetic_model]).to_dict(),
+                peneo_category_weights=[1.0, 10.0, 10.0],
+                peneo_downstream_speedup_ratio=30.0)
+    else:
+        if not args.model_name_or_path:
+            raise ValueError("--model_name_or_path is required without "
+                             "--synthetic_data")
+        cfg = PEneoConfig.from_pretrained(args.model_name_or_path)
+        tokenizer = None
+        fetcher = None
+    cfg.max_seq_len = args.max_seq_len
+    cfg.dtype = args.dtype
+    info = get_backbone_info(cfg.backbone_name or args.backbone_name)
+    if info.family != "lilt":
+        raise NotImplementedError(
+            f"backbone family {info.family!r} is not ported yet (LiLT only)")
+    if tokenizer is None:
+        tokenizer = load_tokenizer(info, args.model_name_or_path)
+        fetcher = info.tokenizer_fetcher
+
+    model = PEneoModel(cfg)
+    if args.model_name_or_path:
+        load_weights(model, args.model_name_or_path)
+    else:
+        model.init_weights(torch.Generator().manual_seed(args.seed))
+
+    budget = args.max_seq_len - int(info.add_cls_token) \
+        - int(info.add_sep_token)
+    ds_kwargs = dict(tokenizer=tokenizer, tokenizer_fetcher=fetcher,
+                     max_token_len=min(info.max_token_len, budget + 1),
+                     add_cls_token=info.add_cls_token,
+                     add_sep_token=info.add_sep_token)
+    aug = dict(apply_box_aug=args.apply_box_aug,
+               box_aug_quirk=args.box_aug_quirk)
+    if dataset_cls_name == "rfund":
+        train_ds = RFUNDDataset(data_dir, "train", args.language, **aug,
+                                **ds_kwargs)
+        eval_ds = RFUNDDataset(data_dir, "dev", args.language, **ds_kwargs)
+    else:
+        train_ds = SIBRDataset(data_dir, "train", **aug, **ds_kwargs)
+        eval_ds = SIBRDataset(data_dir, "test", **ds_kwargs)
+    collator = PEneoCollator(
+        max_seq_len=args.max_seq_len,
+        pad_token_id=getattr(tokenizer, "pad_token_id", 0) or 0,
+        add_cls_token=info.add_cls_token,
+        labels_as_spots=not args.dense_labels)
+    return cfg, model, train_ds, eval_ds, collator, tokenizer
+
+
+def main(argv=None, dataset_cls_name: str = "rfund"):
+    args = build_argparser().parse_args(argv)
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+
+    from .pipeline.trainer import PEneoTrainer, TrainingArguments
+
+    cfg, model, train_ds, eval_ds, collator, tokenizer = setup(
+        args, dataset_cls_name)
+    targs = TrainingArguments(
+        output_dir=args.output_dir, learning_rate=args.learning_rate,
+        warmup_ratio=args.warmup_ratio, max_steps=args.max_steps,
+        per_device_train_batch_size=args.per_device_train_batch_size,
+        per_device_eval_batch_size=args.per_device_eval_batch_size,
+        weight_decay=args.weight_decay, logging_steps=args.logging_steps,
+        eval_steps=args.eval_steps, save_steps=args.save_steps,
+        save_total_limit=args.save_total_limit,
+        metric_for_best_model=args.metric_for_best_model, seed=args.seed,
+        detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
+        start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
+        device=args.device)
+    trainer = PEneoTrainer(cfg, model, targs, train_ds, eval_ds, collator,
+                           tokenizer=tokenizer,
+                           source_dir=args.model_name_or_path)
+    if args.do_train:
+        trainer.train()
+        trainer.save_model()
+    if args.do_eval:
+        metrics = trainer.evaluate()
+        trainer.log({"event": "final_eval", **metrics})
+        with open(os.path.join(args.output_dir, "eval_results.json"),
+                  "w") as f:
+            json.dump(metrics, f, indent=2)
+        return metrics
+    return None
+
+
+if __name__ == "__main__":
+    main()

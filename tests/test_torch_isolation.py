@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: nothing in peneo_tpu_torch/ or
-chip_smoke.py imports jax, flax or peneo_tpu, and the package, its models
-and its serving pipeline import with those three modules blocked."""
+chip_smoke.py imports jax, flax or peneo_tpu, and the package, its models,
+its serving pipeline and its training pipeline import with those three
+modules blocked."""
 
 import ast
 import os
@@ -48,6 +49,13 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch, peneo_tpu_torch.models.peneo\n"
         "import peneo_tpu_torch.pipeline.infer, peneo_tpu_torch.serve\n"
         "import peneo_tpu_torch.models.convert\n"
+        "import peneo_tpu_torch.run_rfund, peneo_tpu_torch.run_sibr\n"
+        "import peneo_tpu_torch.pipeline.trainer, peneo_tpu_torch.pipeline.train\n"
+        "import peneo_tpu_torch.pipeline.checkpoint\n"
+        "import peneo_tpu_torch.pipeline.evaluation\n"
+        "import peneo_tpu_torch.pipeline.loader, peneo_tpu_torch.ops.losses\n"
+        "import peneo_tpu_torch.data.datasets, peneo_tpu_torch.data.collator\n"
+        "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

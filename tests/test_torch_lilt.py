@@ -53,7 +53,7 @@ def test_lilt_matches_jax(L):
 
     port_cfg = PortConfig.from_dict(cfg.to_dict())
     sd = jax_params_to_state_dict(params, port_cfg)
-    model = PortLilt(port_cfg.backbone())
+    model = PortLilt(port_cfg.backbone()).eval()  # no dropout
     model.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()
                            if k.startswith("backbone.")})
     with torch.inference_mode():

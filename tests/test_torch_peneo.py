@@ -63,7 +63,7 @@ def models():
     want = PEneoModel(_cfg(0)).apply({"params": params}, ids, bbox, attn,
                            deterministic=True, return_logits=True)
     port_cfg = PortConfig.from_dict(_cfg(K).to_dict())
-    port = PortModel(port_cfg)
+    port = PortModel(port_cfg).eval()  # no dropout
     port.load_state_dict(jax_params_to_state_dict(params, port_cfg))
     return params, want, port, [torch.from_numpy(x) for x in (ids, bbox, attn)]
 
