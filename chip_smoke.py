@@ -6,8 +6,8 @@
 Phases, each printing one JSON line (any failure raises; exit code != 0):
 
 1. device  — requires CUDA; prints ``nvidia-smi`` name and power limit.
-2. build   — builds both CUDA libraries from ``peneo_tpu_torch/csrc`` (one
-   nvcc each, started together) and prints their ptxas reports.
+2. build   — builds the four CUDA libraries from ``peneo_tpu_torch/csrc``
+   (one nvcc each, started together) and prints their ptxas reports.
 3. kernel  — kernel #1 against its plain PyTorch twin (fp32 on the same
    bf16 inputs) at B=32, nh=12, d 64/16 and L = 512 (serving shape, last
    100 keys of half the rows masked), 128 and a ragged 200 (one row's first
@@ -60,7 +60,47 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
    keys are nearly collinear, within 3e-2 of the twins' path; kernel #3
    alone within 1e-2 of the twin's backward everywhere).
 11. train_breakdown — one training step's device time by kernel.
-12. the ``kernels`` line, then the final ``{"ok": true, ...}`` line.
+
+The LayoutLMv3 family (rel-bias attention, kernels #4-#6) at full width and
+depth: ``layoutlmv3-base-chinese`` geometry (768 hidden, 12 layers, 12 heads
+of 64, vocab 250002, 224 px image → 197 visual tokens, so L' = 709 at 512
+text positions), seeded random weights:
+
+12. kernel_bias — kernel #4 against its fp32 twin at B=32, nh=12, d=64 and
+   L' = 709 (last 100 text keys of half the rows masked), 128 and a ragged
+   200, with a random fp32 (B, nh, L', L') bias; max abs error ≤ 2e-2.
+   Medians of 20 launches of the kernel, the twin and
+   ``F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask)``, with
+   the backends that accept the mask at its natural and at a padded row
+   stride.
+13. kernel_bias_train — kernels #5 and #6 against the fp32 twin and its
+   autograd gradients (dq, dk, dv and dbias) at B=8 and the same lengths
+   plus 709 with nearly collinear rows, rates 0 and 0.1, explicit bits and
+   the in-kernel generator (bit-identical results; the twin takes
+   ``attention_dropout_bits`` word 0): forward ≤ 2e-2, each gradient ≤ 2e-2
+   of its own max |reference|; the kept share; timings.
+14. serve_v3 — the model saved as config.json / pytorch_model.bin /
+   toy_tokenizer.json, the 96 pages through ``InferenceService.run`` (B=32,
+   L=512, bf16, raw uint8 page images normalized on the card): a record per
+   page, kernel #4 exactly 12 times per forward, kernel #1 never; warm
+   pages/s, peak memory.
+15. parity_v3 / breakdown_v3 — as 6 and 8, with the image; the breakdown
+   also times the relative-bias build on its own.
+16. train_v3 — ``run_rfund`` in process with ``--synthetic_data
+   --model_name_or_path <that directory>`` (rendered pages, the 224 px
+   geometry), B=8, L=512, TRAIN_STEPS steps, eval and save: finite losses,
+   kernels #5 and #6 12 times per step, #4 12 times per eval forward, all
+   16 dev pages, the saved directory serves a page.
+17. train_parity_v3 — as 10, over layers 0 and 11's query/key/value weight
+   gradients, combine_fc's and the three bucket tables', each ≤ 1e-2
+   relative on its own (layer 11's query and key within 3e-2 of the twins'
+   path, as in 10 and for the same measured reason; kernel #6 alone within
+   1e-2 of the twin's backward everywhere).
+18. train_breakdown_v3 — as 11, with the bias build and the table gradients
+   timed on their own.
+19. the ``kernels`` line (all six), then the final ``{"ok": true, ...}``.
+
+Every phase also prints its seconds.
 """
 
 import json
@@ -104,8 +144,14 @@ TRAIN_GRAD_TOL = 1e-2
 # bf16-level differences between the two paths' forwards (the kernels round
 # the un-normalised p, the twins the normalised one) show there amplified.
 # Kernel #3 alone is held to TRAIN_GRAD_TOL there too: against the twin's
-# backward on kernel #2's forward.
+# backward on kernel #2's forward. The same holds for LayoutLMv3's last
+# layer and kernels #5/#6 (keys' spread 0.22 against 1.18 in layer 0; the
+# path differs by 1.1 %, kernel #6 alone by 0.6 %).
 PATH_QK_TOL = 3e-2
+# LayoutLMv3: 224 px image in 16 px patches + the visual cls token
+N_VIS = 197
+LV = L + N_VIS  # 709
+BIAS_GRAD_NAMES = ("dq", "dk", "dv", "dbias")
 # dense bf16 tensor-core peak (FLOP/s) and memory rate (B/s) of the two
 # H100 parts, by the names the driver reports (NVIDIA data sheets, dense
 # rates, full power limit)
@@ -460,10 +506,12 @@ def device_rows(prof, wall_ms, profile_dir, stem):
     return rows, device_ms
 
 
-def phase_breakdown(svc, img_dir, ocr_dir, profile_dir):
+def phase_breakdown(svc, img_dir, ocr_dir, profile_dir, v3=False):
     """Where one batch's time goes: host preprocess per page, the forward's
     enqueue and wall time (host clock to the fetched outputs), and the
-    device time by kernel from torch.profiler."""
+    device time by kernel from torch.profiler. ``v3``: the LayoutLMv3
+    service (kernel #4; also times the relative-bias build on its own)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -489,19 +537,40 @@ def phase_breakdown(svc, img_dir, ocr_dir, profile_dir):
         svc._fetch(svc.dispatch_batch(pages))
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     rows, device_ms = device_rows(prof, prof_wall_ms, profile_dir,
-                                  "serve_forward")
-    attn_ms = sum(r[1] for r in rows if "biacm" in r[0])
-    emit({"phase": "breakdown", "batch_size": B, "L": L,
-          "preprocess_ms_per_page": prep_ms,
+                                  "serve_v3_forward" if v3 else "serve_forward")
+    attn_ms = sum(r[1] for r in rows
+                  if ("bias_fwd_kernel" if v3 else "biacm") in r[0])
+    extra = {}
+    if v3:
+        bbox = v3_boxes(svc.model.backbone, torch.from_numpy(
+            np.stack([p[0]["bbox"] for p in pages])).cuda())
+        with torch.inference_mode():
+            extra["rel_bias_build_ms"] = time_ms(
+                lambda: svc.model.backbone.rel_bias(bbox, L, N_VIS))
+    emit({"phase": "breakdown_v3" if v3 else "breakdown", "batch_size": B,
+          "L": L, **extra, "preprocess_ms_per_page": prep_ms,
           "forward_enqueue_ms": statistics.median(enqueue),
           "forward_wall_ms": statistics.median(wall),
           "profiled_forward_wall_ms": prof_wall_ms,
-          "device_busy_ms": device_ms, "biacm_attention_ms": attn_ms,
+          "device_busy_ms": device_ms,
+          "bias_attention_ms" if v3 else "biacm_attention_ms": attn_ms,
           "device_idle_share": 1 - device_ms / prof_wall_ms,
           "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:12]]})
 
 
-def phase_parity(svc, img_dir, ocr_dir):
+def v3_boxes(backbone, bbox):
+    """Text boxes (B, L, 4) followed by the visual tokens' boxes, as
+    ``LayoutLMv3Model.forward`` concatenates them."""
+    import torch
+
+    from peneo_tpu_torch.models.layoutlmv3 import visual_bbox
+
+    vis = torch.from_numpy(visual_bbox(backbone.grid)).to(bbox.device)
+    return torch.cat([bbox.long(),
+                      vis[None].expand(bbox.shape[0], -1, -1)], dim=1)
+
+
+def phase_parity(svc, img_dir, ocr_dir, v3=False):
     import numpy as np
     import torch
 
@@ -509,12 +578,20 @@ def phase_parity(svc, img_dir, ocr_dir):
              for i in range(B)]
     ids, bbox, attn = (torch.from_numpy(np.stack([p[0][k] for p in pages]))
                        .cuda() for k in ("input_ids", "bbox", "attention_mask"))
+    kw = {}
+    if v3:  # the raw uint8 pages, normalized on the card as the service does
+        from peneo_tpu_torch.data.image_processing import \
+            device_image_normalize
+
+        kw["image"] = device_image_normalize(torch.from_numpy(
+            np.stack([p[0]["image"] for p in pages])).cuda(), svc.info.family)
     out = {}
     with torch.inference_mode():
         for impl in ("kernel", "plain"):
             svc.model.set_attention_impl(impl)
-            hidden = svc.model.backbone(ids, bbox, attn)["last_hidden_state"]
-            logits = svc.model(ids, bbox, attn, return_logits=True)[
+            hidden = svc.model.backbone(ids, bbox, attn,
+                                        **kw)["last_hidden_state"]
+            logits = svc.model(ids, bbox, attn, return_logits=True, **kw)[
                 "line_extraction"]["logits"]
             out[impl] = (hidden.float(), logits.float())
         svc.model.set_attention_impl("kernel")
@@ -527,8 +604,9 @@ def phase_parity(svc, img_dir, ocr_dir):
         if rel[name] > PARITY_TOL:
             raise RuntimeError(f"path parity {name}: rel err {rel[name]:.3e} "
                                f"> {PARITY_TOL}")
-    emit({"phase": "parity", "rel_err": rel, "tol": PARITY_TOL,
-          "shape": list(ids.shape)})
+    emit({"phase": "parity_v3" if v3 else "parity", "rel_err": rel,
+          "tol": PARITY_TOL, "shape": list(ids.shape),
+          "hidden_shape": list(out["kernel"][0].shape)})
 
 
 def phase_kernel_train(ba, peaks):
@@ -821,7 +899,10 @@ def key_spread(keys, attention_mask):
 
     B, length, _ = keys.shape
     k = keys.float().view(B, length, NH, -1)
-    m = attention_mask.float()[:, :, None, None]
+    m = attention_mask.float()
+    if m.shape[1] < length:  # the visual tokens after the text are all valid
+        m = torch.cat([m, m.new_ones((B, length - m.shape[1]))], dim=1)
+    m = m[:, :, None, None]
     mean = (k * m).sum(1, keepdim=True) / m.sum(1, keepdim=True)
     rms = (((k - mean) ** 2).sum(-1, keepdim=True) * m).sum(1) \
         / m.sum(1)
@@ -829,35 +910,62 @@ def key_spread(keys, attention_mask):
                         / mean.norm(dim=-1).squeeze(1)).item()
 
 
-def phase_train_parity(ba, model, batch):
+def bias_twin_backward(rb, ba):
+    """The same stand-in for kernel #6's launcher (dq, dk, dv, dbias)."""
+    import torch
+
+    def bwd(q, k, v, bias, mask, rng, stats, dctx, scale, rate=0.0):
+        B, nh, length, _ = q.shape
+        bits = None
+        if rate > 0.0:
+            bits = rng if isinstance(rng, torch.Tensor) else \
+                ba.attention_dropout_bits(rng, B, nh, length, q.device)[0]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+            out = rb.bias_attention_train_reference(*leaves, mask, bits,
+                                                    scale, rate)
+            return torch.autograd.grad(out, leaves, dctx)
+    return bwd
+
+
+def phase_train_parity(ops, model, batch, v3=False, ba=None):
     """One training step's loss and gradients from the same weights and
-    seeds: through the kernels, through the plain twins, and through kernel
-    #2's forward with the twin's backward. The last pair differs only in
-    kernel #3's arithmetic; the first also in the forwards' rounding."""
+    seeds: through the kernels, through the plain twins, and through the
+    forward kernel with the twin's backward. The last pair differs only in
+    the backward kernel's arithmetic; the first also in the forwards'
+    rounding. ``ops`` is the family's kernel module: BiACM (kernels #2/#3),
+    or with ``v3`` rel-bias (kernels #5/#6), where the three bucket tables'
+    gradients are compared too."""
     import torch
 
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
-    proj = ("query", "key", "value", "layout_query", "layout_key",
-            "layout_value")
+    proj = ("query", "key", "value") if v3 else (
+        "query", "key", "value", "layout_query", "layout_key", "layout_value")
     last = model.cfg.backbone().num_hidden_layers - 1
     weights = {f"layer{i}.{n}":
                f"backbone.encoder.layer.{i}.attention.self.{n}.weight"
                for i in (0, last) for n in proj}
     weights["combine_fc"] = \
         "peneo_decoder.handshaking_kernel.combine_fc.weight"
+    if v3:
+        weights.update({n: f"backbone.encoder.{n}.weight" for n in
+                        ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")})
+    bwd_name = ("bias_attention_train_bwd_cuda" if v3
+                else "biacm_attention_train_bwd_cuda")
     layers = model.backbone.encoder.layer
     keys = {}
     hooks = [layers[i].attention.self.key.register_forward_hook(
         lambda mod, inp, out, i=i: keys.__setitem__(i, out.detach()))
         for i in (0, last)]
-    kernel_bwd = ba.biacm_attention_train_bwd_cuda
+    kernel_bwd = getattr(ops, bwd_name)
     res = {}
     try:
         for run in ("kernel", "plain", "twin_backward"):
             model.load_state_dict(state0)
             model.set_attention_impl("plain" if run == "plain" else "kernel")
             if run == "twin_backward":
-                ba.biacm_attention_train_bwd_cuda = twin_backward(ba)
+                setattr(ops, bwd_name, bias_twin_backward(ops, ba) if v3
+                        else twin_backward(ops))
             model.train()
             model.zero_grad(set_to_none=True)
             torch.manual_seed(SEED)
@@ -865,7 +973,8 @@ def phase_train_parity(ba, model, batch):
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 losses = model(batch["input_ids"], batch["bbox"],
                                batch["attention_mask"],
-                               labels=batch["labels"], generator=gen)
+                               labels=batch["labels"], generator=gen,
+                               image=batch.get("image"))
             losses["total"].backward()
             params = dict(model.named_parameters())
             res[run] = (losses["total"].item(),
@@ -875,7 +984,7 @@ def phase_train_parity(ba, model, batch):
                 spread = {f"layer{i}": key_spread(k, batch["attention_mask"])
                           for i, k in keys.items()}
     finally:
-        ba.biacm_attention_train_bwd_cuda = kernel_bwd
+        setattr(ops, bwd_name, kernel_bwd)
         for hook in hooks:
             hook.remove()
         model.set_attention_impl("kernel")
@@ -891,7 +1000,7 @@ def phase_train_parity(ba, model, batch):
     path, backward = rel_errs("plain"), rel_errs("twin_backward")
     tol = {k: TRAIN_GRAD_TOL for k in weights}
     tol.update({f"layer{last}.{n}": PATH_QK_TOL for n in ("query", "key")})
-    emit({"phase": "train_parity",
+    emit({"phase": "train_parity_v3" if v3 else "train_parity",
           "loss": {run: res[run][0] for run in res},
           "rel_err": path, "rel_err_backward_only": backward,
           "key_spread": spread,
@@ -902,12 +1011,15 @@ def phase_train_parity(ba, model, batch):
             or any(backward[k] > TRAIN_GRAD_TOL for k in weights) \
             or any(path[k] > tol[k] for k in weights):
         raise RuntimeError(f"training parity: kernels vs plain {path}, "
-                           f"kernel #3 vs the twin's backward {backward}")
+                           f"the backward kernel vs the twin's backward "
+                           f"{backward}")
 
 
-def phase_train_breakdown(model, batch, profile_dir):
+def phase_train_breakdown(model, batch, profile_dir, v3=False):
     """Where one training step's device time goes (torch.profiler,
-    device-side events only)."""
+    device-side events only). ``v3``: LayoutLMv3 (kernels #5/#6); also
+    times the relative-bias build and the bucket tables' gradient (the
+    backward of ``RelBias``) on their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -930,16 +1042,490 @@ def phase_train_breakdown(model, batch, profile_dir):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, device_ms = device_rows(prof, wall_ms, profile_dir, "train_step")
-    fwd_ms = sum(r[1] for r in rows if "biacm_train_fwd" in r[0])
-    bwd_ms = sum(r[1] for r in rows if "biacm_train_dkdv" in r[0]
-                 or "biacm_train_dq" in r[0])
-    emit({"phase": "train_breakdown", "batch_size": TRAIN_B, "L": L,
+    rows, device_ms = device_rows(prof, wall_ms, profile_dir,
+                                  "train_v3_step" if v3 else "train_step")
+    stem = "bias_train_" if v3 else "biacm_train_"
+    fwd_ms = sum(r[1] for r in rows if stem + "fwd" in r[0])
+    bwd_ms = sum(r[1] for r in rows if stem + "dkdv" in r[0]
+                 or stem + "dq" in r[0])
+    extra = {}
+    if v3:
+        bb = model.backbone
+        bbox = v3_boxes(bb, batch["bbox"])
+        tables = [bb.encoder.rel_pos_bias.weight,
+                  bb.encoder.rel_pos_x_bias.weight,
+                  bb.encoder.rel_pos_y_bias.weight]
+        rel = bb.rel_bias(bbox, L, N_VIS)
+        upstream = torch.randn(rel.shape, device="cuda")
+        extra = {
+            "rel_bias_build_ms": time_ms(
+                lambda: bb.rel_bias(bbox, L, N_VIS)),
+            "table_grad_ms": time_ms(lambda: torch.autograd.grad(
+                rel, tables, upstream, retain_graph=True))}
+        del rel, upstream
+    emit({"phase": "train_breakdown_v3" if v3 else "train_breakdown",
+          "batch_size": TRAIN_B, "L": L, **extra,
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": device_ms,
           "train_fwd_kernel_ms": fwd_ms, "train_bwd_kernels_ms": bwd_ms,
           "train_kernels_share": (fwd_ms + bwd_ms) / device_ms,
           "device_idle_share": 1 - device_ms / wall_ms,
           "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:15]]})
+
+
+# ------------------------------------------------------------------------
+# LayoutLMv3: rel-bias attention (kernels #4-#6)
+# ------------------------------------------------------------------------
+
+def bias_inputs(batch, length, masked, gen, collinear=False):
+    """q/k/v as (B, nh, L, 64) views of (B, L, nh, 64) bf16 buffers (the
+    LayoutLMv3 layer's layout), a random fp32 (B, nh, L, L) bias and the
+    (B, L) fp32 key mask with ``masked`` keys of each listed row set to
+    finfo(f32).min/2. ``collinear``: every row close to the first token's
+    (spread 0.1, halved to keep values O(1)), where dq and dk are small
+    differences of large terms."""
+    import torch
+
+    def heads():
+        x = torch.randn((batch, length, NH, 64), generator=gen, device="cuda")
+        if collinear:
+            x = 0.5 * (x[:, :1] + 0.1 * x)
+        return x.to(torch.bfloat16).transpose(1, 2)
+
+    qkv = [heads() for _ in range(3)]
+    bias = torch.randn((batch, NH, length, length), generator=gen,
+                       device="cuda")
+    mask = torch.zeros((batch, length), device="cuda")
+    for row, keys in masked:
+        mask[row, keys] = torch.finfo(torch.float32).min / 2
+    return qkv, bias, mask
+
+
+def bias_cases(batch):
+    """L' = 709 with the last 100 text keys of half the rows masked (the
+    visual keys after them stay live), 128, and a ragged 200."""
+    return {
+        LV: [(r, slice(L - 100, L)) for r in range(0, batch, 2)],
+        128: [(r, slice(128 - 17, 128)) for r in range(1, batch, 2)],
+        200: [(0, slice(0, 80))] + [(r, slice(200 - 37, 200))
+                                     for r in range(1, batch, 2)],
+    }
+
+
+def sdpa_backends(fn):
+    """Milliseconds of ``fn`` (an SDPA call) under each backend alone, or
+    None where that backend refuses the call."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fn()
+                torch.cuda.synchronize()
+                out[name] = time_ms(fn, n=5, warmup=1)
+        except RuntimeError as err:
+            if "No available kernel" not in str(err):
+                raise
+            out[name] = None  # the backend refused the call
+    return out
+
+
+def padded_rows(x):
+    """A copy of ``x`` whose rows start 16 bytes apart at a multiple: the
+    last dim allocated up to a multiple of 8 elements, then cut back."""
+    import torch
+
+    n = x.shape[-1]
+    buf = torch.zeros((*x.shape[:-1], -(-n // 8) * 8), dtype=x.dtype,
+                      device=x.device)
+    buf[..., :n] = x
+    return buf[..., :n]
+
+
+def phase_kernel_bias(rb, peaks):
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    scale = 1.0 / 8.0
+    errs, timing = {}, {}
+    for length, masked in bias_cases(B).items():
+        (q, k, v), bias, mask = bias_inputs(B, length, masked, gen)
+        got = rb.bias_attention_cuda(q, k, v, bias, mask, scale)
+        want = rb.bias_attention_reference(q.float(), k.float(), v.float(),
+                                           bias, mask, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"non-finite kernel #4 output at L={length}")
+        errs[length] = (got.float() - want).abs().max().item()
+        if errs[length] > KERNEL_TOL:
+            raise RuntimeError(f"kernel #4 vs plain twin at L={length}: max "
+                               f"abs err {errs[length]:.3e} > {KERNEL_TOL}")
+        if length != LV:
+            continue
+        # the library call: one additive bf16 mask, at its natural row
+        # stride (709 · 2 bytes, not 16-byte aligned) and at a padded one
+        full = (bias + mask[:, None, None, :]).to(torch.bfloat16)
+        padded = padded_rows(full)
+
+        def sdpa(m):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+        sdpa_err = (sdpa(full).float() - want).abs().max().item()
+        timing = {
+            "ms": time_ms(lambda: rb.bias_attention_cuda(q, k, v, bias, mask,
+                                                         scale)),
+            "plain_ms": time_ms(lambda: rb.bias_attention_reference(
+                q, k, v, bias, mask, scale)),
+            "library_ms": time_ms(lambda: sdpa(full)),
+            "library_padded_stride_ms": time_ms(lambda: sdpa(padded)),
+            "library_backends": {
+                "natural_stride": sdpa_backends(lambda: sdpa(full)),
+                "padded_stride": sdpa_backends(lambda: sdpa(padded))},
+            "sdpa_max_abs_err": sdpa_err,
+        }
+        del full, padded
+    # least time for one serving-shape call: q/k/v, the bias and the mask
+    # read once, the output written once, vs the FLOPs of the 2 products
+    bound = bound_of(4 * B * NH * LV * 64 * 2 + B * NH * LV * LV * 4
+                     + B * LV * 4, 4 * B * NH * LV * LV * 64, peaks)
+    emit({"phase": "kernel_bias", "max_abs_err": errs, "tol": KERNEL_TOL,
+          "shape": [B, NH, LV, 64], **timing, **bound})
+    return max(errs.values()), timing, bound
+
+
+def phase_kernel_bias_train(rb, ba, peaks):
+    """Kernels #5 and #6 against the fp32 twin on the same bf16 inputs and
+    output gradient; the dropout mask; timings at the training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    scale, bt = 1.0 / 8.0, TRAIN_B
+    cases = bias_cases(bt)
+
+    def out_grad(length):
+        return torch.randn((bt, length, NH, 64), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    def rel_errs(got_g, want_g, key):
+        errs = [(g.float() - w).abs().max().item()
+                for g, w in zip(got_g, want_g)]
+        scales = [w.abs().max().item() for w in want_g]
+        if min(scales) == 0.0:
+            raise RuntimeError(f"{key}: a reference gradient is all zero; "
+                               "its relative error is undefined")
+        return max(errs), {n: e / m for n, e, m in
+                           zip(BIAS_GRAD_NAMES, errs, scales)}
+
+    fwd_err, grad_abs, grad_rel = {}, {}, {}
+    for length, masked, name in [(n, m, f"L{n}") for n, m in cases.items()] \
+            + [(LV, cases[LV], f"L{LV}_collinear")]:
+        qkv, bias, mask = bias_inputs(bt, length, masked, gen,
+                                      collinear=name.endswith("collinear"))
+        dctx = out_grad(length)
+        for rate in (0.0, DROP):
+            seed = SEED + length
+            bits = ba.attention_dropout_bits(seed, bt, NH, length, "cuda")[0]
+            leaves = [x.float().requires_grad_() for x in qkv] \
+                + [bias.clone().requires_grad_()]
+            want = rb.bias_attention_train_reference(*leaves, mask, bits,
+                                                     scale, rate)
+            want_g = torch.autograd.grad(want, leaves, dctx.float())
+            got_all = {}
+            for mode, rng in (("philox", seed), ("bits", bits)):
+                ins = [x.detach().requires_grad_() for x in qkv] \
+                    + [bias.clone().requires_grad_()]
+                got = rb.bias_attention_train(*ins, mask, rng, scale, rate)
+                got_g = torch.autograd.grad(got, ins, dctx)
+                torch.cuda.synchronize()
+                key = f"{name}_rate{rate}_{mode}"
+                for x in (got, *got_g):
+                    if not torch.isfinite(x).all():
+                        raise RuntimeError(f"non-finite kernel output, {key}")
+                fwd_err[key] = (got.float() - want).abs().max().item()
+                grad_abs[key], grad_rel[key] = rel_errs(got_g, want_g, key)
+                if fwd_err[key] > TRAIN_KERNEL_TOL \
+                        or max(grad_rel[key].values()) > TRAIN_KERNEL_TOL:
+                    raise RuntimeError(
+                        f"rel-bias training kernels vs plain twin, {key}: "
+                        f"forward max abs err {fwd_err[key]:.3e}, gradients' "
+                        f"max abs err over their max |reference| "
+                        f"{grad_rel[key]} > {TRAIN_KERNEL_TOL}")
+                got_all[mode] = (got, *got_g)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got_all["philox"], got_all["bits"])):
+                raise RuntimeError(
+                    f"{name}, rate {rate}: the in-kernel generator's results "
+                    "differ from those of attention_dropout_bits word 0")
+            del bits, leaves, want, want_g, got_all
+
+    # the mask at the training shape
+    keep = ba.attention_dropout_bits(SEED, bt, NH, LV, "cuda")[0] \
+        < ba.keep_threshold(DROP)
+    kept = keep.float().mean().item()
+    del keep
+    if abs(kept - (1.0 - DROP)) > KEEP_TOL:
+        raise RuntimeError(f"kept share {kept} is not within {KEEP_TOL} of "
+                           f"{1.0 - DROP}")
+
+    # timings at the training shape, with the main path's in-kernel bits
+    (q, k, v), bias, mask = bias_inputs(bt, LV, cases[LV], gen)
+    dctx = out_grad(LV)
+    stats = rb.bias_attention_train_fwd_cuda(q, k, v, bias, mask, SEED,
+                                             scale, DROP)[1]
+    timing = {
+        "fwd_ms": time_ms(lambda: rb.bias_attention_train_fwd_cuda(
+            q, k, v, bias, mask, SEED, scale, DROP)),
+        "bwd_ms": time_ms(lambda: rb.bias_attention_train_bwd_cuda(
+            q, k, v, bias, mask, SEED, stats, dctx, scale, DROP)),
+        "fwd_rate0_ms": time_ms(lambda: rb.bias_attention_train_fwd_cuda(
+            q, k, v, bias, mask, SEED, scale, 0.0)),
+    }
+    bits = ba.attention_dropout_bits(SEED, bt, NH, LV, "cuda")[0]
+    timing["plain_fwd_ms"] = time_ms(
+        lambda: rb.bias_attention_train_reference(q, k, v, bias, mask, bits,
+                                                  scale, DROP))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    out = rb.bias_attention_train_reference(*leaves, mask, bits, scale, DROP)
+    timing["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        out, leaves, dctx, retain_graph=True))
+    del out, leaves, bits
+    # the library call (no dropout), its mask trained as the bias is
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    full = (bias + mask[:, None, None, :]).to(torch.bfloat16)
+    backends = {}
+    for label, m in (("natural_stride", full),
+                     ("padded_stride", padded_rows(full))):
+        m = m.detach().requires_grad_()
+
+        def sdpa(m=m):
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m)
+
+        def fwd_bwd(m=m):
+            return torch.autograd.grad(sdpa(), (ql, kl, vl, m), dctx)
+
+        with torch.no_grad():
+            fwd = time_ms(sdpa)
+        o = sdpa()
+        bwd = time_ms(lambda: torch.autograd.grad(o, (ql, kl, vl, m), dctx,
+                                                  retain_graph=True))
+        del o
+        if label == "natural_stride":
+            timing["library_fwd_ms"], timing["library_bwd_ms"] = fwd, bwd
+        else:
+            timing["library_padded_stride_fwd_ms"] = fwd
+            timing["library_padded_stride_bwd_ms"] = bwd
+        backends[label] = sdpa_backends(fwd_bwd)
+    timing["library_backends_fwd_bwd"] = backends
+    del full
+
+    qkv_bytes = bt * NH * LV * 64 * 2            # one of q, k, v, ctx, dctx…
+    bias_bytes = bt * NH * LV * LV * 4
+    small = bt * LV * 4 + bt * NH * LV * 2 * 4   # mask, statistics
+    bounds = {
+        # reads q/k/v, bias, mask; writes ctx and the statistics
+        "fwd": bound_of(4 * qkv_bytes + bias_bytes + small,
+                        4 * bt * NH * LV * LV * 64, peaks),
+        # reads q/k/v, dctx, bias, mask, statistics; writes dq/dk/dv, dbias
+        "bwd": bound_of(7 * qkv_bytes + 2 * bias_bytes + small,
+                        5 * 2 * bt * NH * LV * LV * 64, peaks),
+    }
+    emit({"phase": "kernel_bias_train", "fwd_max_abs_err": fwd_err,
+          "grad_max_abs_err": grad_abs, "grad_rel_err": grad_rel,
+          "tol": TRAIN_KERNEL_TOL, "kept_share": kept, "rate": DROP,
+          "shape": [bt, NH, LV, 64], **timing, "bounds": bounds})
+    errors = {"fwd_max_abs_err": max(fwd_err.values()),
+              "grad_max_abs_err": max(grad_abs.values()),
+              "grad_max_rel_err": max(max(r.values())
+                                      for r in grad_rel.values())}
+    return errors, timing, bounds
+
+
+def write_model_v3(wdir):
+    """layoutlmv3-base-chinese geometry (LayoutLMv3Config defaults at vocab
+    250002, pad_token_id 1) + PEneo decoder with seeded random weights →
+    wdir; dropout 0.1 and the decoder's ×30 learning rate for the train
+    phase (serving runs in eval mode)."""
+    import torch
+
+    from peneo_tpu_torch.config import LayoutLMv3Config, PEneoConfig
+    from peneo_tpu_torch.data.synthetic import ToyTokenizer
+    from peneo_tpu_torch.models.peneo import PEneoModel
+
+    tok = ToyTokenizer(vocab_size=250002)
+    cfg = PEneoConfig(
+        backbone_name="layoutlmv3-base-chinese",
+        backbone_config=LayoutLMv3Config(
+            vocab_size=250002, max_position_embeddings=L + 8,
+            pad_token_id=1, hidden_dropout_prob=DROP,
+            attention_probs_dropout_prob=DROP).to_dict(),
+        max_seq_len=L, peneo_category_weights=[1.0, 10.0, 10.0],
+        peneo_downstream_speedup_ratio=30.0)
+    model = PEneoModel(cfg).init_weights(
+        torch.Generator().manual_seed(SEED + 1))
+    cfg.save_pretrained(wdir)
+    tok.save_pretrained(wdir)
+    torch.save(model.state_dict(), os.path.join(wdir, "pytorch_model.bin"))
+    return sum(p.numel() for p in model.parameters())
+
+
+def phase_serve_v3(rb, ba, tmp, img_dir, ocr_dir):
+    """The 96 pages of the serve phase through the LayoutLMv3 service."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    wdir = os.path.join(tmp, "model_v3")
+    t0 = time.perf_counter()
+    n_params = write_model_v3(wdir)
+    svc = InferenceService(wdir, batch_size=B, dtype="bfloat16")
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    rb.bias_attention_cuda.launches = 0
+    ba.biacm_attention_cuda.launches = 0
+    results = svc.run(img_dir, ocr_dir)
+    torch.cuda.synchronize()
+    launches = rb.bias_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    n_forwards = math.ceil(N_PAGES / B)
+    layers = svc.cfg.backbone().num_hidden_layers
+    if launches != layers * n_forwards or ba.biacm_attention_cuda.launches:
+        raise RuntimeError(
+            f"kernel #4 launched {launches} times over {n_forwards} "
+            f"forwards (expected {layers * n_forwards}), kernel #1 "
+            f"{ba.biacm_attention_cuda.launches} times (expected 0)")
+    expected = {f"page_{i:03d}.png" for i in range(N_PAGES)}
+    if set(results) != expected:
+        raise RuntimeError(f"{len(expected - set(results))} pages returned "
+                           "no record")
+    for name, rec in results.items():
+        if not (isinstance(rec.get("kv_pairs"), list)
+                and isinstance(rec.get("lines"), list)):
+            raise RuntimeError(f"malformed record for {name}")
+    run = svc.last_run
+    warm = [run["warm_pages"] / run["warm_seconds"]]
+    for _ in range(SERVE_REPEATS - 1):  # spread of the warm rate
+        svc.run(img_dir, ocr_dir)
+        warm.append(svc.last_run["warm_pages"] / svc.last_run["warm_seconds"])
+    t0 = time.perf_counter()
+    pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+             for i in range(B)]
+    prep_ms = (time.perf_counter() - t0) / B * 1e3
+    image = pages[0][0]["image"]
+    emit({"phase": "serve_v3", "params": n_params, "pages": run["pages"],
+          "batch_size": B, "L": L, "attention_length": LV,
+          "dtype": "bfloat16", "setup_seconds": setup_s,
+          "seconds": run["seconds"],
+          "pages_per_s": run["pages"] / run["seconds"],
+          "warm_pages_per_s": statistics.median(warm),
+          "warm_pages_per_s_runs": warm,
+          "preprocess_ms_per_page": prep_ms,
+          "image": [str(image.dtype), *image.shape],
+          "max_memory_allocated": peak,
+          "kernel_launches": launches, "forwards": n_forwards,
+          "launches_per_forward": launches / n_forwards,
+          "mean_tokens_per_page": sum(p[3] for p in pages) / len(pages),
+          "kv_pairs": sum(len(r["kv_pairs"]) for r in results.values()),
+          "lines": sum(len(r["lines"]) for r in results.values())})
+    return svc, wdir, launches
+
+
+def phase_train_v3(rb, ba, tmp, wdir):
+    """LayoutLMv3 fine-tuning through the port's CLI, in process, from the
+    saved full-width model on the synthetic corpus with rendered pages."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    out = os.path.join(tmp, "train_v3")
+    argv = ["--synthetic_data", "--model_name_or_path", wdir,
+            "--output_dir", out, "--do_train",
+            "--max_steps", str(TRAIN_STEPS), "--max_seq_len", str(L),
+            "--per_device_train_batch_size", str(TRAIN_B),
+            "--per_device_eval_batch_size", str(TRAIN_B),
+            "--logging_steps", str(LOG_EVERY),
+            "--eval_steps", str(TRAIN_STEPS),
+            "--save_steps", str(TRAIN_STEPS), "--seed", str(SEED)]
+    counters = {"bias_attention": rb.bias_attention_cuda,
+                "fwd": rb.bias_attention_train_fwd_cuda,
+                "bwd": rb.bias_attention_train_bwd_cuda,
+                "biacm_attention": ba.biacm_attention_cuda,
+                "biacm_fwd": ba.biacm_attention_train_fwd_cuda}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run_rfund.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss/total" in r]
+    evals = [r for r in records if "eval/f1" in r]
+    losses = [r["loss/total"] for r in steps]
+    logged = list(range(LOG_EVERY, TRAIN_STEPS + 1, LOG_EVERY))
+    if [r["step"] for r in steps] != logged \
+            or not all(map(math.isfinite, losses)) \
+            or steps[-1]["nonfinite_loss_steps"] != 0:
+        raise RuntimeError(f"logged steps {[r['step'] for r in steps]} (want "
+                           f"{logged}), losses {losses}, non-finite steps "
+                           f"{[r['nonfinite_loss_steps'] for r in steps]}")
+    layers, n_dev = 12, 16
+    eval_forwards = math.ceil(n_dev / TRAIN_B)
+    want = {"fwd": layers * TRAIN_STEPS, "bwd": layers * TRAIN_STEPS,
+            "bias_attention": layers * eval_forwards, "biacm_attention": 0,
+            "biacm_fwd": 0}
+    if launches != want:
+        raise RuntimeError(f"kernels launched {launches} over {TRAIN_STEPS} "
+                           f"steps and {eval_forwards} eval forwards, "
+                           f"expected {want}")
+    if len(evals) != 1 or evals[0]["eval/num_sample_processed"] != n_dev:
+        raise RuntimeError(f"eval records {evals}: expected one over "
+                           f"{n_dev} dev pages")
+    ms_step = ((steps[-1]["time"] - steps[0]["time"])
+               / (TRAIN_STEPS - LOG_EVERY) * 1e3)
+    intervals = [(b["time"] - a["time"]) / LOG_EVERY * 1e3
+                 for a, b in zip(steps, steps[1:])]
+
+    # the saved directory serves a page through kernel #4
+    img_dir = os.path.join(tmp, "one_img_v3")
+    ocr_dir = os.path.join(tmp, "one_ocr_v3")
+    write_pages(img_dir, ocr_dir, n_pages=1)
+    svc = InferenceService(out, batch_size=1, dtype="bfloat16")
+    rb.bias_attention_cuda.launches = 0
+    served = svc.run(img_dir, ocr_dir)
+    torch.cuda.synchronize()
+    if rb.bias_attention_cuda.launches != layers or len(served) != 1:
+        raise RuntimeError(f"the trained model served {len(served)} pages "
+                           f"with {rb.bias_attention_cuda.launches} "
+                           "launches of kernel #4")
+    emit({"phase": "train_v3", "steps": TRAIN_STEPS, "batch_size": TRAIN_B,
+          "L": L, "attention_length": LV, "dropout": DROP,
+          "launches": launches, "ms_per_step": ms_step,
+          "samples_per_s": TRAIN_B / (ms_step / 1e3),
+          "ms_per_step_window": [LOG_EVERY + 1, TRAIN_STEPS],
+          "ms_per_step_intervals": intervals,
+          "max_memory_allocated": peak, "logged_steps": logged,
+          "first_logged_loss": losses[0], "last_loss": losses[-1],
+          "losses": losses,
+          "nonfinite_loss_steps": steps[-1]["nonfinite_loss_steps"],
+          "grad_norms": [r["loss/grad_norm"] for r in steps],
+          "eval": {k[len("eval/"):]: v for k, v in evals[0].items()
+                   if k.startswith("eval/")},
+          "wall_seconds": wall, "served_pages": len(served)})
+    return launches, out
 
 
 def main(argv=None):
@@ -963,6 +1549,7 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     # the port must sit beside this script: fail before printing anything
     from peneo_tpu_torch.ops import biacm_attention as ba
+    from peneo_tpu_torch.ops import bias_attention as rb
     from peneo_tpu_torch.ops.cuda_build import BUILD_DIR, build_libraries, \
         build_log
 
@@ -978,63 +1565,111 @@ def main(argv=None):
           "peaks": {"table": peaks[0], "bf16_flops": peaks[1],
                     "bytes_per_s": peaks[2]}})
 
+    def timed(name, fn, *a, **kw):
+        """Run one phase and print its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+        return out
+
     t0 = time.perf_counter()
-    build_libraries([ba.SOURCE, ba.TRAIN_SOURCE])  # one nvcc each, at once
+    sources = (ba.SOURCE, ba.TRAIN_SOURCE, rb.SOURCE, rb.TRAIN_SOURCE)
+    build_libraries(sources)  # one nvcc each, all started together
     ba.load_kernel()
     ba.load_train_kernel()
+    rb.load_kernel()
+    rb.load_train_kernel()
     ptxas = {src: [ln.strip() for ln in build_log(src).splitlines()
                    if "registers" in ln or "spill" in ln
                    or "entry function" in ln]
-             for src in (ba.SOURCE, ba.TRAIN_SOURCE)}
+             for src in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
-    max_err, timing, bound = phase_kernel(ba, peaks)
-    train_err, train_timing, train_bounds = phase_kernel_train(ba, peaks)
+    max_err, timing, bound = timed("kernel", phase_kernel, ba, peaks)
+    train_err, train_timing, train_bounds = timed(
+        "kernel_train", phase_kernel_train, ba, peaks)
+    bias_err, bias_timing, bias_bound = timed(
+        "kernel_bias", phase_kernel_bias, rb, peaks)
+    bias_train_err, bias_train_timing, bias_train_bounds = timed(
+        "kernel_bias_train", phase_kernel_bias_train, rb, ba, peaks)
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke-", dir=BUILD_DIR) as tmp:
-        svc, img_dir, ocr_dir, docs, launches = phase_serve(ba, tmp)
-        phase_parity(svc, img_dir, ocr_dir)
-        phase_decode(svc, img_dir, ocr_dir, docs)
-        phase_breakdown(svc, img_dir, ocr_dir, args.profile)
+        svc, img_dir, ocr_dir, docs, launches = timed(
+            "serve", phase_serve, ba, tmp)
+        timed("parity", phase_parity, svc, img_dir, ocr_dir)
+        timed("decode", phase_decode, svc, img_dir, ocr_dir, docs)
+        timed("breakdown", phase_breakdown, svc, img_dir, ocr_dir,
+              args.profile)
         del svc
-        train_launches, train_out = phase_train(ba, tmp)
+        train_launches, train_out = timed("train", phase_train, ba, tmp)
         model, batch = train_batch(train_out)
-        phase_train_parity(ba, model, batch)
-        phase_train_breakdown(model, batch, args.profile)
+        timed("train_parity", phase_train_parity, ba, model, batch)
+        timed("train_breakdown", phase_train_breakdown, model, batch,
+              args.profile)
+        del model, batch
+        torch.cuda.empty_cache()
 
-    train_src = "peneo_tpu_torch/csrc/biacm_attention_train.cu"
-    emit({"kernels": [{
-        "name": "biacm_attention", "route": "cuda",
-        "source": "peneo_tpu_torch/csrc/biacm_attention.cu",
-        "replaces": "peneo_tpu/ops/biacm_attention.py:49",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-        "library_ms": timing["library_ms"],
-        "us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3,
-        "sdpa_us": timing["library_ms"] * 1e3}, {
-        "name": "biacm_attention_train_fwd", "route": "cuda",
-        "source": train_src,
-        "replaces": "peneo_tpu/ops/biacm_attention.py:295",
-        "launches": train_launches["fwd"],
-        "max_abs_err": train_err["fwd_max_abs_err"],
-        "ms": train_timing["fwd_ms"], "plain_ms": train_timing["plain_fwd_ms"],
-        "bound_ms": train_bounds["fwd"]["bound_ms"],
-        "bound_by": train_bounds["fwd"]["bound_by"],
-        "library_ms": train_timing["library_fwd_ms"]}, {
-        "name": "biacm_attention_train_bwd", "route": "cuda",
-        "source": train_src,
-        "replaces": "peneo_tpu/ops/biacm_attention.py:327",
-        "launches": train_launches["bwd"],
-        # over the six gradients; the gate is each one's error over its
-        # own max |reference| (max_rel_err)
-        "max_abs_err": train_err["grad_max_abs_err"],
-        "max_rel_err": train_err["grad_max_rel_err"],
-        "ms": train_timing["bwd_ms"], "plain_ms": train_timing["plain_bwd_ms"],
-        "bound_ms": train_bounds["bwd"]["bound_ms"],
-        "bound_by": train_bounds["bwd"]["bound_by"],
-        "library_ms": train_timing["library_bwd_ms"]}]})
+        svc, wdir_v3, bias_launches = timed(
+            "serve_v3", phase_serve_v3, rb, ba, tmp, img_dir, ocr_dir)
+        timed("parity_v3", phase_parity, svc, img_dir, ocr_dir, v3=True)
+        timed("breakdown_v3", phase_breakdown, svc, img_dir, ocr_dir,
+              args.profile, v3=True)
+        del svc
+        torch.cuda.empty_cache()
+        bias_train_launches, train_out = timed(
+            "train_v3", phase_train_v3, rb, ba, tmp, wdir_v3)
+        model, batch = train_batch(train_out)
+        timed("train_parity_v3", phase_train_parity, rb, model, batch,
+              v3=True, ba=ba)
+        timed("train_breakdown_v3", phase_train_breakdown, model, batch,
+              args.profile, v3=True)
+        del model, batch
+
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
+              library_ms, max_rel_err=None):
+        """One kernel of the ``kernels`` line; every entry has these keys
+        (``max_rel_err`` is null for the forward kernels)."""
+        return {"name": name, "route": "cuda",
+                "source": "peneo_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "max_rel_err": max_rel_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+                "bound_by": bnd["bound_by"], "library_ms": library_ms}
+
+    jb = "peneo_tpu/ops/biacm_attention.py:"
+    jr = "peneo_tpu/ops/bias_attention.py:"
+    # the backward kernels' max_abs_err is over their gradients; the gate is
+    # each one's error over its own max |reference| (max_rel_err)
+    emit({"kernels": [
+        entry("biacm_attention", "biacm_attention.cu", jb + "49", launches,
+              max_err, timing["ms"], timing["plain_ms"], bound,
+              timing["library_ms"]),
+        entry("biacm_attention_train_fwd", "biacm_attention_train.cu",
+              jb + "295", train_launches["fwd"], train_err["fwd_max_abs_err"],
+              train_timing["fwd_ms"], train_timing["plain_fwd_ms"],
+              train_bounds["fwd"], train_timing["library_fwd_ms"]),
+        entry("biacm_attention_train_bwd", "biacm_attention_train.cu",
+              jb + "327", train_launches["bwd"],
+              train_err["grad_max_abs_err"], train_timing["bwd_ms"],
+              train_timing["plain_bwd_ms"], train_bounds["bwd"],
+              train_timing["library_bwd_ms"],
+              max_rel_err=train_err["grad_max_rel_err"]),
+        entry("bias_attention", "bias_attention.cu", jr + "59", bias_launches,
+              bias_err, bias_timing["ms"], bias_timing["plain_ms"],
+              bias_bound, bias_timing["library_ms"]),
+        entry("bias_attention_train_fwd", "bias_attention_train.cu",
+              jr + "280", bias_train_launches["fwd"],
+              bias_train_err["fwd_max_abs_err"], bias_train_timing["fwd_ms"],
+              bias_train_timing["plain_fwd_ms"], bias_train_bounds["fwd"],
+              bias_train_timing["library_fwd_ms"]),
+        entry("bias_attention_train_bwd", "bias_attention_train.cu",
+              jr + "304", bias_train_launches["bwd"],
+              bias_train_err["grad_max_abs_err"],
+              bias_train_timing["bwd_ms"], bias_train_timing["plain_bwd_ms"],
+              bias_train_bounds["bwd"], bias_train_timing["library_bwd_ms"],
+              max_rel_err=bias_train_err["grad_max_rel_err"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

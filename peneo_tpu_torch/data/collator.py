@@ -20,7 +20,7 @@ Replacement for the reference's DataCollatorForPEneo
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -48,13 +48,17 @@ class Batch:
     attention_mask: np.ndarray     # (B, L) int32
     labels: Dict[str, np.ndarray]  # head → (B, Ld, Ld) int32
     seq_len: np.ndarray            # (B,) true taggable length per sample
+    image: Optional[np.ndarray] = None   # (B, C, H, W) float32
     texts: Optional[List[List[str]]] = None
     relations: Optional[List[List[Dict]]] = None
     fnames: Optional[List[str]] = None
 
     def model_inputs(self) -> Dict[str, np.ndarray]:
-        return {"input_ids": self.input_ids, "bbox": self.bbox,
-                "attention_mask": self.attention_mask}
+        out = {"input_ids": self.input_ids, "bbox": self.bbox,
+               "attention_mask": self.attention_mask}
+        if self.image is not None:
+            out["image"] = self.image
+        return out
 
 
 class PEneoCollator:
@@ -62,7 +66,9 @@ class PEneoCollator:
 
     ``pad_token_id`` pads input_ids; bboxes pad with zeros; labels are built
     over the taggable range Ld = max_seq_len - int(add_cls_token)
-    (reference: data/collator.py:156-169).
+    (reference: data/collator.py:156-169). ``image_loader`` (path → CHW
+    float32, data/image_processing.py) adds the stacked page images of a
+    visual backbone.
     """
 
     def __init__(
@@ -71,7 +77,9 @@ class PEneoCollator:
         pad_token_id: int = 0,
         add_cls_token: bool = True,
         labels_as_spots: bool = False,
+        image_loader: Optional[Callable[[str], np.ndarray]] = None,
     ) -> None:
+        self.image_loader = image_loader
         self.max_seq_len = max_seq_len
         self.pad_token_id = pad_token_id
         self.add_cls_token = add_cls_token
@@ -129,6 +137,11 @@ class PEneoCollator:
                 for name, key in LABEL_KEYS.items()
             }
 
+        image = None
+        if self.image_loader is not None:
+            image = np.stack([self.image_loader(f["image_path"])
+                              for f in features])
+
         return Batch(
             input_ids=input_ids,
             bbox=bbox,
@@ -136,6 +149,7 @@ class PEneoCollator:
             attention_mask=attn,
             labels=labels,
             seq_len=seq_len,
+            image=image,
             texts=[list(f["text"]) for f in features],
             relations=[f.get("relations", []) for f in features],
             fnames=[f.get("fname", str(i)) for i, f in enumerate(features)],

@@ -160,8 +160,10 @@ def write_rfund_dataset(
     n_val: int = 8,
     seed: int = 0,
     image_size: Tuple[int, int] = (1000, 1400),
+    with_images: bool = False,
 ) -> str:
-    """Materialize a synthetic RFUND-layout dataset directory."""
+    """Materialize a synthetic RFUND-layout dataset directory;
+    ``with_images`` also renders each page to a PNG (visual backbones)."""
     rng = random.Random(seed)
     os.makedirs(os.path.join(root, "images", language), exist_ok=True)
     for split, n in (("train", n_train), ("val", n_val)):
@@ -172,6 +174,12 @@ def write_rfund_dataset(
         with open(os.path.join(root, f"{language}.{split}.json"), "w",
                   encoding="utf-8") as f:
             json.dump({"documents": docs}, f)
+        if with_images:
+            from PIL import Image
+
+            for d in docs:
+                Image.fromarray(render_page(d)).save(
+                    os.path.join(root, "images", language, d["img"]["fname"]))
     return root
 
 

@@ -1,5 +1,5 @@
 """Weight bridge between the JAX package's PEneoModel param tree and the
-port's ``state_dict`` (LiLT family).
+port's ``state_dict`` (LiLT and LayoutLMv3 families).
 
 The port's parameter names are the reference's torch keys, the same ones
 ``peneo_tpu/models/convert.py:49-127`` reads, so a ``pytorch_model.bin``
@@ -10,7 +10,10 @@ inverse of that converter):
 - flax Embed ``embedding`` ↔ Embedding ``weight``;
 - flax LayerNorm ``{scale, bias}`` ↔ ``{weight, bias}``;
 - flax ``comb_a`` (+ bias) and ``comb_b`` (no bias) ↔ the reference's one
-  ``handshaking_kernel.combine_fc`` (H, 2H) acting on cat(h_i, h_j).
+  ``handshaking_kernel.combine_fc`` (H, 2H) acting on cat(h_i, h_j);
+- LayoutLMv3: flax Conv ``kernel`` (kh, kw, C, H) ↔ Conv2d ``weight``
+  (H, C, kh, kw); the bucket tables (bins, heads) ↔ bias-free Linear
+  ``weight`` (heads, bins); ``cls_token`` / ``pos_embed`` as they are.
 
 Both functions work on numpy arrays (``jax_params_to_state_dict`` returns
 torch tensors); neither imports JAX.
@@ -26,7 +29,8 @@ import torch
 from ..config import PEneoConfig
 from .decoder import HEAD_NAMES
 
-# (torch key prefix, flax path, kind); kind ∈ linear | ln | emb
+# (torch key prefix, flax path, kind); kind ∈ linear | ln | emb | conv |
+# table (full key ↔ transposed leaf) | raw (full key ↔ leaf)
 Entry = Tuple[str, Tuple[str, ...], str]
 
 
@@ -65,6 +69,41 @@ def _lilt_entries(n_layers: int) -> List[Entry]:
     return [("backbone." + k, ("backbone",) + p, kind) for k, p, kind in e]
 
 
+def _layoutlmv3_entries(n_layers: int, bc) -> List[Entry]:
+    e: List[Entry] = []
+    emb = "embeddings"
+    for n in ("word_embeddings", "token_type_embeddings",
+              "position_embeddings", "x_position_embeddings",
+              "y_position_embeddings", "h_position_embeddings",
+              "w_position_embeddings"):
+        e.append((f"{emb}.{n}", (emb, n), "emb"))
+    e.append((f"{emb}.LayerNorm", (emb, "LayerNorm"), "ln"))
+    if bc.visual_embed:
+        e.append(("patch_embed.proj", ("patch_proj",), "conv"))
+        e.append(("cls_token", ("cls_token",), "raw"))
+        e.append(("pos_embed", ("pos_embed",), "raw"))
+        e.append(("norm", ("visual_norm",), "ln"))
+        e.append(("LayerNorm", ("post_concat_LayerNorm",), "ln"))
+    if bc.has_relative_attention_bias:
+        e.append(("encoder.rel_pos_bias.weight", ("rel_pos_bias",), "table"))
+    if bc.has_spatial_attention_bias:
+        for n in ("rel_pos_x_bias", "rel_pos_y_bias"):
+            e.append((f"encoder.{n}.weight", (n,), "table"))
+    for i in range(n_layers):
+        src, dst = f"encoder.layer.{i}.", (f"layer_{i}",)
+        for n in ("query", "key", "value"):
+            e.append((src + f"attention.self.{n}", dst + (n,), "linear"))
+        e.append((src + "attention.output.dense",
+                  dst + ("attention_output_dense",), "linear"))
+        e.append((src + "attention.output.LayerNorm",
+                  dst + ("attention_output_LayerNorm",), "ln"))
+        e.append((src + "intermediate.dense", dst + ("intermediate",),
+                  "linear"))
+        e.append((src + "output.dense", dst + ("output_dense",), "linear"))
+        e.append((src + "output.LayerNorm", dst + ("output_LayerNorm",), "ln"))
+    return [("backbone." + k, ("backbone",) + p, kind) for k, p, kind in e]
+
+
 def _decoder_entries(cfg: PEneoConfig) -> List[Entry]:
     p, d = "peneo_decoder.", ("peneo_decoder",)
     e: List[Entry] = []
@@ -84,10 +123,15 @@ def _decoder_entries(cfg: PEneoConfig) -> List[Entry]:
 
 
 def _entries(cfg: PEneoConfig) -> List[Entry]:
-    if cfg.backbone_family() != "lilt":
-        raise NotImplementedError("the weight bridge covers the LiLT family")
-    n_layers = cfg.backbone().num_hidden_layers
-    return _lilt_entries(n_layers) + _decoder_entries(cfg)
+    fam, bc = cfg.backbone_family(), cfg.backbone()
+    if fam == "lilt":
+        backbone = _lilt_entries(bc.num_hidden_layers)
+    elif fam == "layoutlmv3":
+        backbone = _layoutlmv3_entries(bc.num_hidden_layers, bc)
+    else:
+        raise NotImplementedError(
+            f"the weight bridge does not cover the {fam!r} family yet")
+    return backbone + _decoder_entries(cfg)
 
 
 _COMBINE = "peneo_decoder.handshaking_kernel.combine_fc"
@@ -113,6 +157,14 @@ def jax_params_to_state_dict(params: Dict, cfg: PEneoConfig) -> Dict[str, torch.
             sd[key + ".weight"] = _get(params, path + ("embedding",))
         elif kind == "ln":
             sd[key + ".weight"] = _get(params, path + ("scale",))
+            sd[key + ".bias"] = _get(params, path + ("bias",))
+        elif kind == "table":
+            sd[key] = _get(params, path).T
+        elif kind == "raw":
+            sd[key] = _get(params, path)
+        elif kind == "conv":
+            sd[key + ".weight"] = _get(params, path + ("kernel",)).transpose(
+                3, 2, 0, 1)
             sd[key + ".bias"] = _get(params, path + ("bias",))
         else:
             sd[key + ".weight"] = _get(params, path + ("kernel",)).T
@@ -141,6 +193,14 @@ def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig) -> Dict:
             _set(params, path + ("embedding",), arr(key + ".weight"))
         elif kind == "ln":
             _set(params, path + ("scale",), arr(key + ".weight"))
+            _set(params, path + ("bias",), arr(key + ".bias"))
+        elif kind == "table":
+            _set(params, path, arr(key).T.copy())
+        elif kind == "raw":
+            _set(params, path, arr(key))
+        elif kind == "conv":
+            _set(params, path + ("kernel",),
+                 arr(key + ".weight").transpose(2, 3, 1, 0).copy())
             _set(params, path + ("bias",), arr(key + ".bias"))
         else:
             _set(params, path + ("kernel",), arr(key + ".weight").T.copy())

@@ -1,11 +1,13 @@
-"""PEneoModel: LiLT backbone + PEneo decoder.
+"""PEneoModel: switchable backbone (LiLT, LayoutLMv3) + PEneo decoder.
 
-Counterpart of ``peneo_tpu/models/peneo.py:28-131`` for the LiLT family
-(reference: model/modeling_peneo.py:41-175). The wrapper runs the backbone,
-strips the CLS position per the family flags (modeling_peneo.py:138-163),
-applies hidden dropout (training mode) and runs the decoder. Inputs are
-padded to a static L; the decoder works on Ld = L - 1 positions, and labels
-are (B, Ld, Ld) dense matrices or (B, S, 3) spot arrays.
+Counterpart of ``peneo_tpu/models/peneo.py:28-131`` (reference:
+model/modeling_peneo.py:41-175). The wrapper runs the backbone, strips the
+visual tokens and the CLS position per the family flags
+(modeling_peneo.py:138-163), applies hidden dropout (training mode) and runs
+the decoder. Inputs are padded to a static L; the decoder works on
+Ld = L - 1 positions, and labels are (B, Ld, Ld) dense matrices or (B, S, 3)
+spot arrays. A visual backbone's image tokens come after the text tokens
+and are dropped before the decoder.
 """
 
 from __future__ import annotations
@@ -23,19 +25,29 @@ from .lilt import LiltModel, init_module_weights
 # per-family structural flags (reference: model/backbone_mapping.py:276-349)
 FAMILY_FLAGS = {
     "lilt": dict(add_cls_token=True, has_visual_embeds=False),
+    "layoutlmv3": dict(add_cls_token=True, has_visual_embeds=True),
 }
+
+
+def build_backbone(cfg: PEneoConfig) -> nn.Module:
+    fam = cfg.backbone_family()
+    if fam == "lilt":
+        return LiltModel(cfg.backbone())
+    if fam == "layoutlmv3":
+        from .layoutlmv3 import LayoutLMv3Model
+
+        return LayoutLMv3Model(cfg.backbone())
+    raise NotImplementedError(
+        f"backbone family {fam!r} is not ported yet (ported: "
+        f"{sorted(FAMILY_FLAGS)})")
 
 
 class PEneoModel(nn.Module):
     def __init__(self, cfg: PEneoConfig):
         super().__init__()
-        fam = cfg.backbone_family()
-        if fam not in FAMILY_FLAGS:
-            raise NotImplementedError(
-                f"backbone family {fam!r} is not ported yet (LiLT only)")
+        self.backbone = build_backbone(cfg)  # raises for an unported family
         self.cfg = cfg
-        self.flags = FAMILY_FLAGS[fam]
-        self.backbone = LiltModel(cfg.backbone())
+        self.flags = FAMILY_FLAGS[cfg.backbone_family()]
         self.backbone.gradient_checkpointing = cfg.gradient_checkpointing
         self.peneo_decoder = PEneoDecoder(cfg)
 
@@ -43,7 +55,8 @@ class PEneoModel(nn.Module):
         self.backbone.set_attention_impl(attention_impl)
 
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
-        """Cast to the compute dtype (text embeddings stay fp32)."""
+        """Cast to the compute dtype (the backbone keeps its embeddings, and
+        LayoutLMv3 its bucket tables, in fp32)."""
         self.to(dtype)
         self.backbone.cast(dtype)
         return self
@@ -60,15 +73,18 @@ class PEneoModel(nn.Module):
                 labels: Optional[Dict[str, torch.Tensor]] = None,
                 also_decode: bool = False,
                 label_row_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                image: Optional[torch.Tensor] = None):
         """Inference outputs, or with ``labels`` the losses (and with
         ``also_decode`` the pair ``(losses, outputs)``). ``generator`` draws
-        the attention-dropout seeds in training mode."""
+        the attention-dropout seeds in training mode; ``image`` (B, 3, S, S)
+        goes to a visual backbone."""
+        visual = {"image": image} if self.flags["has_visual_embeds"] else {}
         out = self.backbone(input_ids, bbox, attention_mask,
-                            generator=generator)
-        hidden = out["last_hidden_state"]
-        if self.flags["add_cls_token"]:
-            hidden = hidden[:, 1:]
+                            generator=generator, **visual)
+        # the text positions after CLS; visual tokens follow them
+        first = int(self.flags["add_cls_token"])
+        hidden = out["last_hidden_state"][:, first:input_ids.shape[1]]
         drop = (self.cfg.backbone_config or {}).get("hidden_dropout_prob", 0.1)
         hidden = F.dropout(hidden, drop, self.training)
         return self.peneo_decoder(hidden, return_logits=return_logits,

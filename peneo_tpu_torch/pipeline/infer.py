@@ -1,13 +1,15 @@
 """Serving: page image + line-level OCR JSON → key/value pairs.
 
-Counterpart of ``peneo_tpu/pipeline/infer.py:39-589`` for one device, the
-LiLT family and text-only input (reference: deploy/inference.py:110-464).
+Counterpart of ``peneo_tpu/pipeline/infer.py:39-589`` for one device and the
+LiLT and LayoutLMv3 families (reference: deploy/inference.py:110-464).
 Pages are preprocessed on a thread pool, stacked ``batch_size`` at a time,
 and run through :class:`~peneo_tpu_torch.models.peneo.PEneoModel`, whose
-attention is the CUDA BiACM kernel on the card. PyTorch launches
-asynchronously, so keeping ``inflight_depth`` batches dispatched before
-fetching the oldest one (``.cpu()`` of two packed int32 tensors) overlaps
-host preprocessing, host decode (a separate thread pool) and device work.
+attention is a CUDA kernel on the card (BiACM for LiLT, rel-bias for
+LayoutLMv3). PyTorch launches asynchronously, so keeping ``inflight_depth``
+batches dispatched before fetching the oldest one (``.cpu()`` of two packed
+int32 tensors) overlaps host preprocessing, host decode (a separate thread
+pool) and device work. A visual backbone's page images travel as resized
+uint8 (H, W, 3) arrays and are normalized on the device.
 
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
 GPU and no explicit device it raises.
@@ -62,7 +64,8 @@ def load_weights(model: PEneoModel, path: str) -> None:
 
 
 class InferenceService:
-    """Load a trained PEneo (LiLT) model and run page → kv-pair extraction."""
+    """Load a trained PEneo model (LiLT or LayoutLMv3 backbone) and run
+    page → kv-pair extraction."""
 
     def __init__(
         self,
@@ -80,8 +83,8 @@ class InferenceService:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise ValueError("the CUDA BiACM kernel takes bfloat16; serve "
-                             "with dtype='bfloat16'")
+            raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
+                             "take bfloat16; serve with dtype='bfloat16'")
         self.cfg = PEneoConfig.from_pretrained(model_name_or_path)
         if max_seq_len:
             self.cfg.max_seq_len = max_seq_len
@@ -113,13 +116,25 @@ class InferenceService:
             tokenizer = load_tokenizer(self.info, model_name_or_path)
         self.tokenizer = tokenizer
 
+        # live serving ships resized uint8 pages and normalizes on the
+        # device: no host float conversion, a quarter of the upload
+        self.raw_image = self.info.has_visual_embeds
+        self.image_loader = None
+        if self.info.has_visual_embeds:
+            from ..data.image_processing import make_image_loader
+
+            self.image_loader = make_image_loader(self.cfg, raw=True)
+
         model = PEneoModel(self.cfg)
         load_weights(model, model_name_or_path)
         self.model = model.cast(self.dtype).to(self.device).eval()
         if self.device.type == "cuda":
-            from ..ops.biacm_attention import load_kernel
-
-            load_kernel()  # build now: fail at construction, not mid-run
+            # build the family's kernel now: fail at construction, not mid-run
+            if self.info.family == "lilt":
+                from ..ops.biacm_attention import load_kernel
+            else:
+                from ..ops.bias_attention import load_kernel
+            load_kernel()
         from ..native import load_decode_lib
 
         load_decode_lib()  # the host decoder's g++ build, also up front
@@ -133,7 +148,9 @@ class InferenceService:
             max_token_len=self.max_token_len,
             max_seq_len=self.cfg.max_seq_len,
             add_cls_token=self.info.add_cls_token,
-            add_sep_token=self.info.add_sep_token)
+            add_sep_token=self.info.add_sep_token,
+            image_cfg=self.cfg if self.image_loader is not None else None,
+            raw_image=self.raw_image, _image_loader=self.image_loader)
 
     def preprocess_page(self, image_path: str, ocr_path: str):
         """One page → (arrays dict, fetched token texts, per-token orig
@@ -161,7 +178,7 @@ class InferenceService:
         padded by repeating its last page) and launch the forward. Returns
         the device outputs without waiting for them; pair with
         :meth:`collect_batch`. ``bucket`` cuts the sequence axis to that
-        length (preprocess pads at the tail)."""
+        length (preprocess pads at the tail); a page image is never cut."""
         n = len(page_inputs)
         if not 0 < n <= self.batch_size:
             raise ValueError(f"{n} pages for batch_size {self.batch_size}")
@@ -172,7 +189,15 @@ class InferenceService:
         ids, bbox, attn = (self._to_device(stacked[k]) for k in
                            ("input_ids", "bbox", "attention_mask"))
         with torch.inference_mode():
-            out = self.model(ids, bbox, attn)
+            image = None
+            if "image" in pages[0][0]:
+                image = self._to_device(np.stack([p[0]["image"]
+                                                  for p in pages]))
+                if image.dtype == torch.uint8:
+                    from ..data.image_processing import device_image_normalize
+
+                    image = device_image_normalize(image, self.info.family)
+            out = self.model(ids, bbox, attn, image=image)
             return pack_spots(out) if self._packed else out
 
     def _fetch(self, out_device):

@@ -126,12 +126,15 @@ class DataFeed:
 
 def batch_arrays(batch):
     """Collator Batch → host numpy dict (model inputs only)."""
-    return {
+    arrays = {
         "input_ids": batch.input_ids,
         "bbox": batch.bbox,
         "attention_mask": batch.attention_mask,
         "labels": batch.labels,
     }
+    if batch.image is not None:
+        arrays["image"] = batch.image
+    return arrays
 
 
 def batch_to_device(batch, device) -> dict:

@@ -6,13 +6,15 @@ the OCR-JSON reader, the deploy-mode text cleanup, and ``PagePreprocessor``
 the forward (reference: deploy/inference.py:205-373). OCR JSON accepts
 ``text|ocr`` and ``bbox|box`` keys (4- or 8-point boxes); lines are sorted
 in reading order, cleaned, tokenized per line and truncated at
-``max_token_len`` with a strict ``>`` check; empty lines are skipped.
+``max_token_len`` with a strict ``>`` check; empty lines are skipped. For a
+visual backbone the page image is decoded and resized too (``image_cfg``);
+the loader is a closure, rebuilt lazily from the config after unpickling.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -71,8 +73,7 @@ def read_ocr_json(path: str) -> Tuple[List[str], List[List[float]]]:
 @dataclass
 class PagePreprocessor:
     """One page → (arrays dict, fetched token texts, per-token orig boxes,
-    valid seq_len). Pure host work (PIL for the page size + tokenizer +
-    numpy)."""
+    valid seq_len). Pure host work (PIL + tokenizer + numpy); picklable."""
 
     tokenizer: object
     fetcher: Optional[Callable]
@@ -80,6 +81,26 @@ class PagePreprocessor:
     max_seq_len: int
     add_cls_token: bool
     add_sep_token: bool
+    # config to build the image loader from (visual backbones)
+    image_cfg: Optional[object] = None
+    # raw=True emits uint8 (H, W, 3) RGB and leaves normalize/transpose to
+    # the device (data/image_processing.device_image_normalize)
+    raw_image: bool = False
+    _image_loader: Optional[Callable] = field(
+        default=None, repr=False, compare=False)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_image_loader"] = None  # rebuilt from image_cfg where needed
+        return state
+
+    def image_loader(self) -> Optional[Callable]:
+        if self._image_loader is None and self.image_cfg is not None:
+            from ..data.image_processing import make_image_loader
+
+            self._image_loader = make_image_loader(self.image_cfg,
+                                                   raw=self.raw_image)
+        return self._image_loader
 
     def __call__(self, image_path: str, ocr_path: str):
         from PIL import Image
@@ -130,6 +151,11 @@ class PagePreprocessor:
         attn_arr[:n] = 1
         arrays = {"input_ids": ids_arr, "bbox": bbox_arr,
                   "attention_mask": attn_arr}
+        loader = self.image_loader()
+        if loader is not None:
+            img = loader(image_path)
+            arrays["image"] = (img if self.raw_image
+                               else img.astype(np.float32))
         seq_len = n - int(self.add_cls_token)
         return arrays, texts, orig_bbox[1 if self.add_cls_token else 0:], \
             seq_len

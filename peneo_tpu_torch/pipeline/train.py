@@ -13,7 +13,8 @@ Trainer internals, pipeline/trainer.py:275-354):
 
 Master parameters and the optimizer state stay fp32; with
 ``dtype=torch.bfloat16`` the forward runs under autocast, so the matmuls and
-the attention kernels run in bf16 (the flax model's ``dtype=bf16``).
+the attention kernels run in bf16 (the flax model's ``dtype=bf16``). A visual
+backbone's ``image`` travels in the batch.
 """
 
 from __future__ import annotations
@@ -111,7 +112,7 @@ def train_step(model: PEneoModel, optimizer, scheduler,
     with autocast(device, dtype):
         losses = model(batch["input_ids"], batch["bbox"],
                        batch["attention_mask"], labels=batch["labels"],
-                       generator=generator)
+                       generator=generator, image=batch.get("image"))
     losses["total"].backward()
     norm = clip_by_global_norm(
         [p for g in optimizer.param_groups for p in g["params"]],
@@ -133,9 +134,10 @@ def eval_step(model: PEneoModel, batch: Dict[str, torch.Tensor],
     model.eval()
     with autocast(batch["input_ids"].device, dtype):
         args = (batch["input_ids"], batch["bbox"], batch["attention_mask"])
+        image = batch.get("image")
         if with_loss:
             losses, out = model(*args, labels=batch["labels"],
-                                also_decode=True,
+                                also_decode=True, image=image,
                                 label_row_mask=batch.get("row_mask"))
             return out, losses
-        return model(*args)
+        return model(*args, image=image)

@@ -87,8 +87,8 @@ class PEneoTrainer:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[cfg.dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise ValueError("the CUDA BiACM kernels take bfloat16: train "
-                             "with dtype='bfloat16'")
+            raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
+                             "take bfloat16: train with dtype='bfloat16'")
         self.model = model.to(self.device)  # fp32 master parameters
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset

@@ -1,4 +1,4 @@
-"""Fine-tune / evaluate PEneo (LiLT) on RFUND with the PyTorch port.
+"""Fine-tune / evaluate PEneo (LiLT or LayoutLMv3) on RFUND with the port.
 
 The single-device flag surface of ``start/run_rfund.py`` (reference:
 start/run_rfund.py:23-81), plus ``--device``:
@@ -11,12 +11,15 @@ start/run_rfund.py:23-81), plus ``--device``:
         --per_device_train_batch_size 4 --per_device_eval_batch_size 16
 
 ``--synthetic_data`` writes a synthetic RFUND corpus (64 train, 16 dev
-pages) and uses the toy tokenizer with a seeded random model of the
-``--synthetic_model`` geometry: no downloads. Runs on ``cuda`` (the CUDA
-BiACM kernels, bf16) unless ``--device cpu`` is given; without a GPU and
-without ``--device`` it raises. Left out (single device, one attention
-path): the mesh, distributed, platform, quantization and ``--fused_*``
-flags, and ``--steps_per_call``.
+pages, rendered to PNGs for a visual backbone) and uses the toy tokenizer
+with a seeded random model of the ``--synthetic_model`` geometry (LayoutLMv3
+presets take a 64 px image), or with ``--model_name_or_path`` the saved
+model's own config: no downloads. ``--backbone_name layoutlmv3-base[-chinese]``
+selects the LayoutLMv3 family; LayoutLMv2/LayoutXLM are not ported yet. Runs
+on ``cuda`` (the CUDA attention kernels, bf16) unless ``--device cpu`` is
+given; without a GPU and without ``--device`` it raises. Left out (single
+device, one attention path): the mesh, distributed, platform, quantization
+and ``--fused_*`` flags, and ``--steps_per_call``.
 """
 
 from __future__ import annotations
@@ -94,15 +97,18 @@ def setup(args, dataset_cls_name: str = "rfund"):
     eval_ds, collator, tokenizer)."""
     import torch
 
-    from .config import LiltConfig, PEneoConfig
+    from .config import LayoutLMv3Config, LiltConfig, PEneoConfig
     from .data.collator import PEneoCollator
     from .data.datasets import RFUNDDataset, SIBRDataset
-    from .models.peneo import PEneoModel
+    from .models.peneo import FAMILY_FLAGS, PEneoModel
     from .pipeline.infer import load_weights
     from .registry import get_backbone_info, load_tokenizer
 
     data_dir = args.data_dir or os.path.join(args.output_dir, "synthetic_data")
     if args.synthetic_data:
+        info = get_backbone_info(
+            PEneoConfig.from_pretrained(args.model_name_or_path).backbone_name
+            if args.model_name_or_path else args.backbone_name)
         from .data.fetchers import fetch_xlm
         from .data.synthetic import ToyTokenizer, write_rfund_dataset, \
             write_sibr_dataset
@@ -111,7 +117,8 @@ def setup(args, dataset_cls_name: str = "rfund"):
             if not os.path.exists(os.path.join(
                     data_dir, f"{args.language}.train.json")):
                 write_rfund_dataset(data_dir, args.language, n_train=64,
-                                    n_val=16)
+                                    n_val=16,
+                                    with_images=info.has_visual_embeds)
         elif not os.path.exists(os.path.join(data_dir, "train.txt")):
             write_sibr_dataset(data_dir, n_train=64, n_test=16)
         tokenizer = ToyTokenizer()
@@ -119,12 +126,21 @@ def setup(args, dataset_cls_name: str = "rfund"):
         if args.model_name_or_path:
             cfg = PEneoConfig.from_pretrained(args.model_name_or_path)
         else:
+            preset = SYNTHETIC_MODEL_PRESETS[args.synthetic_model]
+            vocab = args.synthetic_vocab or tokenizer.vocab_size
+            if info.family == "layoutlmv3":
+                # the 4 coordinate + 2 shape embeddings concat to hidden_size
+                coord = preset["hidden_size"] // 6
+                backbone_config = LayoutLMv3Config(
+                    vocab_size=vocab, pad_token_id=0, coordinate_size=coord,
+                    shape_size=(preset["hidden_size"] - 4 * coord) // 2,
+                    input_size=64, **preset).to_dict()
+            else:
+                backbone_config = LiltConfig(vocab_size=vocab, pad_token_id=0,
+                                             **preset).to_dict()
             cfg = PEneoConfig(
                 backbone_name=args.backbone_name,
-                backbone_config=LiltConfig(
-                    vocab_size=args.synthetic_vocab or tokenizer.vocab_size,
-                    pad_token_id=0,
-                    **SYNTHETIC_MODEL_PRESETS[args.synthetic_model]).to_dict(),
+                backbone_config=backbone_config,
                 peneo_category_weights=[1.0, 10.0, 10.0],
                 peneo_downstream_speedup_ratio=30.0)
     else:
@@ -137,9 +153,10 @@ def setup(args, dataset_cls_name: str = "rfund"):
     cfg.max_seq_len = args.max_seq_len
     cfg.dtype = args.dtype
     info = get_backbone_info(cfg.backbone_name or args.backbone_name)
-    if info.family != "lilt":
+    if info.family not in FAMILY_FLAGS:
         raise NotImplementedError(
-            f"backbone family {info.family!r} is not ported yet (LiLT only)")
+            f"backbone family {info.family!r} is not ported yet (ported: "
+            f"{sorted(FAMILY_FLAGS)})")
     if tokenizer is None:
         tokenizer = load_tokenizer(info, args.model_name_or_path)
         fetcher = info.tokenizer_fetcher
@@ -165,11 +182,16 @@ def setup(args, dataset_cls_name: str = "rfund"):
     else:
         train_ds = SIBRDataset(data_dir, "train", **aug, **ds_kwargs)
         eval_ds = SIBRDataset(data_dir, "test", **ds_kwargs)
+    image_loader = None
+    if info.has_visual_embeds:
+        from .data.image_processing import make_image_loader
+
+        image_loader = make_image_loader(cfg)
     collator = PEneoCollator(
         max_seq_len=args.max_seq_len,
         pad_token_id=getattr(tokenizer, "pad_token_id", 0) or 0,
         add_cls_token=info.add_cls_token,
-        labels_as_spots=not args.dense_labels)
+        labels_as_spots=not args.dense_labels, image_loader=image_loader)
     return cfg, model, train_ds, eval_ds, collator, tokenizer
 
 

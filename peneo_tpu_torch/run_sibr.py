@@ -1,4 +1,5 @@
-"""Fine-tune / evaluate PEneo (LiLT) on SIBR with the PyTorch port: the
+"""Fine-tune / evaluate PEneo (LiLT or LayoutLMv3; a visual backbone reads
+the dataset's own page images) on SIBR with the PyTorch port: the
 flags of :mod:`peneo_tpu_torch.run_rfund` (``--language`` is unused), over
 ``SIBRDataset`` (``{split}.txt`` + ``converted_label/``).
 

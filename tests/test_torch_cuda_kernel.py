@@ -1,5 +1,6 @@
-"""The CUDA BiACM kernel against its plain twin on the card. Needs a CUDA
-device (and nvcc to build the kernel); skips without one. On the GPU
+"""The CUDA kernels (BiACM #1-#3, rel-bias #4-#6) against their plain twins
+on the card. Needs a CUDA device (and nvcc to build the kernels); skips
+without one. On the GPU
 machine run it with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernel.py``
 (``--noconftest`` skips the JAX setup of ``tests/conftest.py``; this file
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from peneo_tpu_torch.ops import biacm_attention as ba
+from peneo_tpu_torch.ops import bias_attention as rb
 
 pytestmark = pytest.mark.cuda
 NEG = torch.finfo(torch.float32).min / 2
@@ -138,4 +140,120 @@ def test_train_kernels_match_plain_twin_on_card(L, rate):
     # the in-kernel generator draws exactly attention_dropout_bits
     for a, b in zip(outs["philox"][0] + outs["philox"][1],
                     outs["bits"][0] + outs["bits"][1]):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ rel-bias
+def _bias_inputs(L, seed, spread=None, text_masked=False):
+    """q/k/v (B, nh, L, 64) views of (B, L, nh, 64), an fp32 (B, nh, L, L)
+    bias, a key mask and an output gradient. ``text_masked``: every key of
+    batch row 0 but the last 197 (the visual tokens) is masked with
+    finfo(f32).min itself, under a bias made negative there (mask + bias
+    would overflow without the kernel's clamp)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, nh = 2, 12
+
+    def heads(collinear=False):
+        x = torch.randn((B, L, nh, 64), generator=gen, device="cuda")
+        if collinear:
+            x = 0.5 * (x[:, :1] + spread * x)
+        return x.to(torch.bfloat16).transpose(1, 2)
+
+    c = spread is not None
+    qkv = [heads(c) for _ in range(3)]
+    bias = torch.randn((B, nh, L, L), generator=gen, device="cuda")
+    mask = torch.zeros((B, L), device="cuda")
+    if text_masked:
+        mask[0, : L - 197] = torch.finfo(torch.float32).min
+        bias[0, :, :, : L - 197] = -bias[0, :, :, : L - 197].abs() - 1.0
+    else:
+        mask[0, : L // 2] = NEG
+    mask[1, L - L // 3:] = NEG
+    return qkv, bias, mask, heads()
+
+
+BIAS_CASES = [1, 63, 128, 200, 709, "709-collinear", "709-textmasked"]
+
+
+def _bias_case(L):
+    if L == "709-collinear":
+        return 709, dict(spread=0.1)
+    if L == "709-textmasked":
+        return 709, dict(text_masked=True)
+    return L, {}
+
+
+@pytest.mark.parametrize("L", BIAS_CASES)
+def test_bias_kernel_matches_plain_twin_on_card(L):
+    """Kernel #4 against the fp32 twin: max abs err <= 2e-2 (bf16 rounding
+    of p and of the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    L, kw = _bias_case(L)
+    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L, **kw)
+    before = rb.bias_attention_cuda.launches
+    got = rb.bias_attention(q, k, v, bias, mask, 0.125)
+    want = rb.bias_attention_reference(q.float(), k.float(), v.float(), bias,
+                                       mask, 0.125)
+    torch.cuda.synchronize()
+    assert rb.bias_attention_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    # a strided bias (batch-expanded) is read through its strides
+    shared = bias[:1].expand(2, -1, -1, -1)
+    got = rb.bias_attention(q, k, v, shared, mask, 0.125)
+    want = rb.bias_attention_reference(q.float(), k.float(), v.float(),
+                                       shared, mask, 0.125)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    if L > 1:  # a bias whose last dim is not contiguous is refused
+        with pytest.raises(ValueError):
+            rb.bias_attention(q, k, v, bias.transpose(2, 3), mask, 0.125)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", BIAS_CASES)
+def test_bias_train_kernels_match_plain_twin_on_card(L, rate):
+    """Kernels #5 (forward) and #6 (backward) against the fp32 twin and its
+    autograd gradients (dq, dk, dv and dbias) on the same bf16 inputs, with
+    the in-kernel bits (the twin takes attention_dropout_bits word 0 of the
+    same seed) and with explicit bits. Forward max abs err <= 2e-2;
+    each gradient's max abs err <= 2e-2 of its own max |reference|; where
+    the reference is exactly 0 (L = 1: one key, p = 1, dS = 0) the kernel's
+    value is bounded by 2^-16 of the row's sum of |dc * v| terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    L, kw = _bias_case(L)
+    qkv, bias, mask, dctx = _bias_inputs(L, seed=L + 7, **kw)
+    B, nh = mask.shape[0], qkv[0].shape[1]
+    seed = 4321 + L
+    bits = ba.attention_dropout_bits(seed, B, nh, L, device="cuda")[0]
+    leaves = [x.float().requires_grad_() for x in qkv] \
+        + [bias.clone().requires_grad_()]
+    want = rb.bias_attention_train_reference(*leaves, mask, bits, 0.125, rate)
+    want_grads = torch.autograd.grad(want, leaves, dctx.float())
+    q, k, v = (x.float() for x in qkv)
+    ds0 = 2.0 ** -16 * ((dctx.float() * v).abs().sum(-1)
+                        / (1.0 - rate)).max().item()
+    zero_bounds = [ds0 * k.abs().max().item() * 0.125,
+                   ds0 * q.abs().max().item() * 0.125, 0.0, ds0]
+    outs = {}
+    for name, rng in (("philox", seed), ("bits", bits)):
+        ins = [x.detach().clone().requires_grad_() for x in qkv] \
+            + [bias.clone().requires_grad_()]
+        fwd0 = rb.bias_attention_train_fwd_cuda.launches
+        bwd0 = rb.bias_attention_train_bwd_cuda.launches
+        got = rb.bias_attention_train(*ins, mask, rng, 0.125, rate)
+        grads = torch.autograd.grad(got, ins, dctx)
+        torch.cuda.synchronize()
+        assert rb.bias_attention_train_fwd_cuda.launches == fwd0 + 1
+        assert rb.bias_attention_train_bwd_cuda.launches == bwd0 + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert (got.float() - want).abs().max().item() <= 2e-2, name
+        for i, (g, w) in enumerate(zip(grads, want_grads)):
+            assert g.shape == w.shape and torch.isfinite(g).all()
+            assert g.dtype == (torch.float32 if i == 3 else torch.bfloat16)
+            _check_grad(i, g, w, zero_bounds)
+        outs[name] = (got, *grads)
+    for a, b in zip(outs["philox"], outs["bits"]):
         assert torch.equal(a, b)

@@ -126,3 +126,53 @@ def test_batch_to_device_keeps_arrays(corpus):
     for name in host["labels"]:
         np.testing.assert_array_equal(dev["labels"][name].numpy(),
                                       host["labels"][name])
+
+
+def test_layoutlmv3_batches_byte_equal_with_images(tmp_path):
+    """A corpus written ``with_images``, datasets with CLS and SEP, and
+    collators with each package's LayoutLMv3 image loader: the PNG files and the batches, ``image``
+    included, are byte-equal; ``batch_arrays`` and ``model_inputs`` carry
+    the image."""
+    from peneo_tpu.config import LayoutLMv3Config, PEneoConfig
+    from peneo_tpu.data.image_processing import make_image_loader as jax_loader
+    from peneo_tpu_torch.config import PEneoConfig as PortConfig
+    from peneo_tpu_torch.data.image_processing import make_image_loader
+
+    root, jroot = tmp_path / "port", tmp_path / "jax"
+    kw = dict(n_train=4, n_val=2, with_images=True)
+    tsyn.write_rfund_dataset(str(root), "en", **kw)
+    jsyn.write_rfund_dataset(str(jroot), "en", **kw)
+    pngs = sorted(p.name for p in (root / "images" / "en").iterdir())
+    assert len(pngs) == 6
+    for name in pngs:
+        assert (root / "images" / "en" / name).read_bytes() == \
+            (jroot / "images" / "en" / name).read_bytes()
+    cfg = PEneoConfig(backbone_name="layoutlmv3-base-chinese",
+                      backbone_config=LayoutLMv3Config(
+                          input_size=32).to_dict())
+    ds_kw = dict(max_token_len=L - 2, add_cls_token=True, add_sep_token=True)
+    ours = RFUNDDataset(str(root), "train", "en",
+                        tokenizer=tsyn.ToyTokenizer(),
+                        tokenizer_fetcher=fetch_xlm, **ds_kw)
+    theirs = JaxRFUND(str(root), "train", "en", tokenizer=jsyn.ToyTokenizer(),
+                      tokenizer_fetcher=jax_fetch, **ds_kw)
+    feats = [ours[i] for i in range(4)]
+    assert feats == [theirs[i] for i in range(4)]
+    a = PEneoCollator(max_seq_len=L, labels_as_spots=True,
+                      image_loader=make_image_loader(
+                          PortConfig.from_dict(cfg.to_dict())))(feats)
+    b = JaxCollator(max_seq_len=L, labels_as_spots=True,
+                    image_loader=jax_loader(cfg))(feats)
+    _assert_batches_equal(a, b)
+    assert a.image.dtype == b.image.dtype == np.float32
+    assert a.image.shape == (4, 3, 32, 32)
+    assert a.image.tobytes() == b.image.tobytes()
+    assert a.image.std() > 0
+    assert batch_arrays(a)["image"] is a.image
+    assert a.model_inputs()["image"] is a.image
+    dev = batch_to_device(a, "cpu")
+    np.testing.assert_array_equal(dev["image"].numpy(), a.image)
+    # SEP sits inside the taggable range: seq_len counts it
+    sep = tsyn.ToyTokenizer().sep_token_id
+    for i in range(4):
+        assert a.input_ids[i, a.seq_len[i]] == sep

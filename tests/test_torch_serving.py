@@ -3,7 +3,9 @@ synthetic page directory and one ``pytorch_model.bin`` written by the port,
 the JAX InferenceService and the port's (device="cpu", fp32) return the
 same kv pairs and lines; the port's results do not depend on batch size or
 pipeline depth; and an entry point with no device on a machine without CUDA
-raises instead of running on the CPU."""
+raises instead of running on the CPU. The same parity for a LayoutLMv3
+model (page images, CLS and SEP), whose raw uint8 pages normalized by
+``device_image_normalize`` equal the host-normalized floats bit for bit."""
 
 import json
 import os
@@ -15,7 +17,7 @@ import torch
 
 import jax
 
-from peneo_tpu.config import LiltConfig, PEneoConfig
+from peneo_tpu.config import LayoutLMv3Config, LiltConfig, PEneoConfig
 from peneo_tpu.models.peneo import PEneoModel
 from peneo_tpu.pipeline.infer import InferenceService as JaxService
 from peneo_tpu_torch.config import PEneoConfig as PortConfig
@@ -77,6 +79,85 @@ def port_results(serving_setup):
     svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
                            batch_size=2, device="cpu")
     return svc.run(img_dir, ocr_dir)
+
+
+@pytest.fixture(scope="module")
+def v3_setup(serving_setup, tmp_path_factory):
+    """A LayoutLMv3 model directory (32 px image: 5 visual tokens) beside
+    the pages of ``serving_setup``."""
+    _, img_dir, ocr_dir, tok = serving_setup
+    wdir = str(tmp_path_factory.mktemp("serve_v3") / "weights")
+    cfg = PEneoConfig(
+        backbone_name="layoutlmv3-base-chinese",
+        backbone_config=LayoutLMv3Config(
+            vocab_size=tok.vocab_size, hidden_size=48, num_hidden_layers=1,
+            num_attention_heads=4, intermediate_size=96, pad_token_id=0,
+            max_position_embeddings=L + 8, coordinate_size=8, shape_size=8,
+            input_size=32).to_dict(),
+        pair_block_size=16, max_seq_len=L, max_spots_per_head=L * L,
+        initializer_range=0.15)
+    cfg.save_pretrained(wdir)
+    tok.save_pretrained(wdir)
+    ids = np.ones((1, L), np.int32)
+    params = jax.device_get(jax.jit(
+        lambda i, b, img: PEneoModel(cfg).init(
+            jax.random.PRNGKey(11), i, b, i, image=img))(
+        ids, np.zeros((1, L, 4), np.int32),
+        np.zeros((1, 3, 32, 32), np.float32))["params"])
+    rng = np.random.default_rng(4)  # zero at init: let the image matter
+    for name in ("cls_token", "pos_embed"):
+        params["backbone"][name] = (rng.standard_normal(
+            params["backbone"][name].shape) * 0.15).astype(np.float32)
+    torch.save(jax_params_to_state_dict(
+        params, PortConfig.from_dict(cfg.to_dict())),
+        os.path.join(wdir, "pytorch_model.bin"))
+    return wdir, img_dir, ocr_dir, tok
+
+
+def test_v3_port_matches_jax_service(v3_setup):
+    wdir, img_dir, ocr_dir, tok = v3_setup
+    svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    assert svc.info.add_sep_token and svc.max_token_len == L - 2
+    got = svc.run(img_dir, ocr_dir)
+    want = JaxService(wdir, tokenizer=tok, dtype="float32",
+                      batch_size=2).run(img_dir, ocr_dir)
+    assert set(got) == set(want) and len(want) == 5
+    assert sum(len(v["lines"]) for v in want.values()) > 0
+    assert sum(len(v["kv_pairs"]) for v in want.values()) > 0
+    assert _kv_and_lines(got) == _kv_and_lines(want)
+    # bucketed batches cut the sequence axis, never the image
+    bucketed = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                                batch_size=2, device="cpu",
+                                bucket_lengths=[32, 48]).run(img_dir, ocr_dir)
+    assert _kv_and_lines(bucketed) == _kv_and_lines(got)
+
+
+def test_v3_raw_and_host_normalized_images_are_bit_identical(v3_setup):
+    from peneo_tpu.data.image_processing import layoutlmv3_preprocess
+    from peneo_tpu_torch.data.image_processing import (
+        device_image_normalize, make_image_loader)
+
+    wdir, img_dir, ocr_dir, tok = v3_setup
+    svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    arrays = svc.preprocess_page(f"{img_dir}/p0.png", f"{ocr_dir}/p0.json")[0]
+    raw = arrays["image"]
+    assert raw.dtype == np.uint8 and raw.shape == (32, 32, 3)
+    on_device = device_image_normalize(torch.from_numpy(raw.copy())[None],
+                                       "layoutlmv3")
+    host = make_image_loader(svc.cfg)(f"{img_dir}/p0.png")
+    assert on_device.dtype == torch.float32 and host.dtype == np.float32
+    np.testing.assert_array_equal(on_device[0].numpy(), host)
+    np.testing.assert_array_equal(
+        host, layoutlmv3_preprocess(f"{img_dir}/p0.png", 32))
+    assert len(np.unique(raw)) > 1  # the page is not blank
+    # the preprocessor survives pickling (its loader closure is rebuilt)
+    import pickle
+
+    prep = pickle.loads(pickle.dumps(svc.page_preprocessor()))
+    again = prep(f"{img_dir}/p0.png", f"{ocr_dir}/p0.json")[0]
+    np.testing.assert_array_equal(again["image"], raw)
 
 
 def _kv_and_lines(results):

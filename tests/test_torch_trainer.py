@@ -152,3 +152,102 @@ def test_trainer_without_a_device_needs_cuda(tmp_path):
         run_rfund.main(["--synthetic_data", "--synthetic_model", "tiny",
                         "--max_seq_len", "64", "--do_train",
                         "--output_dir", str(tmp_path)])
+
+
+# ------------------------------------------------------------- LayoutLMv3
+V3_CLI = [*CLI, "--backbone_name", "layoutlmv3-base-chinese"]
+
+
+@pytest.fixture(scope="module")
+def trained_v3(tmp_path_factory):
+    """The LayoutLMv3 family through the same entry point, in process: the
+    synthetic corpus with rendered pages, CLS and SEP, the tiny preset with
+    a 64 px image (17 visual tokens)."""
+    out = str(tmp_path_factory.mktemp("run_v3"))
+    metrics = run_rfund.main([*V3_CLI, "--max_steps", "2", "--do_eval",
+                              "--dtype", "float32", "--output_dir", out])
+    return out, metrics
+
+
+def test_v3_cli_trains_evaluates_saves_and_the_directory_serves(trained_v3):
+    from peneo_tpu_torch.data.synthetic import ToyTokenizer
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    out, metrics = trained_v3
+    recs = _records(out)
+    steps = [r for r in recs if "loss/total" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss/total"]) for r in steps)
+    assert steps[-1]["nonfinite_loss_steps"] == 0
+    evals = [r for r in recs if "eval/f1" in r]
+    assert [r["step"] for r in evals] == [2]
+    assert metrics["num_sample_processed"] == 16
+    assert np.isfinite(metrics["loss_total"])
+    for name in ("config.json", "pytorch_model.bin", "toy_tokenizer.json"):
+        assert os.path.exists(os.path.join(out, name)), name
+    sd = torch.load(os.path.join(out, "pytorch_model.bin"), weights_only=True)
+    assert "backbone.encoder.rel_pos_x_bias.weight" in sd
+    assert "backbone.patch_embed.proj.weight" in sd
+
+    data = os.path.join(out, "synthetic_data")
+    with open(os.path.join(data, "en.val.json")) as f:
+        doc = json.load(f)["documents"][0]
+    ocr = os.path.join(out, "page.json")
+    with open(ocr, "w") as f:
+        json.dump([{"text": ln["text"], "bbox": ln["bbox"]}
+                   for e in doc["entities"] for ln in e["lines"]], f)
+    svc = InferenceService(out, tokenizer=ToyTokenizer(), dtype="float32",
+                           batch_size=1, max_seq_len=L, device="cpu")
+    res = svc.run(os.path.join(data, "images", "en", doc["img"]["fname"]),
+                  ocr)
+    [record] = res.values()
+    assert isinstance(record["kv_pairs"], list)
+    assert isinstance(record["lines"], list)
+
+
+def test_v3_evaluate_matches_jax_trainer(trained_v3, tmp_path):
+    """KVPE metrics equal and losses rtol 1e-5 (fp32) on the 16 dev pages
+    with their images, SEP inside the decoder's range."""
+    from peneo_tpu.data.image_processing import make_image_loader
+
+    trained = trained_v3[0]
+    args = run_rfund.build_argparser().parse_args(
+        [*V3_CLI, "--model_name_or_path", trained, "--output_dir",
+         str(tmp_path / "port"), "--dtype", "float32"])
+    cfg, model, _, eval_ds, collator, _ = run_rfund.setup(args)
+    ours = PEneoTrainer(
+        cfg, model, TrainingArguments(
+            output_dir=str(tmp_path / "port"), per_device_eval_batch_size=6,
+            detail_eval=True, device="cpu"),
+        eval_dataset=eval_ds, collator=collator).evaluate()
+
+    jcfg = JaxConfig.from_pretrained(trained)
+    jcfg.max_seq_len = L
+    data = os.path.join(trained, "synthetic_data")
+    jds = JaxRFUND(data, "dev", "en", tokenizer=JaxToy(),
+                   tokenizer_fetcher=jax_fetch, max_token_len=L - 1,
+                   add_cls_token=True, add_sep_token=True)
+    theirs = JaxTrainer(
+        jcfg, JaxModel(jcfg), JaxArgs(
+            output_dir=str(tmp_path / "jax"), per_device_eval_batch_size=1,
+            detail_eval=True),
+        eval_dataset=jds,
+        collator=JaxCollator(max_seq_len=L, labels_as_spots=True,
+                             image_loader=make_image_loader(jcfg)),
+        params=load_params(trained, jcfg)).evaluate()
+
+    assert ours["num_sample_processed"] == theirs["num_sample_processed"] == 16
+    for key, value in theirs.items():
+        if key == "eval_samples_per_second":
+            continue
+        if key.startswith("loss_"):
+            np.testing.assert_allclose(ours[key], value, rtol=1e-5,
+                                       err_msg=key)
+        else:
+            assert ours[key] == value, key
+
+
+def test_layoutlmv2_family_still_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="layoutlmv2"):
+        run_rfund.main([*CLI, "--backbone_name", "layoutxlm-base",
+                        "--max_steps", "1", "--output_dir", str(tmp_path)])
