@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
 
 1. device  — requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build   — builds the four CUDA libraries from ``peneo_tpu_torch/csrc``
-   (one nvcc each, started together) and prints their ptxas reports.
+   (one nvcc each, started together) and prints their ptxas reports
+   (registers, shared memory, spills; any spill in a BiACM kernel fails)
+   and the resident CTAs per SM the runtime grants each BiACM kernel.
 3. kernel  — kernel #1 against its plain PyTorch twin (fp32 on the same
    bf16 inputs) at B=32, nh=12, d 64/16 and L = 512 (serving shape, last
    100 keys of half the rows masked), 128 and a ragged 200 (one row's first
@@ -22,8 +24,13 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
    rates 0 and 0.1, with explicit bits and with the in-kernel
    generator (the twin then takes ``attention_dropout_bits`` of the seed):
    forward max abs err ≤ 2e-2, each gradient's max abs err ≤ 2e-2 of its
-   own max |reference|; the kept share of each stream and the share where
-   the two differ; timings at the training shape.
+   own max |reference|; kernel #2's bit-packed keep flags equal to
+   ``pack_keep_mask(attention_dropout_bits(...) < threshold)`` word for
+   word, and kernel #3 fed either, bit for bit; the kept share of each
+   stream and the share where the two differ; timings at the training
+   shape, beside ``F.scaled_dot_product_attention`` at rate 0 and 0.1,
+   between CUDA events and as device time (torch.profiler), since these
+   calls are shorter than the host time of a wrapper call.
 5. serve   — LiLT-base (768 hidden, 12 layers, vocab 250002) + PEneo decoder
    with seeded random weights, saved as config.json / pytorch_model.bin /
    toy_tokenizer.json; 96 synthetic pages (3 batches of 32, L=512, bf16)
@@ -77,7 +84,7 @@ text positions), seeded random weights:
    autograd gradients (dq, dk, dv and dbias) at B=8 and the same lengths
    plus 709 with nearly collinear rows, rates 0 and 0.1, explicit bits and
    the in-kernel generator (bit-identical results; the twin takes
-   ``attention_dropout_bits`` word 0): forward ≤ 2e-2, each gradient ≤ 2e-2
+   ``element_dropout_bits``): forward ≤ 2e-2, each gradient ≤ 2e-2
    of its own max |reference|; the kept share; timings.
 14. serve_v3 — the model saved as config.json / pytorch_model.bin /
    toy_tokenizer.json, the 96 pages through ``InferenceService.run`` (B=32,
@@ -188,6 +195,32 @@ def time_ms(fn, n=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, n=20):
+    """Device milliseconds of one call of ``fn``: the summed durations of
+    every kernel and memset it launches (torch.profiler's device-side
+    rows), over ``n`` calls. Unlike :func:`time_ms` it leaves out the time
+    the card waits for the host between launches, which exceeds a kernel of
+    under ~0.2 ms (a wrapper's checks, allocations and ctypes call take
+    ~0.1 ms of host time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total / n / 1e3
+
+
 def bound_of(n_bytes, flops, peaks):
     """The least time of a call: its bytes at the memory rate or its bf16
     tensor-core FLOPs at the peak rate, whichever is larger."""
@@ -196,6 +229,48 @@ def bound_of(n_bytes, flops, peaks):
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": n_bytes, "flops": flops}
+
+
+def kernel_resources(log, occupancy):
+    """Per kernel of ``occupancy`` (name → CTAs per SM, dynamic shared
+    memory): its registers, static shared memory, stack frame and spill
+    bytes from the ptxas report ``log`` (``-Xptxas=-v``: an "entry
+    function" line with the mangled name, then "bytes stack frame, … spill
+    stores, … spill loads", then "Used N registers, … bytes smem")."""
+    import re
+
+    found = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = found.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack_frame=int(m.group(1)),
+                         spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(m.group(1)),
+                         static_smem=int(smem.group(1)) if smem else 0)
+    out = {}
+    for name, occ in occupancy.items():
+        # "biacm_train_fwd_kernel<true>" is mangled with ILb1E, <false> ILb0E
+        stem, _, arg = name.partition("<")
+        tag = {"true>": "ILb1E", "false>": "ILb0E", "": ""}[arg]
+        hits = [v for k, v in found.items() if stem in k and tag in k]
+        if len(hits) != 1 or "registers" not in hits[0] \
+                or "spill_stores" not in hits[0]:
+            raise RuntimeError(f"no single ptxas entry for {name}: "
+                               f"{sorted(found)}")
+        out[name] = {**hits[0], **occ}
+    return out
 
 
 def attention_inputs(batch, length, masked, gen):
@@ -254,11 +329,16 @@ def phase_kernel(ba, peaks):
         sdpa = F.scaled_dot_product_attention(q80, k80, v80, attn_mask=mask,
                                               scale=1.0)
         sdpa_err = (sdpa.float() - torch.cat([rt, rl], -1)).abs().max().item()
+        def library():
+            return F.scaled_dot_product_attention(q80, k80, v80,
+                                                  attn_mask=mask, scale=1.0)
+
         timing = {
             "ms": time_ms(lambda: ba.biacm_attention_cuda(*args)),
             "plain_ms": time_ms(lambda: ba.biacm_attention_reference(*args)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q80, k80, v80, attn_mask=mask, scale=1.0)),
+            "library_ms": time_ms(library),
+            "device_ms": device_ms(lambda: ba.biacm_attention_cuda(*args)),
+            "library_device_ms": device_ms(library),
             "sdpa_max_abs_err": sdpa_err,
         }
     # least time for one serving-shape call: each input read once, each
@@ -637,7 +717,7 @@ def phase_kernel_train(ba, peaks):
                                  device="cuda").to(torch.bfloat16)
                      .transpose(1, 2) for d in (64, 16))
 
-    fwd_err, grad_abs, grad_rel = {}, {}, {}
+    fwd_err, grad_abs, grad_rel, packed_checked = {}, {}, {}, []
     for length, masked, name in [(n, m, f"L{n}") for n, m in cases.items()] \
             + [(L, cases[L], f"L{L}_collinear")]:
         qkv, bias = attention_inputs(bt, length, masked, gen)
@@ -685,6 +765,28 @@ def phase_kernel_train(ba, peaks):
                 raise RuntimeError(
                     f"{name}, rate {rate}: the in-kernel generator's "
                     "results differ from those of attention_dropout_bits")
+            if rate > 0.0:
+                # kernel #2's packed keep flags against the plain packing
+                # of the same bits; kernel #3 fed either
+                plain_keep = ba.pack_keep_mask(
+                    torch.stack(bits) < ba.keep_threshold(rate))
+                for mode, rng in (("philox", seed), ("bits", bits)):
+                    *_, stats, keep = ba.biacm_attention_train_fwd_cuda(
+                        *qkv, bias, rng, st, sl, rate)
+                    if not torch.equal(keep, plain_keep):
+                        raise RuntimeError(
+                            f"{name}, {mode}: kernel #2's packed keep flags "
+                            f"differ from pack_keep_mask in "
+                            f"{(keep != plain_keep).sum().item()} words")
+                bwd = [ba.biacm_attention_train_bwd_cuda(
+                    *qkv, bias, k, stats, *dctx, st, sl, rate)
+                    for k in (keep, plain_keep)]
+                if not all(torch.equal(a, b) for a, b in zip(*bwd)):
+                    raise RuntimeError(
+                        f"{name}: kernel #3 fed the forward's keep flags "
+                        "and fed pack_keep_mask's differ")
+                packed_checked.append(name)
+                del plain_keep, keep, stats, bwd
             del bits, leaves, want, want_g, got_all
 
     # the masks at the training shape
@@ -702,13 +804,26 @@ def phase_kernel_train(ba, peaks):
     qkv, bias = attention_inputs(bt, L, cases[L], gen)
     dctx = out_grads(L)
     args = (*qkv, bias, SEED, st, sl, DROP)
-    stats = ba.biacm_attention_train_fwd_cuda(*args)[2]
+    stats, keep = ba.biacm_attention_train_fwd_cuda(*args)[2:]
     timing = {
         "fwd_ms": time_ms(lambda: ba.biacm_attention_train_fwd_cuda(*args)),
         "bwd_ms": time_ms(lambda: ba.biacm_attention_train_bwd_cuda(
-            *qkv, bias, SEED, stats, *dctx, st, sl, DROP)),
+            *qkv, bias, keep, stats, *dctx, st, sl, DROP)),
         "fwd_rate0_ms": time_ms(lambda: ba.biacm_attention_train_fwd_cuda(
             *qkv, bias, SEED, st, sl, 0.0)),
+        "bwd_rate0_ms": time_ms(lambda: ba.biacm_attention_train_bwd_cuda(
+            *qkv, bias, None, stats, *dctx, st, sl, 0.0)),
+        "fwd_device_ms": device_ms(
+            lambda: ba.biacm_attention_train_fwd_cuda(*args)),
+        "bwd_device_ms": device_ms(
+            lambda: ba.biacm_attention_train_bwd_cuda(
+                *qkv, bias, keep, stats, *dctx, st, sl, DROP)),
+        "fwd_rate0_device_ms": device_ms(
+            lambda: ba.biacm_attention_train_fwd_cuda(
+                *qkv, bias, SEED, st, sl, 0.0)),
+        "bwd_rate0_device_ms": device_ms(
+            lambda: ba.biacm_attention_train_bwd_cuda(
+                *qkv, bias, None, stats, *dctx, st, sl, 0.0)),
     }
     bits = ba.attention_dropout_bits(SEED, bt, NH, L, "cuda")
     timing["plain_fwd_ms"] = time_ms(
@@ -729,33 +844,49 @@ def phase_kernel_train(ba, peaks):
     mask = bias[:, None, None, :].to(torch.bfloat16)
     d80 = torch.cat(dctx, -1)
 
-    def sdpa():
+    def sdpa(rate=0.0):
         return F.scaled_dot_product_attention(q80, k80, v80, attn_mask=mask,
-                                              scale=1.0)
+                                              dropout_p=rate, scale=1.0)
 
-    with torch.no_grad():
-        timing["library_fwd_ms"] = time_ms(sdpa)
-    o80 = sdpa()
-    timing["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-        o80, (q80, k80, v80), d80, retain_graph=True))
+    # the library call at rate 0 and at the kernels' rate (one mask over
+    # head dim 80, its own generator: a yardstick only)
+    for rate, tag in ((0.0, ""), (DROP, "_dropout")):
+        with torch.no_grad():
+            timing[f"library_fwd{tag}_ms"] = time_ms(lambda: sdpa(rate))
+            timing[f"library_fwd{tag}_device_ms"] = device_ms(
+                lambda: sdpa(rate))
+        o80 = sdpa(rate)
+
+        def library_bwd():
+            return torch.autograd.grad(o80, (q80, k80, v80), d80,
+                                       retain_graph=True)
+
+        timing[f"library_bwd{tag}_ms"] = time_ms(library_bwd)
+        timing[f"library_bwd{tag}_device_ms"] = device_ms(library_bwd)
+        del o80
     timing["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         sdpa(), (q80, k80, v80), d80))
-    del o80
 
     io = bt * NH * L * (3 * 64 + 3 * 16) * 2     # q/k/v of both streams
     ctx_bytes = bt * NH * L * (64 + 16) * 2
     stats_bytes = bt * NH * L * 2 * 4
+    keep_bytes = keep.numel() * 4                # both streams, bit-packed
     bounds = {
-        "fwd": bound_of(io + bt * L * 4 + ctx_bytes + stats_bytes,
-                        4 * bt * NH * L * L * 80, peaks),
-        # reads q/k/v, bias, dctx, stats; writes the six gradients
-        "bwd": bound_of(io + bt * L * 4 + ctx_bytes + stats_bytes + io,
+        # reads q/k/v, bias; writes ctx, the statistics, the keep flags
+        "fwd": bound_of(io + bt * L * 4 + ctx_bytes + stats_bytes
+                        + keep_bytes, 4 * bt * NH * L * L * 80, peaks),
+        # reads q/k/v, bias, dctx, stats, the keep flags; writes the six
+        # gradients
+        "bwd": bound_of(io + bt * L * 4 + ctx_bytes + stats_bytes
+                        + keep_bytes + io,
                         5 * 2 * bt * NH * L * L * 80, peaks),
     }
     emit({"phase": "kernel_train", "fwd_max_abs_err": fwd_err,
           "grad_max_abs_err": grad_abs, "grad_rel_err": grad_rel,
           "tol": TRAIN_KERNEL_TOL, "kept_share": kept,
           "streams_differ_share": differ, "rate": DROP,
+          "packed_keep_flags_equal": packed_checked,
+          "keep_flags_bytes": keep_bytes,
           "shape": [bt, NH, L, 64, 16], **timing, "bounds": bounds})
     errors = {"fwd_max_abs_err": max(fwd_err.values()),
               "grad_max_abs_err": max(grad_abs.values()),
@@ -870,17 +1001,15 @@ def train_batch(out):
 
 def twin_backward(ba):
     """A stand-in for kernel #3's launcher: the plain twin's autograd
-    gradients at the same inputs and dropout bits, so that a run keeps
-    kernel #2's forward and takes the twin's backward."""
+    gradients at the same inputs and the forward's keep flags, so that a
+    run keeps kernel #2's forward and takes the twin's backward."""
     import torch
 
-    def bwd(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng, stats, dct, dcl,
+    def bwd(q_t, k_t, v_t, q_l, k_l, v_l, bias, keep, stats, dct, dcl,
             scale_t, scale_l, rate=0.0):
-        B, nh, length, _ = q_t.shape
         bits = None
-        if rate > 0.0:
-            bits = tuple(rng) if isinstance(rng, (tuple, list)) else \
-                ba.attention_dropout_bits(rng, B, nh, length, q_t.device)
+        if rate > 0.0:  # kernel #2's packed keep flags, as the twin's bits
+            bits = ba.keep_mask_bits(keep, q_t.shape[2])
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_()
                       for x in (q_t, k_t, v_t, q_l, k_l, v_l)]
@@ -919,7 +1048,7 @@ def bias_twin_backward(rb, ba):
         bits = None
         if rate > 0.0:
             bits = rng if isinstance(rng, torch.Tensor) else \
-                ba.attention_dropout_bits(rng, B, nh, length, q.device)[0]
+                ba.element_dropout_bits(rng, B, nh, length, q.device)
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
             out = rb.bias_attention_train_reference(*leaves, mask, bits,
@@ -1045,7 +1174,8 @@ def phase_train_breakdown(model, batch, profile_dir, v3=False):
     rows, device_ms = device_rows(prof, wall_ms, profile_dir,
                                   "train_v3_step" if v3 else "train_step")
     stem = "bias_train_" if v3 else "biacm_train_"
-    fwd_ms = sum(r[1] for r in rows if stem + "fwd" in r[0])
+    fwd_ms = sum(r[1] for r in rows if stem + "fwd" in r[0]
+                 or "biacm_keep_mask" in r[0])
     bwd_ms = sum(r[1] for r in rows if stem + "dkdv" in r[0]
                  or stem + "dq" in r[0])
     extra = {}
@@ -1231,7 +1361,7 @@ def phase_kernel_bias_train(rb, ba, peaks):
         dctx = out_grad(length)
         for rate in (0.0, DROP):
             seed = SEED + length
-            bits = ba.attention_dropout_bits(seed, bt, NH, length, "cuda")[0]
+            bits = ba.element_dropout_bits(seed, bt, NH, length, "cuda")
             leaves = [x.float().requires_grad_() for x in qkv] \
                 + [bias.clone().requires_grad_()]
             want = rb.bias_attention_train_reference(*leaves, mask, bits,
@@ -1262,11 +1392,11 @@ def phase_kernel_bias_train(rb, ba, peaks):
                        zip(got_all["philox"], got_all["bits"])):
                 raise RuntimeError(
                     f"{name}, rate {rate}: the in-kernel generator's results "
-                    "differ from those of attention_dropout_bits word 0")
+                    "differ from those of element_dropout_bits")
             del bits, leaves, want, want_g, got_all
 
     # the mask at the training shape
-    keep = ba.attention_dropout_bits(SEED, bt, NH, LV, "cuda")[0] \
+    keep = ba.element_dropout_bits(SEED, bt, NH, LV, "cuda") \
         < ba.keep_threshold(DROP)
     kept = keep.float().mean().item()
     del keep
@@ -1287,7 +1417,7 @@ def phase_kernel_bias_train(rb, ba, peaks):
         "fwd_rate0_ms": time_ms(lambda: rb.bias_attention_train_fwd_cuda(
             q, k, v, bias, mask, SEED, scale, 0.0)),
     }
-    bits = ba.attention_dropout_bits(SEED, bt, NH, LV, "cuda")[0]
+    bits = ba.element_dropout_bits(SEED, bt, NH, LV, "cuda")
     timing["plain_fwd_ms"] = time_ms(
         lambda: rb.bias_attention_train_reference(q, k, v, bias, mask, bits,
                                                   scale, DROP))
@@ -1586,6 +1716,18 @@ def main(argv=None):
              for src in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    # each BiACM kernel's registers, shared memory and spills from the
+    # ptxas report, and the resident CTAs per SM the runtime grants it
+    resources = kernel_resources(
+        "\n".join(build_log(src) for src in (ba.SOURCE, ba.TRAIN_SOURCE)),
+        ba.kernel_occupancy())
+    emit({"phase": "biacm_kernel_resources", "threads_per_cta": 128,
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "kernels": resources})
+    spilled = {k: v for k, v in resources.items()
+               if v["spill_stores"] or v["spill_loads"]}
+    if spilled:
+        raise RuntimeError(f"register spills in a BiACM kernel: {spilled}")
 
     max_err, timing, bound = timed("kernel", phase_kernel, ba, peaks)
     train_err, train_timing, train_bounds = timed(
@@ -1628,15 +1770,21 @@ def main(argv=None):
         del model, batch
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
-              library_ms, max_rel_err=None):
+              library_ms, max_rel_err=None, device=(None, None)):
         """One kernel of the ``kernels`` line; every entry has these keys
-        (``max_rel_err`` is null for the forward kernels)."""
+        (``max_rel_err`` is null for the forward kernels). ``ms``,
+        ``plain_ms`` and ``library_ms`` are medians between CUDA events
+        around the call (host time between launches included);
+        ``device_ms`` and ``library_device_ms`` are the profiler's device
+        time of the same calls, taken for the BiACM kernels, whose calls
+        are shorter than their host time (null for the others)."""
         return {"name": name, "route": "cuda",
                 "source": "peneo_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "max_rel_err": max_rel_err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-                "bound_by": bnd["bound_by"], "library_ms": library_ms}
+                "bound_by": bnd["bound_by"], "library_ms": library_ms,
+                "device_ms": device[0], "library_device_ms": device[1]}
 
     jb = "peneo_tpu/ops/biacm_attention.py:"
     jr = "peneo_tpu/ops/bias_attention.py:"
@@ -1645,17 +1793,22 @@ def main(argv=None):
     emit({"kernels": [
         entry("biacm_attention", "biacm_attention.cu", jb + "49", launches,
               max_err, timing["ms"], timing["plain_ms"], bound,
-              timing["library_ms"]),
+              timing["library_ms"],
+              device=(timing["device_ms"], timing["library_device_ms"])),
         entry("biacm_attention_train_fwd", "biacm_attention_train.cu",
               jb + "295", train_launches["fwd"], train_err["fwd_max_abs_err"],
               train_timing["fwd_ms"], train_timing["plain_fwd_ms"],
-              train_bounds["fwd"], train_timing["library_fwd_ms"]),
+              train_bounds["fwd"], train_timing["library_fwd_ms"],
+              device=(train_timing["fwd_device_ms"],
+                      train_timing["library_fwd_dropout_device_ms"])),
         entry("biacm_attention_train_bwd", "biacm_attention_train.cu",
               jb + "327", train_launches["bwd"],
               train_err["grad_max_abs_err"], train_timing["bwd_ms"],
               train_timing["plain_bwd_ms"], train_bounds["bwd"],
               train_timing["library_bwd_ms"],
-              max_rel_err=train_err["grad_max_rel_err"]),
+              max_rel_err=train_err["grad_max_rel_err"],
+              device=(train_timing["bwd_device_ms"],
+                      train_timing["library_bwd_dropout_device_ms"])),
         entry("bias_attention", "bias_attention.cu", jr + "59", bias_launches,
               bias_err, bias_timing["ms"], bias_timing["plain_ms"],
               bias_bound, bias_timing["library_ms"]),

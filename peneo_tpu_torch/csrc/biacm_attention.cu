@@ -18,8 +18,12 @@
 // behind (~33 µs). The design keeps the (L, L) scores and probabilities out
 // of device memory entirely (the plain version writes and re-reads them),
 // reads every K/V tile once per 64-row query tile, and runs both products
-// on the tensor cores (mma.sync m16n8k16 bf16 → fp32). This is the simple
-// first version: no TMA, no wgmma, no software pipelining.
+// on the tensor cores (mma.sync m16n8k16 bf16 → fp32). What the kernel
+// spends its time on is not the products but load latency and
+// shared-memory instructions, so the K/V tiles of the next step travel by
+// cp.async into a 2-stage ring while the warps compute, sit in shared
+// memory once, as rows, and reach the registers through ldmatrix (.trans
+// for V): biacm_common.cuh. No TMA, no wgmma.
 //
 // Design, and how it differs from the TPU kernel: the TPU kernel keeps the
 // full K/V rows of a (b, h) in VMEM and does a one-pass softmax over a
@@ -31,7 +35,8 @@
 // instantiates too, with dropout and row statistics:
 //
 // - One CTA per (64-row query tile, h, b); 4 warps, each owning 16 query
-//   rows. Q fragments stay in registers for the whole key loop.
+//   rows. Q fragments stay in registers for the whole key loop; ≤ 168
+//   registers a thread, 3 CTAs per SM.
 // - The padding mask is finite (finfo(f32).min/2, not -inf), so a key tile
 //   that is all padding gives a finite row max and never inf − inf. Keys
 //   past L (ragged tail) get -inf and contribute exactly 0; the first tile
@@ -62,7 +67,7 @@ namespace {
 
 // kernel #1: the shared forward body without dropout and without the row
 // statistics (biacm_common.cuh)
-__global__ void __launch_bounds__(biacm::kThreads)
+__global__ void __launch_bounds__(biacm::kThreads, 3)
 biacm_fwd_kernel(const biacm::FwdParams p) {
   biacm::forward_tile<false, false>(p);
 }
@@ -95,10 +100,29 @@ int biacm_attention_fwd(const void* q_t, const void* k_t, const void* v_t,
   p.L = L;
   p.scale_t = scale_t;
   p.scale_l = scale_l;
+  static bool allowed[64] = {};
+  const cudaError_t err = biacm::allow_shared_memory(
+      biacm_fwd_kernel, biacm::kSmemBytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((L + biacm::kTile - 1) / biacm::kTile, nh, B);
-  biacm_fwd_kernel<<<grid, biacm::kThreads, 0,
+  biacm_fwd_kernel<<<grid, biacm::kThreads, biacm::kSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What cudaOccupancyMaxActiveBlocksPerMultiprocessor grants the kernel on
+// the current device: resident CTAs per SM, or minus the cudaError_t.
+// `smem_bytes` receives its dynamic shared memory.
+int biacm_attention_occupancy(int* smem_bytes) {
+  static bool allowed[64] = {};
+  cudaError_t err = biacm::allow_shared_memory(
+      biacm_fwd_kernel, biacm::kSmemBytes, allowed);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int blocks = 0;
+  *smem_bytes = biacm::kSmemBytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, biacm_fwd_kernel, biacm::kThreads, *smem_bytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 const char* biacm_attention_error_string(int code) {

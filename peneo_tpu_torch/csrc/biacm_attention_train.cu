@@ -29,30 +29,44 @@
 // lo, biacm::pack_a_split) where the TPU kernel rounds it to bf16 once: a
 // single rounding shows in dq as 2^-9·|mean k| / |k − mean k|.
 //
-// Dropout bits. keep_s = bits_s < thr, thr = min(round((1−r)·2³²), 2³²−1),
-// as on the TPU. In-kernel, the bits are Philox4x32-10 (Salmon et al.,
-// SC'11; the Random123 round and key schedule) of the counter
-// (j, i, h, b) under the key (seed_lo, seed_hi): output word 0 is stream 1
-// (text), word 1 stream 2 (layout). They are a pure function of
-// (seed, b, h, i, j, stream), so the forward, both backward kernels and a
-// checkpoint recompute draw the same masks whatever their tiling (the TPU's
-// depend on the tile). ops/biacm_attention.py:attention_dropout_bits
-// computes the same bits with torch integer ops. The kernels also take the
-// bits as two explicit uint32 (B, nh, L, L) tensors.
+// Dropout masks. keep_s = bits_s < thr, thr = min(round((1−r)·2³²), 2³²−1),
+// as on the TPU. A small kernel of its own, launched with the forward,
+// draws them (Philox4x32-10, one draw per two adjacent keys and both
+// streams: biacm_common.cuh, "dropout bits"; or compares two explicit
+// uint32 (B, nh, L, L) tensors), a pure function of (seed, b, h, i, j,
+// stream), so a checkpoint recompute rewrites the same masks. It writes
+// the keep flags bit-packed, uint32 (2, B, nh, L, ceil(L / 32)), bit j % 32
+// of word j / 32; the forward and the backward read them tile by tile,
+// draw nothing, and have one mask path for both modes. An earlier version
+// of this pair saved the seed and redrew the masks inside the forward and
+// each backward sweep; a pass of draws over the (L, L) elements measured
+// longer than the forward's products, the attention kernels made four,
+// and the generator's registers cost them a resident CTA, so the masks
+// are now drawn once, at full occupancy, and carried (L²/4 bytes per head
+// for both streams: 6.3 MB per layer at B=8, nh=12, L=512, which stays in
+// the 50 MB L2 between the mask kernel and the forward).
 //
 // What bounds it on the H100: at the training shape (B=8, nh=12, L=512)
-// the forward does 4·B·nh·L²·80 = 8.1 GFLOP on ~32 MB, about 250 FLOP per
-// byte, so bytes (~9.5 µs) and tensor-core time (~8.1 µs) are close; the
+// the forward does 4·B·nh·L²·80 = 8.1 GFLOP on ~38 MB (with the packed
+// masks), so bytes (~11 µs) and tensor-core time (~8 µs) are close; the
 // backward's 5·2·B·nh·L²·80 = 20 GFLOP (~20 µs) bound it by operations.
-// On top come the Philox rounds: one 10-round draw per (i, j) in the
-// forward and three more in the backward (both sweeps of dq, and dk/dv),
-// integer work the bounds do not count, and the dq kernel's first sweep
-// recomputes the scores and dP once more to sum D. The design keeps the
-// (L, L) scores, probabilities and masks out of device memory entirely
-// (the plain version writes several fp32 (B, nh, L, L) tensors),
-// accumulates dk/dv in registers, and runs every product on the tensor
-// cores (mma.sync m16n8k16 bf16 → fp32). Simple first version: no TMA, no
-// wgmma, no software pipelining.
+// Neither is what the kernels spend their time on: that is load latency,
+// shared-memory instructions and the generator's integer rounds, and the
+// dq kernel's first sweep, which recomputes the scores and dP once more to
+// sum D. The design keeps the (L, L) scores and probabilities out of
+// device memory entirely (the plain version writes several fp32 (B, nh, L,
+// L) tensors), accumulates dk/dv in registers, runs every product on the
+// tensor cores (mma.sync m16n8k16 bf16 → fp32), and
+// - keeps every tile in shared memory once, as rows, read with ldmatrix
+//   (.trans where a product needs the transpose: K in dS·k, Q and dO in
+//   dSᵀ·q and pᵀ·dO), so no tile is read from device memory twice and no
+//   transposed copy is written;
+// - fetches the next tile with cp.async into the other stage of a 2-stage
+//   ring while the warps compute on the current one (one barrier per tile);
+// - draws each mask once, two keys per Philox draw, outside the attention
+//   kernels.
+// No TMA and no wgmma: at d = 80 and L = 512 the products are not what
+// binds.
 //
 // Design (FlashAttention-2 layout; the TPU kernels hold a (b, h)'s full K/V
 // rows and a (128, L) fp32 tile in VMEM, and build dk/dv across a
@@ -66,14 +80,23 @@
 //   fp32 (B, nh, L, 2): a fully padded row has scores ≈ finfo(f32).min/2,
 //   where m + log l would round back to m, so the backward recomputes
 //   p = exp((s − m) − log l) instead.
-// - dq: one CTA per (64-query tile, h, b). A first sweep over the key
-//   tiles recomputes p from the statistics and dP, and sums D; a second
-//   computes dS and accumulates dq. It writes D for the dk/dv kernel.
-// - dk/dv: one CTA per (64-key tile, h, b), each warp owning 16 keys; it
-//   loops over the query tiles, recomputes pᵀ from the statistics,
-//   regenerates the bits of each (i, j), and accumulates dv_t, dv_l, dk_t,
-//   dk_l in fp32 registers; written once, in bf16. No atomics: both
-//   kernels are deterministic run to run.
+// - dq: one CTA per (64-query tile, h, b). The ring runs over the key
+//   tiles twice without a break: a first sweep recomputes p from the
+//   statistics and dP, and sums D; a second computes dS and accumulates
+//   dq. It writes D for the dk/dv kernel.
+// - dk/dv: one CTA per (64-key tile, h, b), each warp owning 16 keys; the
+//   ring runs over the query tiles (Q, dO, their statistics, D and the
+//   keep words), it recomputes pᵀ from the statistics and accumulates dv_t,
+//   dv_l, dk_t, dk_l in fp32 registers; written once, in bf16. No atomics:
+//   both kernels are deterministic run to run.
+// - The keep words of a (64, 64) tile are staged in shared memory as
+//   [stream][word][row], so the query-owned threads of dq and the
+//   key-owned threads of dk/dv both pick their bits from whole words.
+// - Residency: the forward and dq keep ≤ 168 registers for 3 CTAs per SM,
+//   dk/dv (four fp32 accumulators) ≤ 255 for 2; with 768 CTAs on 132 SMs
+//   that is 1.94, 1.94 and 2.9 waves, not the wave and a half of 4 CTAs
+//   per SM, which also measured slower (biacm_train_occupancy reports what
+//   the runtime grants).
 // - Any L ≥ 1: rows and keys past L are zero-filled and predicated (keys
 //   get bias −inf, query rows past L get m = +inf, so their p is 0).
 // - q/k/v and the output gradients are read through (batch, head, seq)
@@ -94,25 +117,48 @@
 
 namespace {
 
+using biacm::cp_async;
+using biacm::cp_async_commit;
+using biacm::cp_async_wait;
 using biacm::kDL;
 using biacm::kDT;
+using biacm::keep_pair_mask;
+using biacm::kKeepWords;
 using biacm::kNoDropout;
+using biacm::kOffAL;
+using biacm::kOffAT;
+using biacm::kOffBL;
+using biacm::kOffBT;
+using biacm::kOffF;
+using biacm::kOffKeep;
+using biacm::kSmemBytes;
+using biacm::kStageBytes;
 using biacm::kStrL;
 using biacm::kStrT;
-using biacm::kStrX;
 using biacm::kThreads;
 using biacm::kTile;
-using biacm::lds32;
-using biacm::load_a;
-using biacm::load_rows;
-using biacm::load_rows_t;
+using biacm::ldsm_x4;
+using biacm::ldsm_x4_t;
+using biacm::load_keep_async;
+using biacm::load_rows_async;
 using biacm::mma_16816;
 using biacm::pack_a;
 using biacm::pack_a_split;
 using biacm::rows;
+using biacm::static_for;
+
+// dk/dv's stage: Q, dO tiles, the rows' (m, log l) pairs, D, the keep words
+constexpr int kKvOffDelta = kOffF + kTile * 8;
+constexpr int kKvOffMask = kKvOffDelta + kTile * 4;
+constexpr int kKvStageBytes = kKvOffMask + kKeepWords * 4;
+constexpr int kKvSmemBytes = 2 * kKvStageBytes;
+// resident CTAs per SM the kernels are compiled for (register caps of
+// 168, 168 and 255 a thread)
+constexpr int kFwdBlocks = 3, kDqBlocks = 3, kKvBlocks = 2;
 
 // The backward's parameters: the forward's (inputs, bias, row statistics,
-// dropout) plus the output gradients, D and the six input gradients.
+// keep flags, dropout) plus the output gradients, D and the six input
+// gradients.
 struct BwdParams : biacm::FwdParams {
   const __nv_bfloat16* dout[2];          // dct, dcl
   int64_t dstride[2][3];
@@ -136,54 +182,120 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* o,
   biacm::store_rows<D>(o, p.nh, p.L, b, h, row0, g, t, acc, sc, sc);
 }
 
+// ------------------------------------------------------------ keep flags
+// The dropout masks of one training forward, bit-packed (biacm_common.cuh,
+// "dropout bits"): one thread per (query i, 32-key word) of a head draws
+// the word's 16 key pairs (or compares the explicit bits) and writes the
+// word of both streams. Grid (ceil(L·words / kThreads), nh, B).
+__global__ void __launch_bounds__(kThreads)
+biacm_keep_mask_kernel(const biacm::FwdParams p) {
+  const int L = p.L, words = (L + 31) / 32;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= L * words) return;
+  const int i = e / words, w = e % words, h = blockIdx.y, b = blockIdx.z;
+  uint32_t k1 = 0u, k2 = 0u;
+#pragma unroll 4
+  for (int m = 0; m < 16; ++m) {
+    bool f[4];
+    biacm::keep_flags_pair(p.drop, p.nh, L, b, h, i, w * 32 + 2 * m, f);
+    k1 |= (uint32_t(f[0]) | uint32_t(f[2]) << 1) << (2 * m);
+    k2 |= (uint32_t(f[1]) | uint32_t(f[3]) << 1) << (2 * m);
+  }
+  p.keep[biacm::keep_head(p, 0, b, h) + e] = k1;
+  p.keep[biacm::keep_head(p, 1, b, h) + e] = k2;
+}
+
 // ---------------------------------------------------------------- forward
 // kernel #2: the shared forward body (biacm_common.cuh) with the row
-// statistics, and with the dropout masks unless the rate is 0
+// statistics, and with the dropout masks (read from the packed keep flags
+// the mask kernel wrote just before) unless the rate is 0
 template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
 biacm_train_fwd_kernel(const biacm::FwdParams p) {
   biacm::forward_tile<kDropout, true>(p);
 }
 
 // ------------------------------------------------------------- dk / dv
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kKvBlocks)
 biacm_train_dkdv_kernel(const BwdParams p) {
-  // per query tile: q and dO as rows (B operands of the scores) and
-  // transposed (B operands of dk, dv), plus the rows' statistics
-  __shared__ __align__(16) __nv_bfloat16 s_q_t[kTile * kStrT];
-  __shared__ __align__(16) __nv_bfloat16 s_q_l[kTile * kStrL];
-  __shared__ __align__(16) __nv_bfloat16 s_qx_t[kDT * kStrX];
-  __shared__ __align__(16) __nv_bfloat16 s_qx_l[kDL * kStrX];
-  __shared__ __align__(16) __nv_bfloat16 s_d_t[kTile * kStrT];
-  __shared__ __align__(16) __nv_bfloat16 s_d_l[kTile * kStrL];
-  __shared__ __align__(16) __nv_bfloat16 s_dx_t[kDT * kStrX];
-  __shared__ __align__(16) __nv_bfloat16 s_dx_l[kDL * kStrX];
-  __shared__ float s_m[kTile], s_lg[kTile], s_delta[kTile];
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int L = p.L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int key_a = k0 + warp * 16 + g;  // this thread's keys: key_a, +8
+  const bool dropout = p.drop.mode != kNoDropout;
+  const int64_t stat0 = (static_cast<int64_t>(b) * p.nh + h) * L;
 
-  // K and V of this key tile → A fragments in registers (staged through
-  // the q / dO buffers before the loop reuses them)
-  load_rows<kDT, kStrT>(s_q_t, rows(p, 1, b, h, k0), p.stride[1][2], L - k0);
-  load_rows<kDL, kStrL>(s_q_l, rows(p, 4, b, h, k0), p.stride[4][2], L - k0);
-  load_rows<kDT, kStrT>(s_d_t, rows(p, 2, b, h, k0), p.stride[2][2], L - k0);
-  load_rows<kDL, kStrL>(s_d_l, rows(p, 5, b, h, k0), p.stride[5][2], L - k0);
-  __syncthreads();
-  uint32_t ka_t[kDT / 16][4], ka_l[4], va_t[kDT / 16][4], va_l[4];
-#pragma unroll
-  for (int kk = 0; kk < kDT / 16; ++kk) {
-    load_a<kStrT>(ka_t[kk], s_q_t, warp * 16, kk * 16, g, t);
-    load_a<kStrT>(va_t[kk], s_d_t, warp * 16, kk * 16, g, t);
+  const uint32_t sbase = biacm::smem_u32(smem);
+  // Q, dO (as rows), the rows' statistics, D and the keep words of the
+  // query tile at q0 → stage `stage`; one group
+  auto fetch_queries = [&](int q0, int stage) {
+    const uint32_t s = sbase + stage * kKvStageBytes;
+    load_rows_async<kDT, kStrT>(s + kOffAT, rows(p, 0, b, h, 0),
+                                p.stride[0][2], q0, L);
+    load_rows_async<kDL, kStrL>(s + kOffAL, rows(p, 3, b, h, 0),
+                                p.stride[3][2], q0, L);
+    load_rows_async<kDT, kStrT>(s + kOffBT, drows(p, 0, b, h, 0),
+                                p.dstride[0][2], q0, L);
+    load_rows_async<kDL, kStrL>(s + kOffBL, drows(p, 1, b, h, 0),
+                                p.dstride[1][2], q0, L);
+    const int i = threadIdx.x;
+    if (i < kTile) {
+      const bool ok = q0 + i < L;
+      if (ok)
+        cp_async<8>(s + kOffF + i * 8, p.stats + stat0 + q0 + i, true);
+      else  // p = 0 for rows past L
+        reinterpret_cast<float2*>(smem + stage * kKvStageBytes + kOffF)[i] =
+            make_float2(INFINITY, 0.f);
+      cp_async<4>(s + kKvOffDelta + i * 4,
+                  p.delta + stat0 + (ok ? q0 + i : 0), ok);
+    }
+    if (dropout) load_keep_async(s + kKvOffMask, p, b, h, q0, k0);
+    cp_async_commit();
+  };
+
+  // K and V of this key tile → A fragments in registers, staged through
+  // stage 1 (a group of its own) while query tile 0 travels to stage 0
+  {
+    const uint32_t s = sbase + kKvStageBytes;
+    load_rows_async<kDT, kStrT>(s + kOffAT, rows(p, 1, b, h, 0),
+                                p.stride[1][2], k0, L);
+    load_rows_async<kDL, kStrL>(s + kOffAL, rows(p, 4, b, h, 0),
+                                p.stride[4][2], k0, L);
+    load_rows_async<kDT, kStrT>(s + kOffBT, rows(p, 2, b, h, 0),
+                                p.stride[2][2], k0, L);
+    load_rows_async<kDL, kStrL>(s + kOffBL, rows(p, 5, b, h, 0),
+                                p.stride[5][2], k0, L);
+    cp_async_commit();
   }
-  load_a<kStrL>(ka_l, s_q_l, warp * 16, 0, g, t);
-  load_a<kStrL>(va_l, s_d_l, warp * 16, 0, g, t);
+  fetch_queries(0, 0);
+  cp_async_wait<1>();
+  __syncthreads();
+  const uint32_t off_a_t = biacm::frag_off<kStrT>(lane);
+  const uint32_t off_a_l = biacm::frag_off<kStrL>(lane);
+  const uint32_t off_b_t = biacm::bfrag_off<kStrT>(lane);
+  const uint32_t off_b_l = biacm::bpair_off<kStrL>(lane);
+  uint32_t ka_t[kDT / 16][4], ka_l[4], va_t[kDT / 16][4], va_l[4];
+  {
+    const uint32_t row_t = sbase + kKvStageBytes + warp * 16 * kStrT * 2
+                           + off_a_t;
+    const uint32_t row_l = sbase + kKvStageBytes + warp * 16 * kStrL * 2
+                           + off_a_l;
+    static_for<kDT / 16>([&](auto kk_) {
+      constexpr int kk = decltype(kk_)::value;
+      ldsm_x4<kOffAT + kk * 32>(ka_t[kk], row_t);
+      ldsm_x4<kOffBT + kk * 32>(va_t[kk], row_t);
+    });
+    ldsm_x4<kOffAL>(ka_l, row_l);
+    ldsm_x4<kOffBL>(va_l, row_l);
+  }
   const float* bias_row = p.bias + b * p.bias_stride;
   const float key_bias[2] = {key_a < L ? bias_row[key_a] : -INFINITY,
                              key_a + 8 < L ? bias_row[key_a + 8] : -INFINITY};
+  // this thread's keys within their 32-key word of the keep flags
+  const int key_bit = (warp & 1) * 16 + g;
 
   float dv_t[kDT / 8][4], dv_l[kDL / 8][4], dk_t[kDT / 8][4],
       dk_l[kDL / 8][4];
@@ -196,88 +308,120 @@ biacm_train_dkdv_kernel(const BwdParams p) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) dv_l[n][q] = dk_l[n][q] = 0.f;
 
-  const int64_t stat0 = (static_cast<int64_t>(b) * p.nh + h) * L;
-  for (int q0 = 0; q0 < L; q0 += kTile) {
-    const int qv = L - q0;
+  const int tiles = (L + kTile - 1) / kTile;
+  for (int it = 0; it < tiles; ++it) {
+    // tile `it` has landed, and every warp is done with the other stage
+    // (tile it − 1; before tile 0, the K/V fragments): refill that stage
+    cp_async_wait<0>();
     __syncthreads();
-    load_rows<kDT, kStrT>(s_q_t, rows(p, 0, b, h, q0), p.stride[0][2], qv);
-    load_rows<kDL, kStrL>(s_q_l, rows(p, 3, b, h, q0), p.stride[3][2], qv);
-    load_rows_t<kDT>(s_qx_t, rows(p, 0, b, h, q0), p.stride[0][2], qv);
-    load_rows_t<kDL>(s_qx_l, rows(p, 3, b, h, q0), p.stride[3][2], qv);
-    load_rows<kDT, kStrT>(s_d_t, drows(p, 0, b, h, q0), p.dstride[0][2], qv);
-    load_rows<kDL, kStrL>(s_d_l, drows(p, 1, b, h, q0), p.dstride[1][2], qv);
-    load_rows_t<kDT>(s_dx_t, drows(p, 0, b, h, q0), p.dstride[0][2], qv);
-    load_rows_t<kDL>(s_dx_l, drows(p, 1, b, h, q0), p.dstride[1][2], qv);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = i < qv;
-      const float2 st = ok ? p.stats[stat0 + q0 + i] : make_float2(0.f, 0.f);
-      s_m[i] = ok ? st.x : INFINITY;  // p = 0 for query rows past L
-      s_lg[i] = st.y;
-      s_delta[i] = ok ? p.delta[stat0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
+    if (it + 1 < tiles) fetch_queries((it + 1) * kTile, (it + 1) & 1);
+    const unsigned char* sp = smem + (it & 1) * kKvStageBytes;
+    // this lane's ldmatrix row addresses at the stage's origin, one per
+    // address pattern and row stride
+    const uint32_t st = sbase + (it & 1) * kKvStageBytes;
+    const uint32_t st_a_t = st + off_a_t, st_a_l = st + off_a_l;
+    const uint32_t st_b_t = st + off_b_t, st_b_l = st + off_b_l;
+    const float* s_st = reinterpret_cast<const float*>(sp + kOffF);
+    const float* s_delta = reinterpret_cast<const float*>(sp + kKvOffDelta);
+    const uint32_t* s_keep = reinterpret_cast<const uint32_t*>(sp + kKvOffMask)
+                             + (warp >> 1) * kTile;  // this warp's word
 
-#pragma unroll
-    for (int nn = 0; nn < kTile / 16; ++nn) {  // 16 queries per step
-      float e1[2][4], e2[2][4], ds[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
+    // 16 queries per step. A real loop (the offsets of a step are added to
+    // the lane's addresses at run time): unrolled, the kernel's code
+    // outgrows the instruction cache and ptxas hoists loads until it spills.
+#pragma unroll 1
+    for (int nn = 0; nn < kTile / 16; ++nn) {
+      const uint32_t q_t = nn * 16 * kStrT * 2, q_l = nn * 16 * kStrL * 2;
+      float ds[2][4], pe[2][4];  // dS, and p/(1−r) before the masks
+      uint32_t m1[4], m2[4];     // the two streams' bf16x2 keep masks
+      uint32_t ql[4], dl[4];  // q_l, dO_l fragments of both 8-query halves
+      ldsm_x4<kOffAL>(ql, st_b_l + q_l);
+      ldsm_x4<kOffBL>(dl, st_b_l + q_l);
+      static_for<2>([&](auto half_) {
+        constexpr int half = decltype(half_)::value;
         const int qc = nn * 16 + half * 8;  // this n-tile's first query
-        float st[4] = {0.f, 0.f, 0.f, 0.f}, sl[4] = {0.f, 0.f, 0.f, 0.f};
+        float sc_t[4] = {0.f, 0.f, 0.f, 0.f}, sc_l[4] = {0.f, 0.f, 0.f, 0.f};
         float g1[4] = {0.f, 0.f, 0.f, 0.f}, g2[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* qr = s_q_t + (qc + g) * kStrT + t * 2;
-        const __nv_bfloat16* dr = s_d_t + (qc + g) * kStrT + t * 2;
-#pragma unroll
-        for (int kk = 0; kk < kDT / 16; ++kk) {
-          mma_16816(st, ka_t[kk], lds32(qr + kk * 16), lds32(qr + kk * 16 + 8));
-          mma_16816(g1, va_t[kk], lds32(dr + kk * 16), lds32(dr + kk * 16 + 8));
+        static_for<kDT / 32>([&](auto k2_) {  // two k16 steps per load
+          constexpr int k2 = decltype(k2_)::value;
+          constexpr int off = half * 8 * kStrT * 2 + k2 * 64;
+          uint32_t f[4];
+          ldsm_x4<kOffAT + off>(f, st_b_t + q_t);
+          mma_16816(sc_t, ka_t[2 * k2], f[0], f[1]);
+          mma_16816(sc_t, ka_t[2 * k2 + 1], f[2], f[3]);
+          ldsm_x4<kOffBT + off>(f, st_b_t + q_t);
+          mma_16816(g1, va_t[2 * k2], f[0], f[1]);
+          mma_16816(g1, va_t[2 * k2 + 1], f[2], f[3]);
+        });
+        mma_16816(sc_l, ka_l, ql[2 * half], ql[2 * half + 1]);
+        mma_16816(g2, va_l, dl[2 * half], dl[2 * half + 1]);
+        // queries qc + 2t, qc + 2t + 1: (m, log l) pairs, D, keep words
+        const float4 ml =
+            *reinterpret_cast<const float4*>(s_st + (qc + t * 2) * 2);
+        const float2 dd =
+            *reinterpret_cast<const float2*>(s_delta + qc + t * 2);
+        uint2 w1 = make_uint2(~0u, ~0u), w2 = make_uint2(~0u, ~0u);
+        if (dropout) {
+          w1 = *reinterpret_cast<const uint2*>(s_keep + qc + t * 2);
+          w2 = *reinterpret_cast<const uint2*>(s_keep + 2 * kTile + qc
+                                               + t * 2);
         }
-        const __nv_bfloat16* qlr = s_q_l + (qc + g) * kStrL + t * 2;
-        const __nv_bfloat16* dlr = s_d_l + (qc + g) * kStrL + t * 2;
-        mma_16816(sl, ka_l, lds32(qlr), lds32(qlr + 8));
-        mma_16816(g2, va_l, lds32(dlr), lds32(dlr + 8));
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int kr = q >> 1;                 // key row g or g+8
-          const int qi = qc + t * 2 + (q & 1);   // query within the tile
-          const float sv = st[q] * p.scale_t + sl[q] * p.scale_l
-                           + key_bias[kr];
-          const float pv = __expf((sv - s_m[qi]) - s_lg[qi]);
-          float dp;
-          if (p.drop.mode == kNoDropout) {
-            e1[half][q] = e2[half][q] = pv;
-            dp = g1[q] + g2[q];
-          } else {
-            const int key = key_a + kr * 8, query = q0 + qi;
-            bool k1 = false, k2 = false;
-            if (key < L && query < L)
-              biacm::keep_flags(p.drop, p.nh, L, b, h, query, key, k1, k2);
-            e1[half][q] = k1 ? pv * p.drop.inv_keep : 0.f;
-            e2[half][q] = k2 ? pv * p.drop.inv_keep : 0.f;
-            dp = (k1 ? g1[q] * p.drop.inv_keep : 0.f)
-                 + (k2 ? g2[q] * p.drop.inv_keep : 0.f);
+        for (int kr = 0; kr < 2; ++kr) {  // key row g or g+8
+          // bit 0 / 1: the key's flag for query qc + 2t / qc + 2t + 1
+          const int sh = key_bit + kr * 8;
+          const uint32_t b1 = ((w1.x >> sh) & 1u) | ((w1.y >> sh) & 1u) << 1;
+          const uint32_t b2 = ((w2.x >> sh) & 1u) | ((w2.y >> sh) & 1u) << 1;
+          m1[2 * half + kr] = keep_pair_mask(b1);
+          m2[2 * half + kr] = keep_pair_mask(b2);
+#pragma unroll
+          for (int odd = 0; odd < 2; ++odd) {  // query qc + 2t + odd
+            const int q = 2 * kr + odd;
+            const float sv = sc_t[q] * p.scale_t + sc_l[q] * p.scale_l
+                             + key_bias[kr];
+            const float pv = __expf((sv - (odd ? ml.z : ml.x))
+                                    - (odd ? ml.w : ml.y));
+            const bool k1 = (b1 >> odd) & 1u, k2 = (b2 >> odd) & 1u;
+            const float dp = (k1 ? g1[q] * p.drop.inv_keep : 0.f)
+                             + (k2 ? g2[q] * p.drop.inv_keep : 0.f);
+            pe[half][q] = pv * p.drop.inv_keep;
+            ds[half][q] = pv * (dp - (odd ? dd.y : dd.x));
           }
-          ds[half][q] = pv * (dp - s_delta[qi]);
         }
-      }
+      });
+      // pᵀ of both streams: p/(1−r) rounded to bf16, dropped elements
+      // zeroed (equal to rounding keep ? p/(1−r) : 0)
       uint32_t pa1[4], pa2[4], dsa[4], dsb[4];
-      pack_a(pa1, e1);
-      pack_a(pa2, e2);
+      pack_a(pa1, pe);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa2[i] = pa1[i] & m2[i];
+        pa1[i] &= m1[i];
+      }
       pack_a_split(dsa, dsb, ds);
-#pragma unroll
-      for (int n = 0; n < kDT / 8; ++n) {
-        const int off = (n * 8 + g) * kStrX + nn * 16 + t * 2;
-        mma_16816(dv_t[n], pa1, lds32(s_dx_t + off), lds32(s_dx_t + off + 8));
-        mma_16816(dk_t[n], dsa, lds32(s_qx_t + off), lds32(s_qx_t + off + 8));
-        mma_16816(dk_t[n], dsb, lds32(s_qx_t + off), lds32(s_qx_t + off + 8));
-      }
-#pragma unroll
-      for (int n = 0; n < kDL / 8; ++n) {
-        const int off = (n * 8 + g) * kStrX + nn * 16 + t * 2;
-        mma_16816(dv_l[n], pa2, lds32(s_dx_l + off), lds32(s_dx_l + off + 8));
-        mma_16816(dk_l[n], dsa, lds32(s_qx_l + off), lds32(s_qx_l + off + 8));
-        mma_16816(dk_l[n], dsb, lds32(s_qx_l + off), lds32(s_qx_l + off + 8));
-      }
+      // the (queries, d) tiles read transposed: B fragments of d columns
+      // np*16 .. +15 over these 16 queries
+      static_for<kDT / 16>([&](auto np_) {
+        constexpr int np = decltype(np_)::value;
+        uint32_t f[4];
+        ldsm_x4_t<kOffBT + np * 32>(f, st_a_t + q_t);  // dO
+        mma_16816(dv_t[2 * np], pa1, f[0], f[1]);
+        mma_16816(dv_t[2 * np + 1], pa1, f[2], f[3]);
+        ldsm_x4_t<kOffAT + np * 32>(f, st_a_t + q_t);  // Q
+        mma_16816(dk_t[2 * np], dsa, f[0], f[1]);
+        mma_16816(dk_t[2 * np], dsb, f[0], f[1]);
+        mma_16816(dk_t[2 * np + 1], dsa, f[2], f[3]);
+        mma_16816(dk_t[2 * np + 1], dsb, f[2], f[3]);
+      });
+      uint32_t f[4];
+      ldsm_x4_t<kOffBL>(f, st_a_l + q_l);  // dO_l
+      mma_16816(dv_l[0], pa2, f[0], f[1]);
+      mma_16816(dv_l[1], pa2, f[2], f[3]);
+      ldsm_x4_t<kOffAL>(f, st_a_l + q_l);  // Q_l
+      mma_16816(dk_l[0], dsa, f[0], f[1]);
+      mma_16816(dk_l[0], dsb, f[0], f[1]);
+      mma_16816(dk_l[1], dsa, f[2], f[3]);
+      mma_16816(dk_l[1], dsb, f[2], f[3]);
     }
   }
 
@@ -291,40 +435,76 @@ biacm_train_dkdv_kernel(const BwdParams p) {
 // ------------------------------------------------------------------ dq
 // One CTA per (64-query tile, h, b), in two sweeps over the key tiles: the
 // first sums D = rowsum(p ⊙ dP) in fp32 and writes it for the dk/dv
-// kernel, the second accumulates dq = dS·k with dS = p ⊙ (dP − D).
-__global__ void __launch_bounds__(kThreads)
+// kernel, the second accumulates dq = dS·k with dS = p ⊙ (dP − D). The
+// tile ring runs through both sweeps: the second sweep's first tile is
+// fetched under the first sweep's last.
+__global__ void __launch_bounds__(kThreads, kDqBlocks)
 biacm_train_dq_kernel(const BwdParams p) {
-  __shared__ __align__(16) __nv_bfloat16 s_k_t[kTile * kStrT];
-  __shared__ __align__(16) __nv_bfloat16 s_k_l[kTile * kStrL];
-  __shared__ __align__(16) __nv_bfloat16 s_kx_t[kDT * kStrX];
-  __shared__ __align__(16) __nv_bfloat16 s_kx_l[kDL * kStrX];
-  __shared__ __align__(16) __nv_bfloat16 s_v_t[kTile * kStrT];
-  __shared__ __align__(16) __nv_bfloat16 s_v_l[kTile * kStrL];
-  __shared__ float s_bias[kTile];
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int L = p.L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int row_a = q0 + warp * 16 + g;
+  const bool dropout = p.drop.mode != kNoDropout;
+  const float* bias_row = p.bias + b * p.bias_stride;
 
-  // q and dO of this query tile → A fragments (staged through the K/V
-  // buffers before the key loop reuses them)
-  load_rows<kDT, kStrT>(s_k_t, rows(p, 0, b, h, q0), p.stride[0][2], L - q0);
-  load_rows<kDL, kStrL>(s_k_l, rows(p, 3, b, h, q0), p.stride[3][2], L - q0);
-  load_rows<kDT, kStrT>(s_v_t, drows(p, 0, b, h, q0), p.dstride[0][2],
-                        L - q0);
-  load_rows<kDL, kStrL>(s_v_l, drows(p, 1, b, h, q0), p.dstride[1][2],
-                        L - q0);
-  __syncthreads();
-  uint32_t qa_t[kDT / 16][4], qa_l[4], da_t[kDT / 16][4], da_l[4];
-#pragma unroll
-  for (int kk = 0; kk < kDT / 16; ++kk) {
-    load_a<kStrT>(qa_t[kk], s_k_t, warp * 16, kk * 16, g, t);
-    load_a<kStrT>(da_t[kk], s_v_t, warp * 16, kk * 16, g, t);
+  const uint32_t sbase = biacm::smem_u32(smem);
+  // K, V (as rows), the key bias and the keep words of the key tile at k0
+  // → stage `stage`; one group
+  auto fetch_keys = [&](int k0, int stage) {
+    const uint32_t s = sbase + stage * kStageBytes;
+    load_rows_async<kDT, kStrT>(s + kOffAT, rows(p, 1, b, h, 0),
+                                p.stride[1][2], k0, L);
+    load_rows_async<kDL, kStrL>(s + kOffAL, rows(p, 4, b, h, 0),
+                                p.stride[4][2], k0, L);
+    load_rows_async<kDT, kStrT>(s + kOffBT, rows(p, 2, b, h, 0),
+                                p.stride[2][2], k0, L);
+    load_rows_async<kDL, kStrL>(s + kOffBL, rows(p, 5, b, h, 0),
+                                p.stride[5][2], k0, L);
+    biacm::load_key_bias_async(
+        reinterpret_cast<float*>(smem + stage * kStageBytes + kOffF),
+        s + kOffF, bias_row, k0, L);
+    if (dropout) load_keep_async(s + kOffKeep, p, b, h, q0, k0);
+    cp_async_commit();
+  };
+
+  // q and dO of this query tile → A fragments, staged through stage 1 (a
+  // group of its own) while key tile 0 travels to stage 0
+  {
+    const uint32_t s = sbase + kStageBytes;
+    load_rows_async<kDT, kStrT>(s + kOffAT, rows(p, 0, b, h, 0),
+                                p.stride[0][2], q0, L);
+    load_rows_async<kDL, kStrL>(s + kOffAL, rows(p, 3, b, h, 0),
+                                p.stride[3][2], q0, L);
+    load_rows_async<kDT, kStrT>(s + kOffBT, drows(p, 0, b, h, 0),
+                                p.dstride[0][2], q0, L);
+    load_rows_async<kDL, kStrL>(s + kOffBL, drows(p, 1, b, h, 0),
+                                p.dstride[1][2], q0, L);
+    cp_async_commit();
   }
-  load_a<kStrL>(qa_l, s_k_l, warp * 16, 0, g, t);
-  load_a<kStrL>(da_l, s_v_l, warp * 16, 0, g, t);
+  fetch_keys(0, 0);
+  cp_async_wait<1>();
+  __syncthreads();
+  const uint32_t off_a_t = biacm::frag_off<kStrT>(lane);
+  const uint32_t off_a_l = biacm::frag_off<kStrL>(lane);
+  const uint32_t off_b_t = biacm::bfrag_off<kStrT>(lane);
+  const uint32_t off_b_l = biacm::bpair_off<kStrL>(lane);
+  uint32_t qa_t[kDT / 16][4], qa_l[4], da_t[kDT / 16][4], da_l[4];
+  {
+    const uint32_t row_t = sbase + kStageBytes + warp * 16 * kStrT * 2
+                           + off_a_t;
+    const uint32_t row_l = sbase + kStageBytes + warp * 16 * kStrL * 2
+                           + off_a_l;
+    static_for<kDT / 16>([&](auto kk_) {
+      constexpr int kk = decltype(kk_)::value;
+      ldsm_x4<kOffAT + kk * 32>(qa_t[kk], row_t);
+      ldsm_x4<kOffBT + kk * 32>(da_t[kk], row_t);
+    });
+    ldsm_x4<kOffAL>(qa_l, row_l);
+    ldsm_x4<kOffBL>(da_l, row_l);
+  }
 
   const int64_t stat0 = (static_cast<int64_t>(b) * p.nh + h) * L;
   float row_m[2], row_lg[2];
@@ -336,69 +516,91 @@ biacm_train_dq_kernel(const BwdParams p) {
     row_m[r] = ok ? st.x : INFINITY;  // p = 0 for query rows past L
     row_lg[r] = st.y;
   }
-  const float* bias_row = p.bias + b * p.bias_stride;
 
-  // K, V (and, for dq, the transposed K) of the key tile at k0
-  auto load_keys = [&](int k0, bool transposed) {
-    const int kv = L - k0;
+  const int tiles = (L + kTile - 1) / kTile;
+  // Step `it` of the 2·tiles-long sequence (sweep 1, then sweep 2): its
+  // tile has landed and every warp is done with the other stage, which is
+  // refilled with the next step's tile. Returns the stage to compute on.
+  auto advance = [&](int it) {
+    cp_async_wait<0>();
     __syncthreads();
-    load_rows<kDT, kStrT>(s_k_t, rows(p, 1, b, h, k0), p.stride[1][2], kv);
-    load_rows<kDL, kStrL>(s_k_l, rows(p, 4, b, h, k0), p.stride[4][2], kv);
-    if (transposed) {
-      load_rows_t<kDT>(s_kx_t, rows(p, 1, b, h, k0), p.stride[1][2], kv);
-      load_rows_t<kDL>(s_kx_l, rows(p, 4, b, h, k0), p.stride[4][2], kv);
-    }
-    load_rows<kDT, kStrT>(s_v_t, rows(p, 2, b, h, k0), p.stride[2][2], kv);
-    load_rows<kDL, kStrL>(s_v_l, rows(p, 5, b, h, k0), p.stride[5][2], kv);
-    for (int j = threadIdx.x; j < kTile; j += kThreads)
-      s_bias[j] = j < kv ? bias_row[k0 + j] : -INFINITY;
-    __syncthreads();
+    if (it + 1 < 2 * tiles)
+      fetch_keys(((it + 1) % tiles) * kTile, (it + 1) & 1);
+    return it & 1;
   };
-  // p and dP of this warp's rows at keys kc .. kc+7 of the tile at k0 (C
-  // fragments)
-  auto p_dp = [&](int k0, int kc, float* pv, float* dp) {
-    float st[4] = {0.f, 0.f, 0.f, 0.f}, sl[4] = {0.f, 0.f, 0.f, 0.f};
-    float g1[4] = {0.f, 0.f, 0.f, 0.f}, g2[4] = {0.f, 0.f, 0.f, 0.f};
-    const __nv_bfloat16* kr = s_k_t + (kc + g) * kStrT + t * 2;
-    const __nv_bfloat16* vr = s_v_t + (kc + g) * kStrT + t * 2;
+  // p and dP of this warp's rows at keys kk*16 .. +15 of the tile in
+  // `stage` (C fragments of the two 8-key halves)
+  auto p_dp = [&](int stage, int kk, float (*pv)[4], float (*dp)[4]) {
+    const uint32_t st = sbase + stage * kStageBytes;
+    const uint32_t k_t = st + off_b_t + kk * 16 * kStrT * 2;
+    const uint32_t k_l = st + off_b_l + kk * 16 * kStrL * 2;
+    const float* s_bias = reinterpret_cast<const float*>(
+        smem + stage * kStageBytes + kOffF) + kk * 16 + t * 2;
+    uint32_t kl[4], vl[4];  // k_l, v_l fragments of both 8-key halves
+    ldsm_x4<kOffAL>(kl, k_l);
+    ldsm_x4<kOffBL>(vl, k_l);
+    // kw[s][r]: the keep word of stream s, row r that holds these keys
+    uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+    if (dropout) {
+      const uint32_t* s_keep = reinterpret_cast<const uint32_t*>(
+          smem + stage * kStageBytes + kOffKeep)
+          + (kk / 2) * kTile + warp * 16 + g;
 #pragma unroll
-    for (int d = 0; d < kDT / 16; ++d) {
-      mma_16816(st, qa_t[d], lds32(kr + d * 16), lds32(kr + d * 16 + 8));
-      mma_16816(g1, da_t[d], lds32(vr + d * 16), lds32(vr + d * 16 + 8));
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          kw[s][r] = s_keep[s * 2 * kTile + r * 8];
     }
-    const __nv_bfloat16* klr = s_k_l + (kc + g) * kStrL + t * 2;
-    const __nv_bfloat16* vlr = s_v_l + (kc + g) * kStrL + t * 2;
-    mma_16816(sl, qa_l, lds32(klr), lds32(klr + 8));
-    mma_16816(g2, da_l, lds32(vlr), lds32(vlr + 8));
+    static_for<2>([&](auto half_) {
+      constexpr int half = decltype(half_)::value;
+      float sc_t[4] = {0.f, 0.f, 0.f, 0.f}, sc_l[4] = {0.f, 0.f, 0.f, 0.f};
+      float g1[4] = {0.f, 0.f, 0.f, 0.f}, g2[4] = {0.f, 0.f, 0.f, 0.f};
+      static_for<kDT / 32>([&](auto k2_) {  // two k16 steps per load
+        constexpr int k2 = decltype(k2_)::value;
+        constexpr int off = half * 8 * kStrT * 2 + k2 * 64;
+        uint32_t f[4];
+        ldsm_x4<kOffAT + off>(f, k_t);
+        mma_16816(sc_t, qa_t[2 * k2], f[0], f[1]);
+        mma_16816(sc_t, qa_t[2 * k2 + 1], f[2], f[3]);
+        ldsm_x4<kOffBT + off>(f, k_t);
+        mma_16816(g1, da_t[2 * k2], f[0], f[1]);
+        mma_16816(g1, da_t[2 * k2 + 1], f[2], f[3]);
+      });
+      mma_16816(sc_l, qa_l, kl[2 * half], kl[2 * half + 1]);
+      mma_16816(g2, da_l, vl[2 * half], vl[2 * half + 1]);
+      const float2 kb = *reinterpret_cast<const float2*>(s_bias + half * 8);
+      // keys (2·kk + half)·8 + 2t, + 1 of the tile: their bits in the word
+      const int sh = ((2 * kk + half) % 4) * 8 + t * 2;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = q >> 1;
-      const int kj = kc + t * 2 + (q & 1);  // key within the tile
-      const float sv = st[q] * p.scale_t + sl[q] * p.scale_l + s_bias[kj];
-      pv[q] = __expf((sv - row_m[r]) - row_lg[r]);
-      if (p.drop.mode == kNoDropout) {
-        dp[q] = g1[q] + g2[q];
-      } else {
-        const int row = row_a + r * 8, key = k0 + kj;
-        bool k1 = false, k2 = false;
-        if (row < L && key < L)
-          biacm::keep_flags(p.drop, p.nh, L, b, h, row, key, k1, k2);
-        dp[q] = (k1 ? g1[q] * p.drop.inv_keep : 0.f)
-                + (k2 ? g2[q] * p.drop.inv_keep : 0.f);
+      for (int q = 0; q < 4; ++q) {
+        const int r = q >> 1;
+        const float sv = sc_t[q] * p.scale_t + sc_l[q] * p.scale_l
+                         + ((q & 1) ? kb.y : kb.x);
+        pv[half][q] = __expf((sv - row_m[r]) - row_lg[r]);
+        const bool k1 = (kw[0][r] >> (sh + (q & 1))) & 1u;
+        const bool k2 = (kw[1][r] >> (sh + (q & 1))) & 1u;
+        dp[half][q] = (k1 ? g1[q] * p.drop.inv_keep : 0.f)
+                      + (k2 ? g2[q] * p.drop.inv_keep : 0.f);
       }
-    }
+    });
   };
 
   // sweep 1: D
   float row_d[2] = {0.f, 0.f};  // this thread's partial row sums
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    load_keys(k0, false);
+  // (the 16-key steps are real loops, with their offsets added at run
+  // time: unrolled, the kernel's code outgrows the instruction cache and
+  // ptxas hoists loads until it spills)
+  for (int it = 0; it < tiles; ++it) {
+    const int stage = advance(it);
+#pragma unroll 1
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      float pv[2][4], dp[2][4];
+      p_dp(stage, kk, pv, dp);
 #pragma unroll
-    for (int kc = 0; kc < kTile; kc += 8) {
-      float pv[4], dp[4];
-      p_dp(k0, kc, pv, dp);
-      row_d[0] += pv[0] * dp[0] + pv[1] * dp[1];
-      row_d[1] += pv[2] * dp[2] + pv[3] * dp[3];
+      for (int half = 0; half < 2; ++half) {
+        row_d[0] += pv[half][0] * dp[half][0] + pv[half][1] * dp[half][1];
+        row_d[1] += pv[half][2] * dp[half][2] + pv[half][3] * dp[half][3];
+      }
     }
   }
 #pragma unroll
@@ -417,33 +619,38 @@ biacm_train_dq_kernel(const BwdParams p) {
 #pragma unroll
   for (int n = 0; n < kDL / 8; ++n)
     dq_l[n][0] = dq_l[n][1] = dq_l[n][2] = dq_l[n][3] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    load_keys(k0, true);
-#pragma unroll
+  for (int it = tiles; it < 2 * tiles; ++it) {
+    const int stage = advance(it);
+    const uint32_t st = sbase + stage * kStageBytes;
+#pragma unroll 1
     for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 keys per step
-      float ds[2][4];
+      float pv[2][4], dp[2][4], ds[2][4];
+      p_dp(stage, kk, pv, dp);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float pv[4], dp[4];
-        p_dp(k0, kk * 16 + half * 8, pv, dp);
+      for (int half = 0; half < 2; ++half)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          ds[half][q] = pv[q] * (dp[q] - row_d[q >> 1]);
-      }
+          ds[half][q] = pv[half][q] * (dp[half][q] - row_d[q >> 1]);
       uint32_t dsa[4], dsb[4];
       pack_a_split(dsa, dsb, ds);
-#pragma unroll
-      for (int n = 0; n < kDT / 8; ++n) {
-        const int off = (n * 8 + g) * kStrX + kk * 16 + t * 2;
-        mma_16816(dq_t[n], dsa, lds32(s_kx_t + off), lds32(s_kx_t + off + 8));
-        mma_16816(dq_t[n], dsb, lds32(s_kx_t + off), lds32(s_kx_t + off + 8));
-      }
-#pragma unroll
-      for (int n = 0; n < kDL / 8; ++n) {
-        const int off = (n * 8 + g) * kStrX + kk * 16 + t * 2;
-        mma_16816(dq_l[n], dsa, lds32(s_kx_l + off), lds32(s_kx_l + off + 8));
-        mma_16816(dq_l[n], dsb, lds32(s_kx_l + off), lds32(s_kx_l + off + 8));
-      }
+      // the (keys, d) K tiles read transposed: B fragments of d columns
+      // np*16 .. +15 over these 16 keys
+      const uint32_t k_t = st + off_a_t + kk * 16 * kStrT * 2;
+      static_for<kDT / 16>([&](auto np_) {
+        constexpr int np = decltype(np_)::value;
+        uint32_t f[4];
+        ldsm_x4_t<kOffAT + np * 32>(f, k_t);
+        mma_16816(dq_t[2 * np], dsa, f[0], f[1]);
+        mma_16816(dq_t[2 * np], dsb, f[0], f[1]);
+        mma_16816(dq_t[2 * np + 1], dsa, f[2], f[3]);
+        mma_16816(dq_t[2 * np + 1], dsb, f[2], f[3]);
+      });
+      uint32_t f[4];
+      ldsm_x4_t<kOffAL>(f, st + off_a_l + kk * 16 * kStrL * 2);
+      mma_16816(dq_l[0], dsa, f[0], f[1]);
+      mma_16816(dq_l[0], dsb, f[0], f[1]);
+      mma_16816(dq_l[1], dsa, f[2], f[3]);
+      mma_16816(dq_l[1], dsb, f[2], f[3]);
     }
   }
   store_rows<kDT>(p.grad[0], p, b, h, q0 + warp * 16, g, t, dq_t, p.scale_t);
@@ -464,6 +671,7 @@ biacm::FwdParams make_params(const uint64_t* ptrs, const int64_t* strides,
   p.drop.bits[0] = reinterpret_cast<const uint32_t*>(ptrs[7]);
   p.drop.bits[1] = reinterpret_cast<const uint32_t*>(ptrs[8]);
   p.stats = reinterpret_cast<float2*>(ptrs[9]);
+  p.keep = reinterpret_cast<uint32_t*>(ptrs[10]);
   p.nh = nh;
   p.L = L;
   p.scale_t = scale_t;
@@ -476,6 +684,34 @@ biacm::FwdParams make_params(const uint64_t* ptrs, const int64_t* strides,
   return p;
 }
 
+// The kernels of this library, in the order of biacm_train_occupancy.
+enum Which { kFwdDropout = 0, kFwdPlain = 1, kDq = 2, kDkDv = 3, kMask = 4 };
+
+int shared_memory_of(int which) {
+  return which == kMask ? 0 : which == kDkDv ? kKvSmemBytes : kSmemBytes;
+}
+
+// Allow kernel `which` its dynamic shared memory (once per device), or, with
+// `blocks`, ask the runtime how many of its CTAs fit an SM.
+cudaError_t configure(int which, int* blocks) {
+  static bool done[5][64] = {};
+  const int bytes = shared_memory_of(which);
+  auto apply = [&](auto kernel) {
+    if (blocks)
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                           kThreads, bytes);
+    return bytes ? biacm::allow_shared_memory(kernel, bytes, done[which])
+                 : cudaSuccess;
+  };
+  switch (which) {
+    case kFwdDropout: return apply(biacm_train_fwd_kernel<true>);
+    case kFwdPlain: return apply(biacm_train_fwd_kernel<false>);
+    case kDq: return apply(biacm_train_dq_kernel);
+    case kDkDv: return apply(biacm_train_dkdv_kernel);
+    default: return apply(biacm_keep_mask_kernel);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -483,35 +719,47 @@ extern "C" {
 // Launchers: on `stream` (a cudaStream_t) of the calling thread's current
 // device, which the caller sets. Shared layout of `ptrs` (device pointers
 // as uint64): [0..5] q_t, k_t, v_t, q_l, k_l, v_l (bf16), [6] bias (fp32
-// (B, L)), [7..8] explicit bits (uint32 (B, nh, L, L) contiguous, or 0),
-// [9] the row statistics (fp32 (B, nh, L, 2)). `strides` (int64 elements):
-// [0..17] (batch, head, seq) of the six inputs, [18] the batch stride of
-// bias. `mode`: 0 no dropout, 1 Philox bits from (seed_lo, seed_hi), 2 the
-// explicit bits. Each returns the first nonzero cudaError_t of its
-// launches (0 = launched).
+// (B, L)), [7..8] explicit bits (uint32 (B, nh, L, L) contiguous, or 0;
+// the forward only), [9] the row statistics (fp32 (B, nh, L, 2)), [10] the
+// packed keep flags (uint32 (2, B, nh, L, ceil(L / 32)), or 0 without
+// dropout). `strides` (int64 elements): [0..17] (batch, head, seq) of the
+// six inputs, [18] the batch stride of bias. `mode`: 0 no dropout, 1
+// Philox bits from (seed_lo, seed_hi), 2 the explicit bits; the backward
+// reads only whether it is 0. Each returns the first nonzero cudaError_t
+// of its calls (0 = launched).
 
-// Forward: ptrs[10..11] = ct (B, L, nh, 64), cl (B, L, nh, 16), written
-// with the statistics.
+// Forward: ptrs[11..12] = ct (B, L, nh, 64), cl (B, L, nh, 16), written
+// with the statistics; with dropout, the mask kernel first writes the keep
+// flags the forward then reads.
 int biacm_train_fwd(const uint64_t* ptrs, const int64_t* strides, int B,
                     int nh, int L, float scale_t, float scale_l, int mode,
                     uint32_t seed_lo, uint32_t seed_hi, uint32_t thr,
                     float inv_keep, void* stream) {
   biacm::FwdParams p = make_params(ptrs, strides, nh, L, scale_t, scale_l,
                                    mode, seed_lo, seed_hi, thr, inv_keep);
-  p.out[0] = reinterpret_cast<__nv_bfloat16*>(ptrs[10]);
-  p.out[1] = reinterpret_cast<__nv_bfloat16*>(ptrs[11]);
+  p.out[0] = reinterpret_cast<__nv_bfloat16*>(ptrs[11]);
+  p.out[1] = reinterpret_cast<__nv_bfloat16*>(ptrs[12]);
+  const bool plain = mode == biacm::kNoDropout;
+  cudaError_t err = configure(plain ? kFwdPlain : kFwdDropout, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((L + kTile - 1) / kTile, nh, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == biacm::kNoDropout)
-    biacm_train_fwd_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  else
-    biacm_train_fwd_kernel<true><<<grid, kThreads, 0, s>>>(p);
+  if (plain) {
+    biacm_train_fwd_kernel<false><<<grid, kThreads, kSmemBytes, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int words = (L + 31) / 32;
+  dim3 mask_grid((L * words + kThreads - 1) / kThreads, nh, B);
+  biacm_keep_mask_kernel<<<mask_grid, kThreads, 0, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  biacm_train_fwd_kernel<true><<<grid, kThreads, kSmemBytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Backward (the dq kernel, which also writes D, then the dk/dv kernel):
-// ptrs[10..11] dct, dcl; [12] the fp32 (B, nh, L) scratch for D;
-// [13..18] dq_t, dk_t, dv_t, dq_l, dk_l, dv_l (B, L, nh, d).
+// ptrs[11..12] dct, dcl; [13] the fp32 (B, nh, L) scratch for D;
+// [14..19] dq_t, dk_t, dv_t, dq_l, dk_l, dv_l (B, L, nh, d).
 // strides[19..24]: (batch, head, seq) of dct, dcl.
 int biacm_train_bwd(const uint64_t* ptrs, const int64_t* strides, int B,
                     int nh, int L, float scale_t, float scale_l, int mode,
@@ -522,19 +770,35 @@ int biacm_train_bwd(const uint64_t* ptrs, const int64_t* strides, int B,
       ptrs, strides, nh, L, scale_t, scale_l, mode, seed_lo, seed_hi, thr,
       inv_keep);
   for (int i = 0; i < 2; ++i) {
-    p.dout[i] = reinterpret_cast<const __nv_bfloat16*>(ptrs[10 + i]);
+    p.dout[i] = reinterpret_cast<const __nv_bfloat16*>(ptrs[11 + i]);
     for (int j = 0; j < 3; ++j) p.dstride[i][j] = strides[19 + 3 * i + j];
   }
-  p.delta = reinterpret_cast<float*>(ptrs[12]);
+  p.delta = reinterpret_cast<float*>(ptrs[13]);
   for (int i = 0; i < 6; ++i)
-    p.grad[i] = reinterpret_cast<__nv_bfloat16*>(ptrs[13 + i]);
+    p.grad[i] = reinterpret_cast<__nv_bfloat16*>(ptrs[14 + i]);
+  cudaError_t err = configure(kDq, nullptr);
+  if (err == cudaSuccess) err = configure(kDkDv, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((L + kTile - 1) / kTile, nh, B);
-  biacm_train_dq_kernel<<<grid, kThreads, 0, s>>>(p);
-  const cudaError_t err = cudaGetLastError();
+  biacm_train_dq_kernel<<<grid, kThreads, kSmemBytes, s>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  biacm_train_dkdv_kernel<<<grid, kThreads, 0, s>>>(p);
+  biacm_train_dkdv_kernel<<<grid, kThreads, kKvSmemBytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What cudaOccupancyMaxActiveBlocksPerMultiprocessor grants kernel `which`
+// (0 the forward with dropout, 1 without, 2 dq, 3 dk/dv, 4 the mask
+// kernel) on the current device: resident CTAs per SM, or minus the
+// cudaError_t. `smem_bytes` receives the kernel's dynamic shared memory.
+int biacm_train_occupancy(int which, int* smem_bytes) {
+  if (which < kFwdDropout || which > kMask) return -1;
+  *smem_bytes = shared_memory_of(which);
+  int blocks = 0;
+  cudaError_t err = configure(which, nullptr);
+  if (err == cudaSuccess) err = configure(which, &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 const char* biacm_train_error_string(int code) {

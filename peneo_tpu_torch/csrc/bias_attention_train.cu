@@ -31,13 +31,13 @@
 //
 // Dropout bits: keep = bits < thr, thr = min(round((1−r)·2³²), 2³²−1), as
 // on the TPU. In-kernel, the bits are word 0 of Philox4x32-10 of the
-// counter (j, i, h, b) under the key (seed_lo, seed_hi): the draw the BiACM
-// kernels make, of which this family uses one word (one mask). They are a
-// pure function of (seed, b, h, i, j), so the forward, both backward
-// kernels and a checkpoint recompute draw the same mask whatever their
-// tiling. ops/biacm_attention.py:attention_dropout_bits()[0] computes the
-// same bits with torch integer ops. The kernels also take the bits as an
-// explicit uint32 (B, nh, L, L) tensor.
+// counter (j, i, h, b) under the key (seed_lo, seed_hi), one draw per
+// element (one mask). They are a pure function of (seed, b, h, i, j), so
+// the forward, both backward kernels and a checkpoint recompute draw the
+// same mask whatever their tiling.
+// ops/biacm_attention.py:element_dropout_bits computes the same bits with
+// torch integer ops. The kernels also take the bits as an explicit uint32
+// (B, nh, L, L) tensor.
 //
 // What bounds it on the H100: bytes. At the training shape (B=8, nh=12,
 // L=709) the forward reads 193 MB of bias against 35 MB of q/k/v/out

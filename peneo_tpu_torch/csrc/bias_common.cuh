@@ -96,8 +96,7 @@ __device__ __forceinline__ float score(float qk, float scale, float bias,
 }
 
 // The keep flag of element (query i, key j) of head (b, h); i, j < L: word 0
-// of the Philox draw the BiACM kernels make for the same counter, or the
-// explicit bits.
+// of the Philox draw at the counter (j, i, h, b), or the explicit bits.
 __device__ __forceinline__ bool keep_flag(const biacm::Dropout& d, int nh,
                                           int L, int b, int h, int i, int j) {
   uint32_t bits;

@@ -50,7 +50,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LayoutLMv3Config
-from ..ops.biacm_attention import attention_dropout_bits
+from ..ops.biacm_attention import element_dropout_bits
 from ..ops.bias_attention import (bias_attention, bias_attention_reference,
                                   bias_attention_train,
                                   bias_attention_train_reference)
@@ -258,7 +258,7 @@ class LayoutLMv3SelfAttention(nn.Module):
             fn = bias_attention_reference if plain else bias_attention
             ctx = fn(*qkv, rel_bias, mask, scale)
         elif plain:
-            bits = (attention_dropout_bits(seed, B, self.nh, L, x.device)[0]
+            bits = (element_dropout_bits(seed, B, self.nh, L, x.device)
                     if self.dropout > 0 else None)
             ctx = bias_attention_train_reference(*qkv, rel_bias, mask, bits,
                                                  scale, self.dropout)

@@ -11,7 +11,8 @@ own values. In eval mode that runs through
 :func:`peneo_tpu_torch.ops.biacm_attention.biacm_attention` (kernel #1 on the
 card, its plain twin on the CPU); in training mode through
 :func:`~peneo_tpu_torch.ops.biacm_attention.biacm_attention_train` (kernels
-#2/#3 with in-kernel attention dropout, two masks, one per stream), each
+#2/#3 with attention dropout drawn on the card, two masks, one per
+stream), each
 layer drawing one seed per step from the ``generator`` its caller passes.
 ``LiltModel.set_attention_impl("plain")`` forces the plain twins on any
 device (tests and the on-card parity checks only). Hidden dropout is

@@ -31,15 +31,29 @@ independent dropout masks over the shared ``p``, one per stream, keep iff
   layout; ``rng`` an int seed or explicit ``(bits1, bits2)``). It applies
   :class:`BiacmAttentionTrain`: on CUDA tensors the forward kernel and the
   backward kernels (``csrc/biacm_attention_train.cu``), on CPU tensors the
-  plain twin and its autograd gradient.
+  plain twin and its autograd gradient. A small mask kernel, launched with
+  the forward, draws the masks once; the forward and the backward read
+  them bit-packed. A pass of Philox draws over the (L, L) elements measured
+  longer than the forward's products and the attention kernels would make
+  four, so the masks (L²/4 bytes per head), not the seed, are what is
+  saved.
 - :func:`biacm_attention_train_reference` is the plain twin, taking explicit
   mask bits; autograd through it gives the reference gradients.
 - :func:`attention_dropout_bits` gives, in torch integer ops, exactly the
-  bits the kernels draw in-kernel: Philox4x32-10 of the counter
-  ``(j, i, h, b)`` under the key ``(seed mod 2³², seed >> 32)``, word 0 for
-  the text stream and word 1 for the layout stream. The bits are a pure
-  function of ``(seed, b, h, i, j, stream)``, so the forward, the backward
-  and a checkpoint recompute draw identical masks.
+  bits the mask kernel draws on the card: Philox4x32-10 under the key
+  ``(seed mod 2³², seed >> 32)``, one draw per two adjacent keys: the
+  counter is ``(j >> 1, i, h, b)``, words 0 / 1 are the text / layout
+  stream of key ``2·(j >> 1)``, words 2 / 3 those of key ``2·(j >> 1) + 1``.
+  The bits are a pure function of ``(seed, b, h, i, j, stream)``, so a
+  checkpoint recompute draws identical masks.
+  :func:`element_dropout_bits` is the one-draw-per-element mapping (word 0
+  of the counter ``(j, i, h, b)``) that the rel-bias kernels
+  (``ops/bias_attention.py``) draw.
+- The forward launch hands the masks to the backward bit-packed, int32
+  ``(2, B, nh, L, ceil(L / 32))`` (stream, …, bit ``j % 32`` of word
+  ``j // 32``); :func:`pack_keep_mask` / :func:`unpack_keep_mask` are the
+  plain definition of that layout, :func:`keep_mask_bits` turns it back
+  into bits the twin accepts.
 - :func:`biacm_attention_train_fwd_cuda` / :func:`biacm_attention_train_bwd_cuda`
   launch the kernels; each counts its launches in ``launches`` (the
   backward counts one per call of its two kernels).
@@ -92,6 +106,8 @@ def load_kernel():
                 [vp] * 9 + [ctypes.POINTER(ctypes.c_int64), i32, i32, i32,
                             ctypes.c_float, ctypes.c_float, vp])
             lib.biacm_attention_fwd.restype = i32
+            lib.biacm_attention_occupancy.argtypes = [ctypes.POINTER(i32)]
+            lib.biacm_attention_occupancy.restype = i32
             lib.biacm_attention_error_string.argtypes = [i32]
             lib.biacm_attention_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -111,6 +127,10 @@ def _check(name, x, shape, dtype, device):
     if x.data_ptr() % 16 or any(st % vec for st in x.stride()[:-1]):
         raise ValueError(f"{name}: rows must be 16-byte aligned (strides "
                          f"{x.stride()})")
+    # the kernels index a head's rows with 32-bit element offsets
+    if (x.shape[2] + 64) * x.stride(2) >= 2 ** 31:
+        raise ValueError(f"{name}: a head's rows must span fewer than 2^31 "
+                         f"elements (L {x.shape[2]}, row stride {x.stride(2)})")
 
 
 def _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias):
@@ -122,8 +142,8 @@ def _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias):
     if (dt, dl) != (HEAD_DIM_T, HEAD_DIM_L):
         raise ValueError(f"the CUDA kernels are built for head dims "
                          f"({HEAD_DIM_T}, {HEAD_DIM_L}), got ({dt}, {dl})")
-    if L < 1:
-        raise ValueError("L must be >= 1")
+    if L < 1 or L >= 2 ** 17:  # a head's L·ceil(L/32) keep words: 32 bits
+        raise ValueError("L must be in [1, 2^17)")
     dev = q_t.device
     for name, x, d in (("q_t", q_t, dt), ("k_t", k_t, dt), ("v_t", v_t, dt),
                        ("q_l", q_l, dl), ("k_l", k_l, dl), ("v_l", v_l, dl)):
@@ -216,26 +236,84 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
+def _seed_key(seed: int):
+    seed = int(seed)
+    return seed & _U32, (seed >> 32) & _U32
+
+
 def dropout_bits_at(seed: int, b, h, i, j):
     """The two streams' uint32 dropout bits (as int64 tensors) at
-    broadcastable index tensors ``b, h, i, j`` (batch, head, query, key)."""
-    seed = int(seed)
-    out = philox4x32_10(j.long(), i.long(), h.long(), b.long(),
-                        seed & _U32, (seed >> 32) & _U32)
-    return out[0], out[1]
+    broadcastable index tensors ``b, h, i, j`` (batch, head, query, key):
+    words 0 / 1 of the draw at counter ``(j >> 1, i, h, b)`` for an even
+    key, words 2 / 3 for an odd one."""
+    j = j.long()
+    out = philox4x32_10(j >> 1, i.long(), h.long(), b.long(),
+                        *_seed_key(seed))
+    odd = (j & 1).bool()
+    return torch.where(odd, out[2], out[0]), torch.where(odd, out[3], out[1])
+
+
+def _index(n: int, axis: int, device):
+    shape = [1, 1, 1, 1]
+    shape[axis] = n
+    return torch.arange(n, device=device).view(shape)
 
 
 def attention_dropout_bits(seed: int, B: int, nh: int, L: int, device=None):
-    """The bits the kernels draw in-kernel for one call: ``(bits1, bits2)``,
-    int64 ``(B, nh, L, L)`` in [0, 2³²), stream 1 (text) and stream 2
-    (layout)."""
-    def ix(n, axis):
-        shape = [1, 1, 1, 1]
-        shape[axis] = n
-        return torch.arange(n, device=device).view(shape)
+    """The bits the mask kernel draws on the card for one call: ``(bits1,
+    bits2)``, int64 ``(B, nh, L, L)`` in [0, 2³²), stream 1 (text) and
+    stream 2 (layout). One draw per pair of keys, as in the kernel."""
+    pairs = (L + 1) // 2
+    out = philox4x32_10(_index(pairs, 3, device), _index(L, 2, device),
+                        _index(nh, 1, device), _index(B, 0, device),
+                        *_seed_key(seed))
+    out = [w.expand(B, nh, L, pairs) for w in out]
 
-    b1, b2 = dropout_bits_at(seed, ix(B, 0), ix(nh, 1), ix(L, 2), ix(L, 3))
-    return b1.expand(B, nh, L, L), b2.expand(B, nh, L, L)
+    def interleave(even, odd):
+        return torch.stack((even, odd), -1).reshape(B, nh, L, 2 * pairs)[
+            ..., :L]
+
+    return interleave(out[0], out[2]), interleave(out[1], out[3])
+
+
+def element_dropout_bits(seed: int, B: int, nh: int, L: int, device=None):
+    """One draw per element: word 0 of Philox4x32-10 at the counter
+    ``(j, i, h, b)``, int64 ``(B, nh, L, L)`` in [0, 2³²). The bits the
+    rel-bias training kernels draw in-kernel for their one mask."""
+    out = philox4x32_10(_index(L, 3, device), _index(L, 2, device),
+                        _index(nh, 1, device), _index(B, 0, device),
+                        *_seed_key(seed))
+    return out[0].expand(B, nh, L, L)
+
+
+def pack_keep_mask(keep: torch.Tensor) -> torch.Tensor:
+    """Bit-pack keep flags along the last (key) axis: bool ``(..., L)`` →
+    int32 ``(..., ceil(L / 32))`` with key ``j`` at bit ``j % 32`` of word
+    ``j // 32`` (the bit patterns of the kernels' uint32 words); the bits
+    past ``L`` of the last word are 0."""
+    L = keep.shape[-1]
+    words = (L + 31) // 32
+    k = torch.nn.functional.pad(keep.to(torch.int64), (0, words * 32 - L))
+    k = k.view(*keep.shape[:-1], words, 32)
+    w = (k << torch.arange(32, device=keep.device)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_keep_mask(words: torch.Tensor, L: int) -> torch.Tensor:
+    """Inverse of :func:`pack_keep_mask`: int32 ``(..., ceil(L / 32))`` →
+    bool ``(..., L)``."""
+    bit = (words.to(torch.int64)[..., None]
+           >> torch.arange(32, device=words.device)) & 1
+    return bit.reshape(*words.shape[:-1], -1)[..., :L].bool()
+
+
+def keep_mask_bits(mask: torch.Tensor, L: int):
+    """``(bits1, bits2)`` for the plain twin from the forward launch's
+    packed keep flags ``(2, B, nh, L, ceil(L / 32))``: 0 where an element
+    is kept (below every threshold), 2³² − 1 where it is dropped."""
+    keep = unpack_keep_mask(mask, L)
+    bits = torch.where(keep, 0, _U32)
+    return bits[0], bits[1]
 
 
 def _u32(bits: torch.Tensor) -> torch.Tensor:
@@ -284,10 +362,41 @@ def load_train_kernel():
             for fn in (lib.biacm_train_fwd, lib.biacm_train_bwd):
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            lib.biacm_train_occupancy.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.biacm_train_occupancy.restype = ctypes.c_int
             lib.biacm_train_error_string.argtypes = [ctypes.c_int]
             lib.biacm_train_error_string.restype = ctypes.c_char_p
             _TRAIN_LIB = lib
     return _TRAIN_LIB
+
+
+KERNEL_NAMES = ("biacm_fwd_kernel", "biacm_train_fwd_kernel<true>",
+                "biacm_train_fwd_kernel<false>", "biacm_train_dq_kernel",
+                "biacm_train_dkdv_kernel", "biacm_keep_mask_kernel")
+
+
+def kernel_occupancy(device=None) -> dict:
+    """What ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` grants each
+    BiACM kernel on ``device``: ``{name: {"ctas_per_sm", "dynamic_smem"}}``
+    at the kernels' 128 threads a CTA."""
+    out = {}
+    with torch.cuda.device(device):
+        for i, name in enumerate(KERNEL_NAMES):
+            smem = ctypes.c_int(0)
+            if i == 0:
+                lib = load_kernel()
+                n = lib.biacm_attention_occupancy(ctypes.byref(smem))
+                err = lib.biacm_attention_error_string
+            else:
+                lib = load_train_kernel()
+                n = lib.biacm_train_occupancy(i - 1, ctypes.byref(smem))
+                err = lib.biacm_train_error_string
+            if n < 0:
+                raise RuntimeError(f"occupancy query of {name} failed: "
+                                   + err(-n).decode())
+            out[name] = {"ctas_per_sm": n, "dynamic_smem": smem.value}
+    return out
 
 
 def _rng_args(rng, rate: float, shape, dev):
@@ -313,7 +422,7 @@ def _rng_args(rng, rate: float, shape, dev):
 
 
 def _launch(fn, name, ptrs, strides, B, nh, L, scale_t, scale_l, rate, rng):
-    mode, lo, hi, _, _ = rng
+    mode, lo, hi = rng[:3]
     rc = fn((ctypes.c_uint64 * len(ptrs))(*ptrs),
             (ctypes.c_int64 * len(strides))(*strides), B, nh, L,
             float(scale_t), float(scale_l), mode, lo, hi,
@@ -333,10 +442,13 @@ def _strides3(*xs):
 def biacm_attention_train_fwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
                                    scale_t: float, scale_l: float,
                                    rate: float = 0.0):
-    """Launch the training forward (kernel #2) on the current stream.
-    Returns ``(ctx_t, ctx_l, stats)``: the outputs as ``(B, nh, L, d)``
-    views of ``(B, L, nh, d)`` bf16 buffers, and fp32 ``(B, nh, L, 2)`` row
-    statistics (max, log of the sum) for the backward."""
+    """Launch the training forward (kernel #2; at ``rate > 0`` the mask
+    kernel first, then the attention kernel) on the current stream.
+    Returns ``(ctx_t, ctx_l, stats, keep)``: the outputs as ``(B, nh, L,
+    d)`` views of ``(B, L, nh, d)`` bf16 buffers, fp32 ``(B, nh, L, 2)`` row
+    statistics (max, log of the sum) and, at ``rate > 0``, the two masks'
+    keep flags packed as :func:`pack_keep_mask` packs them, int32 ``(2, B,
+    nh, L, ceil(L / 32))`` (else None), both for the backward."""
     B, nh, L = _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias)
     dev = q_t.device
     rng = _rng_args(rng, rate, (B, nh, L, L), dev)
@@ -346,29 +458,35 @@ def biacm_attention_train_fwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
     out_l = torch.empty((B, L, nh, HEAD_DIM_L), dtype=torch.bfloat16,
                         device=dev)
     stats = torch.empty((B, nh, L, 2), dtype=torch.float32, device=dev)
+    keep = None
+    if rate > 0.0:
+        keep = torch.empty((2, B, nh, L, (L + 31) // 32), dtype=torch.int32,
+                           device=dev)
     ins = (q_t, k_t, v_t, q_l, k_l, v_l)
     ptrs = [x.data_ptr() for x in ins] + [
         bias.data_ptr(), *(0 if x is None else x.data_ptr() for x in rng[3:]),
-        stats.data_ptr(), out_t.data_ptr(), out_l.data_ptr()]
+        stats.data_ptr(), 0 if keep is None else keep.data_ptr(),
+        out_t.data_ptr(), out_l.data_ptr()]
     with torch.cuda.device(dev):
         _launch(lib.biacm_train_fwd, "biacm_attention_train forward", ptrs,
                 _strides3(*ins) + [bias.stride(0)], B, nh, L, scale_t,
                 scale_l, rate, rng)
     biacm_attention_train_fwd_cuda.launches += 1
-    return out_t.transpose(1, 2), out_l.transpose(1, 2), stats
+    return out_t.transpose(1, 2), out_l.transpose(1, 2), stats, keep
 
 
 biacm_attention_train_fwd_cuda.launches = 0
 
 
-def biacm_attention_train_bwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
+def biacm_attention_train_bwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, keep,
                                    stats, dct, dcl, scale_t: float,
                                    scale_l: float, rate: float = 0.0):
     """Launch the training backward (kernel #3: the dq kernel, which also
     sums ``D = rowsum(p ⊙ dP)``, then the dk/dv kernel) on the current
-    stream. ``stats`` are the forward's row statistics; ``dct``/``dcl`` the
-    output gradients (bf16, any strides with a contiguous, 16-byte aligned
-    last dim). Returns
+    stream. ``stats`` and ``keep`` are the forward's row statistics and
+    packed keep flags (``keep`` is ignored at ``rate == 0``); the backward
+    draws no bits. ``dct``/``dcl`` are the output gradients (bf16, any
+    strides with a contiguous, 16-byte aligned last dim). Returns
     ``(dq_t, dk_t, dv_t, dq_l, dk_l, dv_l)`` as ``(B, nh, L, d)`` views of
     ``(B, L, nh, d)`` bf16 buffers (dk/dv accumulate in fp32 registers)."""
     B, nh, L = _check_qkv(q_t, k_t, v_t, q_l, k_l, v_l, bias)
@@ -379,17 +497,24 @@ def biacm_attention_train_bwd_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
             or stats.dtype != torch.float32 or stats.device != dev:
         raise ValueError("stats: expected the forward's contiguous float32 "
                          f"(B, nh, L, 2) on {dev}")
-    rng = _rng_args(rng, rate, (B, nh, L, L), dev)
+    if rate > 0.0:
+        shape = (2, B, nh, L, (L + 31) // 32)
+        if keep is None or tuple(keep.shape) != shape \
+                or not keep.is_contiguous() or keep.dtype != torch.int32 \
+                or keep.device != dev:
+            raise ValueError("keep: expected the forward's contiguous int32 "
+                             f"{shape} on {dev}")
+    # the backward reads only whether there is dropout (mode 0 or not)
+    rng = (_MODES["philox"] if rate > 0.0 else _MODES["none"], 0, 0)
     lib = load_train_kernel()
     grads = [torch.empty((B, L, nh, d), dtype=torch.bfloat16, device=dev)
              for d in (HEAD_DIM_T,) * 3 + (HEAD_DIM_L,) * 3]
     delta = torch.empty((B, nh, L), dtype=torch.float32, device=dev)
     ins = (q_t, k_t, v_t, q_l, k_l, v_l)
     ptrs = ([x.data_ptr() for x in ins]
-            + [bias.data_ptr(),
-               *(0 if x is None else x.data_ptr() for x in rng[3:]),
-               stats.data_ptr(), dct.data_ptr(), dcl.data_ptr(),
-               delta.data_ptr()]
+            + [bias.data_ptr(), 0, 0, stats.data_ptr(),
+               keep.data_ptr() if rate > 0.0 else 0, dct.data_ptr(),
+               dcl.data_ptr(), delta.data_ptr()]
             + [g.data_ptr() for g in grads])
     strides = _strides3(*ins) + [bias.stride(0)] + _strides3(dct, dcl)
     with torch.cuda.device(dev):
@@ -423,10 +548,10 @@ def _cpu_bits(rng, rate, q_t):
 
 class BiacmAttentionTrain(torch.autograd.Function):
     """Differentiable training BiACM attention. CUDA tensors: kernel #2
-    forward, kernel #3 backward; the seed (not the masks) is kept for the
-    backward. CPU tensors: the plain twin, and its autograd gradient
-    recomputed in the backward. The bias gets no gradient (a padding
-    mask)."""
+    forward, kernel #3 backward; the forward's packed keep flags (not the
+    seed) are kept for the backward with the row statistics. CPU tensors:
+    the plain twin, and its autograd gradient recomputed in the backward.
+    The bias gets no gradient (a padding mask)."""
 
     @staticmethod
     def forward(ctx, q_t, k_t, v_t, q_l, k_l, v_l, bias, rng, scale_t,
@@ -434,10 +559,10 @@ class BiacmAttentionTrain(torch.autograd.Function):
         ctx.args = (scale_t, scale_l, rate)
         ins = (q_t, k_t, v_t, q_l, k_l, v_l)
         if q_t.is_cuda:
-            ct, cl, stats = biacm_attention_train_fwd_cuda(
+            ct, cl, stats, keep = biacm_attention_train_fwd_cuda(
                 *ins, bias, rng, scale_t, scale_l, rate)
-            ctx.rng = rng
-            ctx.save_for_backward(*ins, bias, stats)
+            saved = (*ins, bias, stats) + (() if keep is None else (keep,))
+            ctx.save_for_backward(*saved)
             return ct, cl
         ctx.rng = _cpu_bits(rng, rate, q_t)
         ctx.save_for_backward(*ins, bias)
@@ -449,9 +574,10 @@ class BiacmAttentionTrain(torch.autograd.Function):
         scale_t, scale_l, rate = ctx.args
         saved = ctx.saved_tensors  # once: a checkpoint unpacks it once
         if saved[0].is_cuda:
-            *ins, bias, stats = saved
+            *ins, bias, stats = saved[:8]
+            keep = saved[8] if len(saved) > 8 else None
             dq_t, dk_t, dv_t, dq_l, dk_l, dv_l = biacm_attention_train_bwd_cuda(
-                *ins, bias, ctx.rng, stats,
+                *ins, bias, keep, stats,
                 _aligned(dct.to(torch.bfloat16)),
                 _aligned(dcl.to(torch.bfloat16)), scale_t, scale_l, rate)
             return dq_t, dk_t, dv_t, dq_l, dk_l, dv_l, None, None, None, \
@@ -470,7 +596,7 @@ def biacm_attention_train(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
     """Differentiable BiACM attention with attention dropout at ``rate``
     (two independent masks, one per stream). Layout of the JAX function:
     q/k/v ``(B, nh, L, d)``, ``bias (B, L)`` fp32; ``rng`` an int seed (the
-    kernels' Philox bits, :func:`attention_dropout_bits` on the CPU) or
+    mask kernel's Philox bits, :func:`attention_dropout_bits` on the CPU) or
     explicit ``(bits1, bits2)`` (B, nh, L, L). Returns ``(ctx_t, ctx_l)``."""
     return BiacmAttentionTrain.apply(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
                                      float(scale_t), float(scale_l),

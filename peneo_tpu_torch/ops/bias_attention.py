@@ -29,9 +29,9 @@ with a contiguous last dim), ``mask`` ``(B, L)`` fp32 additive key mask.
   :func:`bias_attention_train_reference` and its autograd gradient.
   Gradients flow to q, k, v **and the bias** (``dbias = dS``, fp32).
 - One dropout mask over ``p``: keep iff ``bits < keep_threshold(rate)``,
-  kept values scaled by ``1/(1-rate)``. In-kernel the bits are word 0 of the
-  Philox draw the BiACM kernels make, i.e.
-  ``attention_dropout_bits(seed, B, nh, L)[0]``.
+  kept values scaled by ``1/(1-rate)``. In-kernel the bits are word 0 of
+  one Philox4x32-10 draw per element at the counter ``(j, i, h, b)``, i.e.
+  ``element_dropout_bits(seed, B, nh, L)``.
 - :func:`bias_attention_cuda`, :func:`bias_attention_train_fwd_cuda` and
   :func:`bias_attention_train_bwd_cuda` launch the kernels; each counts its
   launches in ``launches`` (the backward counts one per call of its two
@@ -46,7 +46,7 @@ import threading
 import torch
 
 from .biacm_attention import (_MODES, _U32, _aligned, _check, _u32,
-                              attention_dropout_bits, keep_threshold)
+                              element_dropout_bits, keep_threshold)
 
 SOURCE = "bias_attention.cu"
 TRAIN_SOURCE = "bias_attention_train.cu"
@@ -319,7 +319,7 @@ def _cpu_bits(rng, rate, q):
     if isinstance(rng, torch.Tensor):
         return rng
     B, nh, L, _ = q.shape
-    return attention_dropout_bits(int(rng), B, nh, L, device=q.device)[0]
+    return element_dropout_bits(int(rng), B, nh, L, device=q.device)
 
 
 class BiasAttentionTrain(torch.autograd.Function):
@@ -368,7 +368,7 @@ def bias_attention_train(q, k, v, bias, mask, rng, scale: float,
     (one mask over the probabilities). Layout of the JAX function: q/k/v
     ``(B, nh, L, d)``, ``bias (B, nh, L, L)`` fp32 (trained), ``mask
     (B, L)`` fp32; ``rng`` an int seed (the kernels' Philox bits,
-    ``attention_dropout_bits(...)[0]`` on the CPU) or explicit bits
+    ``element_dropout_bits(...)`` on the CPU) or explicit bits
     ``(B, nh, L, L)``. Returns ``ctx (B, nh, L, d)``."""
     return BiasAttentionTrain.apply(q, k, v, bias, mask, rng, float(scale),
                                     float(rate))

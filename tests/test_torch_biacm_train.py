@@ -4,9 +4,13 @@
 training kernels (``biacm_attention_train(..., interpret=True,
 inkernel_rng=False)``) fed the same mask bits — forward values and all six
 gradients, at tests/test_biacm_train.py's tolerances (fp32: 2e-5 forward,
-2e-4 gradients) — and the dropout bits the CUDA kernels draw in-kernel
-(Philox4x32-10): known-answer vectors, tile independence, the kept share,
-distinct streams, and determinism per seed."""
+2e-4 gradients) — and the dropout bits the CUDA mask kernel draws on the
+card (Philox4x32-10, one draw per two adjacent keys): known-answer
+vectors, the mapping of a draw's words to keys and streams, tile
+independence, the kept share, distinct streams, determinism per seed; the
+bit-packed keep flags the forward hands to the backward (``pack`` /
+``unpack``, the twin's gradients from them); and the one-draw-per-element
+bits the rel-bias kernels keep."""
 
 import numpy as np
 import pytest
@@ -139,6 +143,93 @@ def test_kept_share_streams_and_determinism():
     other = ba.attention_dropout_bits(8, 4, 4, L)
     assert not torch.equal(other[0], b1)
     assert int(b1.min()) >= 0 and int(b1.max()) < 2 ** 32
+
+
+@pytest.mark.parametrize("L", [6, 7])
+def test_two_keys_per_draw(L):
+    """Bits at keys (2m, 2m + 1) of query i are words 0-1 / 2-3 (text,
+    layout) of the one draw at counter (m, i, h, b); an odd L uses half of
+    its last draw."""
+    seed = 2 ** 33 + 5
+    b1, b2 = ba.attention_dropout_bits(seed, 2, 3, L)
+    assert b1.shape == b2.shape == (2, 3, L, L)
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for b, h, i, m in [(0, 0, 0, 0), (1, 2, L - 1, (L - 1) // 2), (1, 1, 3, 1)]:
+        w = [int(x) for x in ba.philox4x32_10(
+            *(torch.tensor(c) for c in (m, i, h, b)), *key)]
+        assert [int(b1[b, h, i, 2 * m]), int(b2[b, h, i, 2 * m])] == w[:2]
+        if 2 * m + 1 < L:
+            assert [int(b1[b, h, i, 2 * m + 1]),
+                    int(b2[b, h, i, 2 * m + 1])] == w[2:]
+    assert not torch.equal(b1, b2)
+    assert not torch.equal(b1[..., 0::2][..., : L // 2], b1[..., 1::2])
+
+
+def test_kept_share_at_the_card_gate():
+    """The kept share of each stream within 2e-3 of 1 - rate (the gate the
+    kernels' masks are held to on the card), over 1.6 M draws."""
+    b1, b2 = ba.attention_dropout_bits(0, 2, 3, 513)
+    thr = ba.keep_threshold(0.1)
+    for bits in (b1, b2):
+        assert abs((bits < thr).float().mean().item() - 0.9) < 2e-3
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 200, 512])
+def test_pack_unpack_keep_mask(L):
+    """pack → unpack is the identity; key j sits at bit j % 32 of word
+    j // 32, the bits past L are 0."""
+    rng = np.random.default_rng(L)
+    keep = torch.from_numpy(rng.random((2, 3, 4, L)) < 0.9)
+    words = ba.pack_keep_mask(keep)
+    assert words.dtype == torch.int32
+    assert words.shape == (2, 3, 4, (L + 31) // 32)
+    assert torch.equal(ba.unpack_keep_mask(words, L), keep)
+    j = L - 1
+    got = (int(words[1, 2, 3, j // 32]) >> (j % 32)) & 1
+    assert got == int(keep[1, 2, 3, j])
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    assert int(u[..., -1].max()) < 2 ** ((L - 1) % 32 + 1)
+    ones = ba.pack_keep_mask(torch.ones(L, dtype=torch.bool))
+    full = [0xFFFFFFFF] * (L // 32) + ([2 ** (L % 32) - 1] if L % 32 else [])
+    assert (ones.to(torch.int64) & 0xFFFFFFFF).tolist() == full
+
+
+def test_twin_gradients_from_packed_mask():
+    """The twin fed keep_mask_bits of the packed keep flags gives the
+    outputs and gradients it gives from the bits themselves."""
+    L, rate = 40, 0.1
+    qkv, bias, dctx, bits = _inputs(L, seed=11)
+    want_out, want_grads = _port(ba.biacm_attention_train_reference, qkv,
+                                 bias, dctx, bits, rate)
+    thr = ba.keep_threshold(rate)
+    keep = torch.stack([torch.from_numpy(b.astype(np.int64)) < thr
+                        for b in bits])
+    packed = ba.pack_keep_mask(keep)
+    assert packed.shape == (2, B, NH, L, 2)
+    again = ba.keep_mask_bits(packed, L)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in qkv]
+    out = ba.biacm_attention_train_reference(
+        *leaves, torch.from_numpy(bias), again, *SCALES, rate)
+    grads = torch.autograd.grad(out, leaves,
+                                tuple(torch.from_numpy(d) for d in dctx))
+    for got, want in zip(list(out) + list(grads), want_out + want_grads):
+        assert np.array_equal(got.detach().numpy(), want)
+
+
+def test_element_bits_are_unchanged():
+    """The one-draw-per-element mapping the rel-bias kernels keep: word 0
+    of the draw at counter (j, i, h, b), fixed values."""
+    seed = 2 ** 40 + 17
+    bits = ba.element_dropout_bits(seed, 2, 3, 5)
+    assert bits.shape == (2, 3, 5, 5)
+    assert bits[1, 2, 0].tolist() == [2108781759, 1312815228, 1859089081,
+                                      209002179, 3654405218]
+    assert bits[1, 2, 4].tolist() == [1554120550, 3448052366, 4134170061,
+                                      463066920, 198101815]
+    assert int(bits.sum()) == 310301325824
+    want = ba.philox4x32_10(*(torch.tensor(c) for c in (3, 1, 2, 0)),
+                            seed & 0xFFFFFFFF, seed >> 32)[0]
+    assert int(bits[0, 2, 1, 3]) == int(want)
 
 
 def test_cuda_launchers_refuse_cpu_tensors():

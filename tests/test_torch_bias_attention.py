@@ -99,11 +99,11 @@ def test_matches_pallas_training_kernel(L, rate, fn):
 
 
 def test_seed_path_draws_word_0_of_the_biacm_bits():
-    """An int seed on CPU tensors draws ``attention_dropout_bits(...)[0]``,
+    """An int seed on CPU tensors draws ``element_dropout_bits(...)``,
     the one mask the CUDA kernels draw in-kernel."""
     L = 48
     qkv, bias, mask, _, _ = _inputs(L, seed=3)
-    bits = ba.attention_dropout_bits(99, B, NH, L)[0]
+    bits = ba.element_dropout_bits(99, B, NH, L)
     t = [torch.from_numpy(x) for x in (*qkv, bias, mask)]
     a = rb.bias_attention_train(*t, 99, SCALE, 0.1)
     b = rb.bias_attention_train_reference(*t, bits, SCALE, 0.1)

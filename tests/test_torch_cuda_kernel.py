@@ -97,13 +97,95 @@ def _check_grad(i, got, want, zero_bounds):
         assert err <= 2e-2 * scale, (i, err, scale)
 
 
+def test_ldmatrix_fragment_order_on_card():
+    """The kernels read every mma fragment with ldmatrix, the transposed
+    ones (V in p·v) with its .trans form. With one-hot operands each output
+    element names the one fragment element it came from: q = row i of the
+    identity makes the scores of a zero-bias head the keys' column i, and
+    p = softmax of a bias that leaves one key j(i) makes ctx row i the row
+    j(i) of v, exactly. Distinct v values, both streams, two key tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, nh, L = 1, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def heads(x):  # (B, L, nh, d) storage viewed (B, nh, L, d)
+        return x.to(torch.bfloat16).transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+
+    # integers up to 255 are exact in bf16; every (key, column) distinct
+    v_t = heads((torch.arange(L * 64, device="cuda") % 251).float()
+                .view(1, 1, L, 64).expand(B, nh, L, 64)
+                + torch.arange(nh, device="cuda").view(1, nh, 1, 1))
+    v_l = heads((torch.arange(L * 16, device="cuda") % 239).float()
+                .view(1, 1, L, 16).expand(B, nh, L, 16))
+    # scores: q_t = 8·one-hot(i % 64), k_t[j] = row of integers → s = k_t[j,
+    # i % 64] (scale 1/8); q_l, k_l likewise with scale 1/4, weight 4
+    k_t = heads(torch.randint(-3, 4, (B, nh, L, 64), generator=gen,
+                              device="cuda").float())
+    k_l = heads(torch.randint(-3, 4, (B, nh, L, 16), generator=gen,
+                              device="cuda").float())
+    eye_t = torch.eye(64, device="cuda").repeat(2, 1) * 8
+    eye_l = torch.eye(16, device="cuda").repeat(8, 1) * 4
+    q_t = heads(eye_t.view(1, 1, L, 64).expand(B, nh, L, 64))
+    q_l = heads(eye_l.view(1, 1, L, 16).expand(B, nh, L, 16))
+    bias = torch.zeros((B, L), device="cuda")
+    got = ba.biacm_attention(q_t, k_t, v_t, q_l, k_l, v_l, bias, 0.125, 0.25)
+    want = ba.biacm_attention_reference(
+        *(x.float() for x in (q_t, k_t, v_t, q_l, k_l, v_l)), bias, 0.125,
+        0.25)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        # |ctx| ≤ 255, so one bf16 step of the output is up to 1; a wrong
+        # fragment order is off by tens
+        assert (g.float() - w).abs().max().item() <= 2.0
+    # one key left per batch row: ctx is that key's v row, bit for bit
+    for j in (0, 5, 77, 127):
+        bias = torch.full((B, L), NEG, device="cuda")
+        bias[:, j] = 0.0
+        got = ba.biacm_attention(q_t, k_t, v_t, q_l, k_l, v_l, bias, 0.125,
+                                 0.25)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], v_t[:, :, j:j + 1].expand_as(got[0]))
+        assert torch.equal(got[1], v_l[:, :, j:j + 1].expand_as(got[1]))
+
+
+@pytest.mark.parametrize("L", [1, 63, 65, 200, 512])
+def test_packed_keep_mask_on_card(L):
+    """Kernel #2's packed keep flags equal pack_keep_mask of
+    ``attention_dropout_bits < threshold`` word for word, with the
+    in-kernel generator and with explicit bits; kernel #3 fed the
+    forward's flags and fed the plainly packed ones agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    qkv, bias, dctx = _train_inputs(L, seed=L + 3)
+    B, nh = bias.shape[0], qkv[0].shape[1]
+    seed, rate = 99 + L, 0.1
+    bits = ba.attention_dropout_bits(seed, B, nh, L, device="cuda")
+    want = ba.pack_keep_mask(torch.stack(bits) < ba.keep_threshold(rate))
+    for rng in (seed, bits):
+        *_, stats, keep = ba.biacm_attention_train_fwd_cuda(
+            *qkv, bias, rng, 0.125, 0.25, rate)
+        torch.cuda.synchronize()
+        assert keep.dtype == torch.int32 and keep.shape == want.shape
+        assert torch.equal(keep, want)
+    a = ba.biacm_attention_train_bwd_cuda(*qkv, bias, keep, stats, *dctx,
+                                          0.125, 0.25, rate)
+    b = ba.biacm_attention_train_bwd_cuda(*qkv, bias, want.contiguous(),
+                                          stats, *dctx, 0.125, 0.25, rate)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("L", [1, 63, 128, 200, 512, "512-collinear"])
+@pytest.mark.parametrize("L", [1, 63, 65, 128, 200, 512, "512-collinear"])
 def test_train_kernels_match_plain_twin_on_card(L, rate):
     """Kernels #2 (forward) and #3 (backward) against the fp32 twin and
     its autograd gradients on the same bf16 inputs and output gradients,
     with the in-kernel bits (the twin takes attention_dropout_bits of the
-    same seed) and with explicit bits. Forward: max abs err <= 2e-2, as
+    same seed) and with explicit bits; L = 1, 63, 65 and 200 leave ragged
+    tails of rows, keys and keep words. Forward: max abs err <= 2e-2, as
     kernel #1; gradients: see _check_grad."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -216,8 +298,8 @@ def test_bias_kernel_matches_plain_twin_on_card(L):
 def test_bias_train_kernels_match_plain_twin_on_card(L, rate):
     """Kernels #5 (forward) and #6 (backward) against the fp32 twin and its
     autograd gradients (dq, dk, dv and dbias) on the same bf16 inputs, with
-    the in-kernel bits (the twin takes attention_dropout_bits word 0 of the
-    same seed) and with explicit bits. Forward max abs err <= 2e-2;
+    the in-kernel bits (the twin takes element_dropout_bits of the same
+    seed) and with explicit bits. Forward max abs err <= 2e-2;
     each gradient's max abs err <= 2e-2 of its own max |reference|; where
     the reference is exactly 0 (L = 1: one key, p = 1, dS = 0) the kernel's
     value is bounded by 2^-16 of the row's sum of |dc * v| terms."""
@@ -227,7 +309,7 @@ def test_bias_train_kernels_match_plain_twin_on_card(L, rate):
     qkv, bias, mask, dctx = _bias_inputs(L, seed=L + 7, **kw)
     B, nh = mask.shape[0], qkv[0].shape[1]
     seed = 4321 + L
-    bits = ba.attention_dropout_bits(seed, B, nh, L, device="cuda")[0]
+    bits = ba.element_dropout_bits(seed, B, nh, L, device="cuda")
     leaves = [x.float().requires_grad_() for x in qkv] \
         + [bias.clone().requires_grad_()]
     want = rb.bias_attention_train_reference(*leaves, mask, bits, 0.125, rate)
