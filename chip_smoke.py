@@ -7,9 +7,10 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
 
 1. device  — requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build   — builds the four CUDA libraries from ``peneo_tpu_torch/csrc``
-   (one nvcc each, started together) and prints their ptxas reports
-   (registers, shared memory, spills; any spill in a BiACM kernel fails)
-   and the resident CTAs per SM the runtime grants each BiACM kernel.
+   (one nvcc each, started together) and prints their ptxas reports and,
+   for every kernel of both families, its registers, shared memory, stack
+   frame and spills (any spill fails) and the resident CTAs per SM the
+   runtime grants it.
 3. kernel  — kernel #1 against its plain PyTorch twin (fp32 on the same
    bf16 inputs) at B=32, nh=12, d 64/16 and L = 512 (serving shape, last
    100 keys of half the rows masked), 128 and a ragged 200 (one row's first
@@ -75,17 +76,23 @@ text positions), seeded random weights:
 
 12. kernel_bias — kernel #4 against its fp32 twin at B=32, nh=12, d=64 and
    L' = 709 (last 100 text keys of half the rows masked), 128 and a ragged
-   200, with a random fp32 (B, nh, L', L') bias; max abs error ≤ 2e-2.
-   Medians of 20 launches of the kernel, the twin and
-   ``F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask)``, with
-   the backends that accept the mask at its natural and at a padded row
-   stride.
+   200, with a random fp32 (B, nh, L', L') bias at its natural row stride
+   (rows of L' floats, fetched in 4-byte requests) and at the model's
+   padded one (``RelBias``: L' rounded up to a multiple of 4, 16-byte
+   requests); max abs error ≤ 2e-2. Times of the kernel (padded stride, the
+   main path's; events and device), the twin and
+   ``F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask)`` at
+   both strides (events and device; and each backend that accepts the
+   mask).
 13. kernel_bias_train — kernels #5 and #6 against the fp32 twin and its
    autograd gradients (dq, dk, dv and dbias) at B=8 and the same lengths
    plus 709 with nearly collinear rows, rates 0 and 0.1, explicit bits and
    the in-kernel generator (bit-identical results; the twin takes
-   ``element_dropout_bits``): forward ≤ 2e-2, each gradient ≤ 2e-2
-   of its own max |reference|; the kept share; timings.
+   ``element_dropout_bits``), both bias strides: forward ≤ 2e-2, each
+   gradient ≤ 2e-2 of its own max |reference|; kernel #5's packed keep
+   flags equal to ``pack_keep_mask(element_dropout_bits(...) < threshold)``
+   word for word, and kernel #6 fed either, bit for bit; the kept share;
+   timings (events and device) beside SDPA's at both strides.
 14. serve_v3 — the model saved as config.json / pytorch_model.bin /
    toy_tokenizer.json, the 96 pages through ``InferenceService.run`` (B=32,
    L=512, bf16, raw uint8 page images normalized on the card): a record per
@@ -1039,16 +1046,15 @@ def key_spread(keys, attention_mask):
                         / mean.norm(dim=-1).squeeze(1)).item()
 
 
-def bias_twin_backward(rb, ba):
-    """The same stand-in for kernel #6's launcher (dq, dk, dv, dbias)."""
+def bias_twin_backward(rb):
+    """The same stand-in for kernel #6's launcher (dq, dk, dv, dbias), from
+    kernel #5's packed keep flags."""
     import torch
 
-    def bwd(q, k, v, bias, mask, rng, stats, dctx, scale, rate=0.0):
-        B, nh, length, _ = q.shape
+    def bwd(q, k, v, bias, mask, keep, stats, dctx, scale, rate=0.0):
         bits = None
         if rate > 0.0:
-            bits = rng if isinstance(rng, torch.Tensor) else \
-                ba.element_dropout_bits(rng, B, nh, length, q.device)
+            bits = rb.keep_flag_bits(keep, q.shape[2])
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
             out = rb.bias_attention_train_reference(*leaves, mask, bits,
@@ -1057,7 +1063,7 @@ def bias_twin_backward(rb, ba):
     return bwd
 
 
-def phase_train_parity(ops, model, batch, v3=False, ba=None):
+def phase_train_parity(ops, model, batch, v3=False):
     """One training step's loss and gradients from the same weights and
     seeds: through the kernels, through the plain twins, and through the
     forward kernel with the twin's backward. The last pair differs only in
@@ -1093,7 +1099,7 @@ def phase_train_parity(ops, model, batch, v3=False, ba=None):
             model.load_state_dict(state0)
             model.set_attention_impl("plain" if run == "plain" else "kernel")
             if run == "twin_backward":
-                setattr(ops, bwd_name, bias_twin_backward(ops, ba) if v3
+                setattr(ops, bwd_name, bias_twin_backward(ops) if v3
                         else twin_backward(ops))
             model.train()
             model.zero_grad(set_to_none=True)
@@ -1174,8 +1180,9 @@ def phase_train_breakdown(model, batch, profile_dir, v3=False):
     rows, device_ms = device_rows(prof, wall_ms, profile_dir,
                                   "train_v3_step" if v3 else "train_step")
     stem = "bias_train_" if v3 else "biacm_train_"
+    mask_stem = "bias_keep_mask" if v3 else "biacm_keep_mask"
     fwd_ms = sum(r[1] for r in rows if stem + "fwd" in r[0]
-                 or "biacm_keep_mask" in r[0])
+                 or mask_stem in r[0])
     bwd_ms = sum(r[1] for r in rows if stem + "dkdv" in r[0]
                  or stem + "dq" in r[0])
     extra = {}
@@ -1208,11 +1215,11 @@ def phase_train_breakdown(model, batch, profile_dir, v3=False):
 
 def bias_inputs(batch, length, masked, gen, collinear=False):
     """q/k/v as (B, nh, L, 64) views of (B, L, nh, 64) bf16 buffers (the
-    LayoutLMv3 layer's layout), a random fp32 (B, nh, L, L) bias and the
-    (B, L) fp32 key mask with ``masked`` keys of each listed row set to
-    finfo(f32).min/2. ``collinear``: every row close to the first token's
-    (spread 0.1, halved to keep values O(1)), where dq and dk are small
-    differences of large terms."""
+    LayoutLMv3 layer's layout), a random fp32 (B, nh, L, L) bias (contiguous,
+    rows of L floats) and the (B, L) fp32 key mask with ``masked`` keys of
+    each listed row set to finfo(f32).min/2. ``collinear``: every row close
+    to the first token's (spread 0.1, halved to keep values O(1)), where dq
+    and dk are small differences of large terms."""
     import torch
 
     def heads():
@@ -1228,6 +1235,26 @@ def bias_inputs(batch, length, masked, gen, collinear=False):
     for row, keys in masked:
         mask[row, keys] = torch.finfo(torch.float32).min / 2
     return qkv, bias, mask
+
+
+def relbias_layout(bias):
+    """The same values as the model's ``RelBias`` lays them out: a (B, nh,
+    L, L) view of an (nh, B, L, L4) buffer, L4 = L rounded up to a multiple
+    of 4 (16-byte rows); the padding columns hold NaN, which no kernel may
+    read into a result."""
+    import torch
+
+    B, nh, n, _ = bias.shape
+    buf = torch.full((nh, B, n, -(-n // 4) * 4), float("nan"),
+                     device=bias.device)
+    out = buf.permute(1, 0, 2, 3)[..., :n]
+    out.copy_(bias)
+    return out
+
+
+# the bias row strides the rel-bias kernels are held at: rows of L floats
+# (4-byte requests at L = 709) and the model's padded rows (16-byte)
+BIAS_STRIDES = (("natural", lambda x: x), ("padded", relbias_layout))
 
 
 def bias_cases(batch):
@@ -1285,41 +1312,52 @@ def phase_kernel_bias(rb, peaks):
     scale = 1.0 / 8.0
     errs, timing = {}, {}
     for length, masked in bias_cases(B).items():
-        (q, k, v), bias, mask = bias_inputs(B, length, masked, gen)
-        got = rb.bias_attention_cuda(q, k, v, bias, mask, scale)
+        (q, k, v), natural, mask = bias_inputs(B, length, masked, gen)
         want = rb.bias_attention_reference(q.float(), k.float(), v.float(),
-                                           bias, mask, scale)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise RuntimeError(f"non-finite kernel #4 output at L={length}")
-        errs[length] = (got.float() - want).abs().max().item()
-        if errs[length] > KERNEL_TOL:
-            raise RuntimeError(f"kernel #4 vs plain twin at L={length}: max "
-                               f"abs err {errs[length]:.3e} > {KERNEL_TOL}")
+                                           natural, mask, scale)
+        for label, layout in BIAS_STRIDES:
+            bias = layout(natural)
+            got = rb.bias_attention_cuda(q, k, v, bias, mask, scale)
+            torch.cuda.synchronize()
+            key = f"L{length}_{label}"
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"non-finite kernel #4 output, {key}")
+            errs[key] = (got.float() - want).abs().max().item()
+            if errs[key] > KERNEL_TOL:
+                raise RuntimeError(f"kernel #4 vs plain twin, {key}: max abs "
+                                   f"err {errs[key]:.3e} > {KERNEL_TOL}")
         if length != LV:
             continue
-        # the library call: one additive bf16 mask, at its natural row
+        # the kernel at the main path's (padded) stride and at the natural
+        # one; the library call: one additive bf16 mask, at its natural row
         # stride (709 · 2 bytes, not 16-byte aligned) and at a padded one
-        full = (bias + mask[:, None, None, :]).to(torch.bfloat16)
+        full = (natural + mask[:, None, None, :]).to(torch.bfloat16)
         padded = padded_rows(full)
+
+        def kernel(b=bias):
+            return rb.bias_attention_cuda(q, k, v, b, mask, scale)
 
         def sdpa(m):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
         sdpa_err = (sdpa(full).float() - want).abs().max().item()
         timing = {
-            "ms": time_ms(lambda: rb.bias_attention_cuda(q, k, v, bias, mask,
-                                                         scale)),
+            "ms": time_ms(kernel),
+            "device_ms": device_ms(kernel),
+            "natural_stride_device_ms": device_ms(lambda: kernel(natural)),
             "plain_ms": time_ms(lambda: rb.bias_attention_reference(
-                q, k, v, bias, mask, scale)),
+                q, k, v, natural, mask, scale)),
             "library_ms": time_ms(lambda: sdpa(full)),
+            "library_device_ms": device_ms(lambda: sdpa(full)),
             "library_padded_stride_ms": time_ms(lambda: sdpa(padded)),
+            "library_padded_stride_device_ms": device_ms(
+                lambda: sdpa(padded)),
             "library_backends": {
                 "natural_stride": sdpa_backends(lambda: sdpa(full)),
                 "padded_stride": sdpa_backends(lambda: sdpa(padded))},
             "sdpa_max_abs_err": sdpa_err,
         }
-        del full, padded
+        del full, padded, bias
     # least time for one serving-shape call: q/k/v, the bias and the mask
     # read once, the output written once, vs the FLOPs of the 2 products
     bound = bound_of(4 * B * NH * LV * 64 * 2 + B * NH * LV * LV * 4
@@ -1331,7 +1369,8 @@ def phase_kernel_bias(rb, peaks):
 
 def phase_kernel_bias_train(rb, ba, peaks):
     """Kernels #5 and #6 against the fp32 twin on the same bf16 inputs and
-    output gradient; the dropout mask; timings at the training shape."""
+    output gradient, at both bias strides; the dropout mask and its packed
+    keep flags; timings at the training shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1353,47 +1392,76 @@ def phase_kernel_bias_train(rb, ba, peaks):
         return max(errs), {n: e / m for n, e, m in
                            zip(BIAS_GRAD_NAMES, errs, scales)}
 
-    fwd_err, grad_abs, grad_rel = {}, {}, {}
+    fwd_err, grad_abs, grad_rel, packed_checked = {}, {}, {}, []
     for length, masked, name in [(n, m, f"L{n}") for n, m in cases.items()] \
             + [(LV, cases[LV], f"L{LV}_collinear")]:
-        qkv, bias, mask = bias_inputs(bt, length, masked, gen,
-                                      collinear=name.endswith("collinear"))
+        qkv, natural, mask = bias_inputs(bt, length, masked, gen,
+                                         collinear=name.endswith("collinear"))
         dctx = out_grad(length)
         for rate in (0.0, DROP):
             seed = SEED + length
             bits = ba.element_dropout_bits(seed, bt, NH, length, "cuda")
             leaves = [x.float().requires_grad_() for x in qkv] \
-                + [bias.clone().requires_grad_()]
+                + [natural.clone().requires_grad_()]
             want = rb.bias_attention_train_reference(*leaves, mask, bits,
                                                      scale, rate)
             want_g = torch.autograd.grad(want, leaves, dctx.float())
-            got_all = {}
-            for mode, rng in (("philox", seed), ("bits", bits)):
-                ins = [x.detach().requires_grad_() for x in qkv] \
-                    + [bias.clone().requires_grad_()]
-                got = rb.bias_attention_train(*ins, mask, rng, scale, rate)
-                got_g = torch.autograd.grad(got, ins, dctx)
-                torch.cuda.synchronize()
-                key = f"{name}_rate{rate}_{mode}"
-                for x in (got, *got_g):
-                    if not torch.isfinite(x).all():
-                        raise RuntimeError(f"non-finite kernel output, {key}")
-                fwd_err[key] = (got.float() - want).abs().max().item()
-                grad_abs[key], grad_rel[key] = rel_errs(got_g, want_g, key)
-                if fwd_err[key] > TRAIN_KERNEL_TOL \
-                        or max(grad_rel[key].values()) > TRAIN_KERNEL_TOL:
+            for label, layout in BIAS_STRIDES:
+                got_all = {}
+                for mode, rng in (("philox", seed), ("bits", bits)):
+                    ins = [x.detach().requires_grad_() for x in qkv] \
+                        + [layout(natural).requires_grad_()]
+                    got = rb.bias_attention_train(*ins, mask, rng, scale,
+                                                  rate)
+                    got_g = torch.autograd.grad(got, ins, dctx)
+                    torch.cuda.synchronize()
+                    key = f"{name}_rate{rate}_{mode}_{label}"
+                    for x in (got, *got_g):
+                        if not torch.isfinite(x).all():
+                            raise RuntimeError(
+                                f"non-finite kernel output, {key}")
+                    fwd_err[key] = (got.float() - want).abs().max().item()
+                    grad_abs[key], grad_rel[key] = rel_errs(got_g, want_g,
+                                                            key)
+                    if fwd_err[key] > TRAIN_KERNEL_TOL \
+                            or max(grad_rel[key].values()) > TRAIN_KERNEL_TOL:
+                        raise RuntimeError(
+                            f"rel-bias training kernels vs plain twin, {key}: "
+                            f"forward max abs err {fwd_err[key]:.3e}, "
+                            f"gradients' max abs err over their max "
+                            f"|reference| {grad_rel[key]} > "
+                            f"{TRAIN_KERNEL_TOL}")
+                    got_all[mode] = (got, *got_g)
+                if not all(torch.equal(a, b) for a, b in
+                           zip(got_all["philox"], got_all["bits"])):
                     raise RuntimeError(
-                        f"rel-bias training kernels vs plain twin, {key}: "
-                        f"forward max abs err {fwd_err[key]:.3e}, gradients' "
-                        f"max abs err over their max |reference| "
-                        f"{grad_rel[key]} > {TRAIN_KERNEL_TOL}")
-                got_all[mode] = (got, *got_g)
-            if not all(torch.equal(a, b) for a, b in
-                       zip(got_all["philox"], got_all["bits"])):
-                raise RuntimeError(
-                    f"{name}, rate {rate}: the in-kernel generator's results "
-                    "differ from those of element_dropout_bits")
-            del bits, leaves, want, want_g, got_all
+                        f"{name}, rate {rate}, {label}: the in-kernel "
+                        "generator's results differ from those of "
+                        "element_dropout_bits")
+                del got_all
+            if rate > 0.0:
+                # kernel #5's packed keep flags against the plain packing of
+                # the same bits; kernel #6 fed either
+                bias = relbias_layout(natural)
+                plain_keep = ba.pack_keep_mask(bits < ba.keep_threshold(rate))
+                for mode, rng in (("philox", seed), ("bits", bits)):
+                    _, stats, keep = rb.bias_attention_train_fwd_cuda(
+                        *qkv, bias, mask, rng, scale, rate)
+                    if not torch.equal(keep, plain_keep):
+                        raise RuntimeError(
+                            f"{name}, {mode}: kernel #5's packed keep flags "
+                            f"differ from pack_keep_mask in "
+                            f"{(keep != plain_keep).sum().item()} words")
+                bwd = [rb.bias_attention_train_bwd_cuda(
+                    *qkv, bias, mask, k, stats, dctx, scale, rate)
+                    for k in (keep, plain_keep)]
+                if not all(torch.equal(a, b) for a, b in zip(*bwd)):
+                    raise RuntimeError(
+                        f"{name}: kernel #6 fed the forward's keep flags "
+                        "and fed pack_keep_mask's differ")
+                packed_checked.append(name)
+                del plain_keep, keep, stats, bwd, bias
+            del bits, leaves, want, want_g
 
     # the mask at the training shape
     keep = ba.element_dropout_bits(SEED, bt, NH, LV, "cuda") \
@@ -1404,31 +1472,44 @@ def phase_kernel_bias_train(rb, ba, peaks):
         raise RuntimeError(f"kept share {kept} is not within {KEEP_TOL} of "
                            f"{1.0 - DROP}")
 
-    # timings at the training shape, with the main path's in-kernel bits
-    (q, k, v), bias, mask = bias_inputs(bt, LV, cases[LV], gen)
+    # timings at the training shape, with the main path's in-kernel bits and
+    # bias layout (and device times at the natural stride)
+    (q, k, v), natural, mask = bias_inputs(bt, LV, cases[LV], gen)
+    bias = relbias_layout(natural)
     dctx = out_grad(LV)
-    stats = rb.bias_attention_train_fwd_cuda(q, k, v, bias, mask, SEED,
-                                             scale, DROP)[1]
+    _, stats, keep = rb.bias_attention_train_fwd_cuda(q, k, v, bias, mask,
+                                                      SEED, scale, DROP)
+
+    def fwd(rate=DROP, b=bias):
+        return rb.bias_attention_train_fwd_cuda(q, k, v, b, mask, SEED,
+                                                scale, rate)
+
+    def bwd(rate=DROP, b=bias):
+        return rb.bias_attention_train_bwd_cuda(
+            q, k, v, b, mask, keep if rate > 0.0 else None, stats, dctx,
+            scale, rate)
+
     timing = {
-        "fwd_ms": time_ms(lambda: rb.bias_attention_train_fwd_cuda(
-            q, k, v, bias, mask, SEED, scale, DROP)),
-        "bwd_ms": time_ms(lambda: rb.bias_attention_train_bwd_cuda(
-            q, k, v, bias, mask, SEED, stats, dctx, scale, DROP)),
-        "fwd_rate0_ms": time_ms(lambda: rb.bias_attention_train_fwd_cuda(
-            q, k, v, bias, mask, SEED, scale, 0.0)),
+        "fwd_ms": time_ms(fwd), "fwd_device_ms": device_ms(fwd),
+        "bwd_ms": time_ms(bwd), "bwd_device_ms": device_ms(bwd),
+        "fwd_rate0_ms": time_ms(lambda: fwd(0.0)),
+        "fwd_rate0_device_ms": device_ms(lambda: fwd(0.0)),
+        "bwd_rate0_device_ms": device_ms(lambda: bwd(0.0)),
+        "fwd_natural_stride_device_ms": device_ms(lambda: fwd(b=natural)),
+        "bwd_natural_stride_device_ms": device_ms(lambda: bwd(b=natural)),
     }
     bits = ba.element_dropout_bits(SEED, bt, NH, LV, "cuda")
     timing["plain_fwd_ms"] = time_ms(
-        lambda: rb.bias_attention_train_reference(q, k, v, bias, mask, bits,
-                                                  scale, DROP))
-    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+        lambda: rb.bias_attention_train_reference(q, k, v, natural, mask,
+                                                  bits, scale, DROP))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, natural)]
     out = rb.bias_attention_train_reference(*leaves, mask, bits, scale, DROP)
     timing["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         out, leaves, dctx, retain_graph=True))
     del out, leaves, bits
     # the library call (no dropout), its mask trained as the bias is
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    full = (bias + mask[:, None, None, :]).to(torch.bfloat16)
+    full = (natural + mask[:, None, None, :]).to(torch.bfloat16)
     backends = {}
     for label, m in (("natural_stride", full),
                      ("padded_stride", padded_rows(full))):
@@ -1440,17 +1521,19 @@ def phase_kernel_bias_train(rb, ba, peaks):
         def fwd_bwd(m=m):
             return torch.autograd.grad(sdpa(), (ql, kl, vl, m), dctx)
 
+        tag = "" if label == "natural_stride" else "_padded_stride"
         with torch.no_grad():
-            fwd = time_ms(sdpa)
+            timing[f"library{tag}_fwd_ms"] = time_ms(sdpa)
+            timing[f"library{tag}_fwd_device_ms"] = device_ms(sdpa)
         o = sdpa()
-        bwd = time_ms(lambda: torch.autograd.grad(o, (ql, kl, vl, m), dctx,
-                                                  retain_graph=True))
+
+        def library_bwd(o=o, m=m):
+            return torch.autograd.grad(o, (ql, kl, vl, m), dctx,
+                                       retain_graph=True)
+
+        timing[f"library{tag}_bwd_ms"] = time_ms(library_bwd)
+        timing[f"library{tag}_bwd_device_ms"] = device_ms(library_bwd)
         del o
-        if label == "natural_stride":
-            timing["library_fwd_ms"], timing["library_bwd_ms"] = fwd, bwd
-        else:
-            timing["library_padded_stride_fwd_ms"] = fwd
-            timing["library_padded_stride_bwd_ms"] = bwd
         backends[label] = sdpa_backends(fwd_bwd)
     timing["library_backends_fwd_bwd"] = backends
     del full
@@ -1458,17 +1541,21 @@ def phase_kernel_bias_train(rb, ba, peaks):
     qkv_bytes = bt * NH * LV * 64 * 2            # one of q, k, v, ctx, dctx…
     bias_bytes = bt * NH * LV * LV * 4
     small = bt * LV * 4 + bt * NH * LV * 2 * 4   # mask, statistics
+    keep_bytes = keep.numel() * 4                # the packed keep flags
     bounds = {
-        # reads q/k/v, bias, mask; writes ctx and the statistics
-        "fwd": bound_of(4 * qkv_bytes + bias_bytes + small,
+        # reads q/k/v, bias, mask; writes ctx, the statistics, the flags
+        "fwd": bound_of(4 * qkv_bytes + bias_bytes + small + keep_bytes,
                         4 * bt * NH * LV * LV * 64, peaks),
-        # reads q/k/v, dctx, bias, mask, statistics; writes dq/dk/dv, dbias
-        "bwd": bound_of(7 * qkv_bytes + 2 * bias_bytes + small,
+        # reads q/k/v, dctx, bias, mask, statistics, the flags; writes
+        # dq/dk/dv, dbias
+        "bwd": bound_of(7 * qkv_bytes + 2 * bias_bytes + small + keep_bytes,
                         5 * 2 * bt * NH * LV * LV * 64, peaks),
     }
     emit({"phase": "kernel_bias_train", "fwd_max_abs_err": fwd_err,
           "grad_max_abs_err": grad_abs, "grad_rel_err": grad_rel,
           "tol": TRAIN_KERNEL_TOL, "kept_share": kept, "rate": DROP,
+          "packed_keep_flags_equal": packed_checked,
+          "keep_flags_bytes": keep_bytes,
           "shape": [bt, NH, LV, 64], **timing, "bounds": bounds})
     errors = {"fwd_max_abs_err": max(fwd_err.values()),
               "grad_max_abs_err": max(grad_abs.values()),
@@ -1716,18 +1803,18 @@ def main(argv=None):
              for src in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
-    # each BiACM kernel's registers, shared memory and spills from the
-    # ptxas report, and the resident CTAs per SM the runtime grants it
+    # each kernel's registers, shared memory and spills from the ptxas
+    # report, and the resident CTAs per SM the runtime grants it
     resources = kernel_resources(
-        "\n".join(build_log(src) for src in (ba.SOURCE, ba.TRAIN_SOURCE)),
-        ba.kernel_occupancy())
-    emit({"phase": "biacm_kernel_resources", "threads_per_cta": 128,
+        "\n".join(build_log(src) for src in sources),
+        {**ba.kernel_occupancy(), **rb.kernel_occupancy()})
+    emit({"phase": "kernel_resources", "threads_per_cta": 128,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "kernels": resources})
     spilled = {k: v for k, v in resources.items()
-               if v["spill_stores"] or v["spill_loads"]}
+               if v["spill_stores"] or v["spill_loads"] or v["stack_frame"]}
     if spilled:
-        raise RuntimeError(f"register spills in a BiACM kernel: {spilled}")
+        raise RuntimeError(f"register spills or a stack frame: {spilled}")
 
     max_err, timing, bound = timed("kernel", phase_kernel, ba, peaks)
     train_err, train_timing, train_bounds = timed(
@@ -1764,20 +1851,20 @@ def main(argv=None):
             "train_v3", phase_train_v3, rb, ba, tmp, wdir_v3)
         model, batch = train_batch(train_out)
         timed("train_parity_v3", phase_train_parity, rb, model, batch,
-              v3=True, ba=ba)
+              v3=True)
         timed("train_breakdown_v3", phase_train_breakdown, model, batch,
               args.profile, v3=True)
         del model, batch
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
-              library_ms, max_rel_err=None, device=(None, None)):
+              library_ms, device, max_rel_err=None):
         """One kernel of the ``kernels`` line; every entry has these keys
         (``max_rel_err`` is null for the forward kernels). ``ms``,
         ``plain_ms`` and ``library_ms`` are medians between CUDA events
         around the call (host time between launches included);
         ``device_ms`` and ``library_device_ms`` are the profiler's device
-        time of the same calls, taken for the BiACM kernels, whose calls
-        are shorter than their host time (null for the others)."""
+        time of the same calls (the events hold the host's time between
+        launches once a call is under ~0.2 ms)."""
         return {"name": name, "route": "cuda",
                 "source": "peneo_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": n_launches,
@@ -1811,18 +1898,24 @@ def main(argv=None):
                       train_timing["library_bwd_dropout_device_ms"])),
         entry("bias_attention", "bias_attention.cu", jr + "59", bias_launches,
               bias_err, bias_timing["ms"], bias_timing["plain_ms"],
-              bias_bound, bias_timing["library_ms"]),
+              bias_bound, bias_timing["library_ms"],
+              device=(bias_timing["device_ms"],
+                      bias_timing["library_device_ms"])),
         entry("bias_attention_train_fwd", "bias_attention_train.cu",
               jr + "280", bias_train_launches["fwd"],
               bias_train_err["fwd_max_abs_err"], bias_train_timing["fwd_ms"],
               bias_train_timing["plain_fwd_ms"], bias_train_bounds["fwd"],
-              bias_train_timing["library_fwd_ms"]),
+              bias_train_timing["library_fwd_ms"],
+              device=(bias_train_timing["fwd_device_ms"],
+                      bias_train_timing["library_fwd_device_ms"])),
         entry("bias_attention_train_bwd", "bias_attention_train.cu",
               jr + "304", bias_train_launches["bwd"],
               bias_train_err["grad_max_abs_err"],
               bias_train_timing["bwd_ms"], bias_train_timing["plain_bwd_ms"],
               bias_train_bounds["bwd"], bias_train_timing["library_bwd_ms"],
-              max_rel_err=bias_train_err["grad_max_rel_err"])]})
+              max_rel_err=bias_train_err["grad_max_rel_err"],
+              device=(bias_train_timing["bwd_device_ms"],
+                      bias_train_timing["library_bwd_device_ms"]))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,8 +4,8 @@
 // bf16 packing, the asynchronous tile ring (cp.async into shared memory,
 // ldmatrix out of it), the dropout bits, and the one forward body both
 // forward kernels instantiate. The rel-bias kernels (bias_common.cuh) build
-// on the product, the packing, the synchronous row loaders and the Philox
-// generator of this file.
+// on the product, the packing, the tile ring and the Philox generator of
+// this file.
 //
 // mma.sync m16n8k16 fragments (per thread; g = lane / 4, t = lane % 4):
 //   A (16×16, row-major):  a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,
@@ -61,9 +61,6 @@
 //   at full occupancy; the attention kernels read the keep flags
 //   bit-packed (see "dropout bits" below). Masking p is an AND on the
 //   packed bf16 halves of its A fragments.
-//
-// load_a, load_rows, load_rows_t and kStrX (synchronous copies, a
-// transposed shared-memory layout) serve the rel-bias kernels only.
 
 #pragma once
 
@@ -84,7 +81,6 @@ constexpr int kDL = 16;                  // layout head dim
 // across banks and keeps every row 16-byte aligned
 constexpr int kStrT = kDT + 8;           // (rows, d=64) tiles
 constexpr int kStrL = kDL + 8;           // (rows, d=16) tiles
-constexpr int kStrX = kTile + 8;         // transposed tiles: (d, rows)
 
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
                                           uint32_t b0, uint32_t b1) {
@@ -102,18 +98,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows r0 + {g, g+8}, columns k0 + {2t.., 2t+8..} of a
-// row-major shared-memory tile with row stride STR.
-template <int STR>
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,
-                                       int r0, int k0, int g, int t) {
-  const __nv_bfloat16* p = s + (r0 + g) * STR + k0 + t * 2;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * STR);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * STR + 8);
 }
 
 // The A fragment of a (16, 16) slice given as the C fragments of its two
@@ -146,40 +130,6 @@ __device__ __forceinline__ void pack_a_split(uint32_t* hi, uint32_t* lo,
 // the pair with its dropped elements set to 0.
 __device__ __forceinline__ uint32_t keep_pair_mask(uint32_t bits) {
   return ((bits & 1u) ? 0x0000ffffu : 0u) | ((bits & 2u) ? 0xffff0000u : 0u);
-}
-
-// Copy kTile rows of D bf16 (row r at src + r*row_stride) into shared
-// memory at dst (row stride STR), 16 bytes per thread per step; rows at or
-// past `valid` are zero-filled.
-template <int D, int STR>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int valid) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < valid)
-      v = *reinterpret_cast<const uint4*>(src + r * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * STR + col) = v;
-  }
-}
-
-// Same, stored transposed: dst[d * kStrX + row].
-template <int D>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src,
-                                            int64_t row_stride, int valid) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < valid)
-      v = *reinterpret_cast<const uint4*>(src + r * row_stride + col);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * kStrX + r] = e[i];
-  }
 }
 
 // ------------------------------------------- ldmatrix, cp.async, tile ring
@@ -269,9 +219,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// load_rows, asynchronously: rows r0 .. r0 + kTile − 1 of a (L, D) bf16
-// slice (`src` its row 0, rows row_stride elements apart) into the tile at
-// the shared address dst (row stride STR), 16 bytes per request; rows at
+// Rows r0 .. r0 + kTile − 1 of a (L, D) bf16 slice (`src` its row 0, rows
+// row_stride elements apart) → the tile at the shared address dst (row
+// stride STR), asynchronously, 16 bytes per request; rows at
 // or past L are zero-filled. A thread copies one column block of
 // consecutive rows (four for D = 64, one for D = 16; the D / 8 threads of
 // a row are neighbours, so requests coalesce): its addresses cost one
@@ -343,8 +293,8 @@ __device__ __forceinline__ void load_key_bias_async(float* dst,
 // (text) / 2 (layout) of key 2·(j >> 1), words 2 / 3 the same of key
 // 2·(j >> 1) + 1 — a pure function of (seed, b, h, i, j, stream), whatever
 // the tiling. ops/biacm_attention.py:attention_dropout_bits computes the
-// same bits with torch integer ops. (The rel-bias kernels draw word 0 of
-// the counter (j, i, h, b) per element: bias_common.cuh.)
+// same bits with torch integer ops. (The rel-bias mask kernel makes one
+// draw per four keys of its one mask: bias_common.cuh.)
 //
 // Only that kernel draws (or reads explicit bits), once per training
 // forward. It writes the keep flags bit-packed, one bit per (i, j) and

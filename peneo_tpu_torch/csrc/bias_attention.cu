@@ -18,8 +18,8 @@
 // The design reads each bias element exactly once, keeps the (L, L) scores
 // and probabilities out of device memory (the plain version writes and
 // re-reads them several times), and runs both products on the tensor cores
-// (mma.sync m16n8k16 bf16 → fp32). Simple first version: no TMA (bias rows
-// of 709 floats are not 16-byte aligned), no wgmma, no software pipelining.
+// (mma.sync m16n8k16 bf16 → fp32). No TMA and no wgmma: the products are
+// not what binds.
 //
 // Design, and how it differs from the TPU kernel: the TPU kernel keeps the
 // full K/V rows of a (b, h) and a (TQ, L) fp32 score tile in VMEM, pads L
@@ -32,10 +32,13 @@
 //
 // - One CTA per (64-row query tile, h, b); 4 warps, each owning 16 query
 //   rows. Q fragments stay in registers for the whole key loop.
-// - Per key tile the (64, 64) fp32 bias tile is staged in shared memory,
-//   read from device memory coalesced along the key axis with scalar loads
-//   through the strides the wrapper passes (last dim contiguous); the model
-//   allocates rel_bias with its natural row stride L, no padding.
+// - K, V (as row tiles), the (64, 64) fp32 bias tile and the key mask of
+//   the next key tile travel by cp.async into the other stage of a 2-stage
+//   ring (75,264 B of dynamic shared memory) while the warps compute on the
+//   current one; fragments by ldmatrix (V by its .trans form). The bias
+//   tile moves in 16-byte requests where its rows are 16-byte aligned (the
+//   model's RelBias pads rows of 709 floats to 712), else in 4-byte ones
+//   (any bias with a contiguous last dim, through its strides).
 // - Valid scores are clamped to the finite range, so a mask of
 //   finfo(f32).min plus a negative bias stays finite and a fully masked row
 //   gives a uniform p, never NaN. Keys past L get −inf and contribute 0.
@@ -44,6 +47,11 @@
 // - q/k/v are read through (batch, head, seq) strides with a contiguous
 //   last dim, so the (B, L, nh, d) projection outputs are used in place; the
 //   output is written (B, L, nh, d) contiguous.
+// - Residency: the shared memory of the ring allows 3 CTAs per SM (the
+//   register cap of __launch_bounds__ matches; ptxas takes 144 registers,
+//   no spill), 11.6 waves of the 4,608 CTAs at B=32. On an H100 80GB HBM3
+//   at 700 W one call takes 0.37 ms of device time against the bias read's
+//   0.27 (PERF.md §6).
 //
 // Build: nvcc -O3 -std=c++17 -gencode=arch=compute_90a,code=sm_90a -shared
 //        -Xcompiler -fPIC (peneo_tpu_torch/ops/cuda_build.py). Plain C ABI,
@@ -61,7 +69,7 @@ namespace {
 
 // kernel #4: the shared forward body without dropout and without the row
 // statistics (bias_common.cuh)
-__global__ void __launch_bounds__(relbias::kThreads)
+__global__ void __launch_bounds__(relbias::kThreads, 3)
 bias_fwd_kernel(const relbias::FwdParams p) {
   relbias::forward_tile<false, false>(p);
 }
@@ -72,16 +80,36 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
 // device, which the caller sets. `ptrs` and `strides` as
-// relbias::make_params lays them out (bits and statistics unused here).
+// relbias::make_params lays them out (bits, statistics and keep flags
+// unused here).
 // Returns the cudaError_t of the launch (0 = launched).
 int bias_attention_fwd(const uint64_t* ptrs, const int64_t* strides, int B,
                        int nh, int L, float scale, void* stream) {
   const relbias::FwdParams p = relbias::make_params(
       ptrs, strides, nh, L, scale, biacm::kNoDropout, 0, 0, 0, 1.f);
+  static bool allowed[64] = {};
+  const cudaError_t err = biacm::allow_shared_memory(
+      bias_fwd_kernel, relbias::kSmemBytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((L + relbias::kTile - 1) / relbias::kTile, nh, B);
-  bias_fwd_kernel<<<grid, relbias::kThreads, 0,
+  bias_fwd_kernel<<<grid, relbias::kThreads, relbias::kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What cudaOccupancyMaxActiveBlocksPerMultiprocessor grants the kernel on
+// the current device: resident CTAs per SM, or minus the cudaError_t.
+// `smem_bytes` receives its dynamic shared memory.
+int bias_attention_occupancy(int* smem_bytes) {
+  static bool allowed[64] = {};
+  cudaError_t err = biacm::allow_shared_memory(
+      bias_fwd_kernel, relbias::kSmemBytes, allowed);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int blocks = 0;
+  *smem_bytes = relbias::kSmemBytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, bias_fwd_kernel, relbias::kThreads, *smem_bytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 const char* bias_attention_error_string(int code) {

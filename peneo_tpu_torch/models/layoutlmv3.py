@@ -27,7 +27,12 @@ positions and boxes, read from a small table made on the host
 (:func:`bucket_table`) instead of a device ``log``, so they are the JAX
 package's buckets bit for bit on every device. The forward gathers
 ``w1[:, b1] + (wx + wy)[:, bx·bins + by]`` straight into the layout the
-kernels read (one gather for both 2D tables). The backward sums ``dbias``
+kernels read (one gather for both 2D tables): a ``(B, nh, L', L')`` view of
+an ``(nh, B, L', L'4)`` buffer, rows of ``L'4`` = L' rounded up to a
+multiple of 4 floats (712 for 709: +0.4 %), so that every row starts
+16-byte aligned and the kernels fetch it in 16-byte requests; the padding
+columns hold the gather of real buckets and no reader looks at them. The
+backward sums ``dbias``
 per bucket as matrix products with one-hot bucket matrices, per batch row:
 deterministic, no atomics (a scatter-add of B·L'²·nh values onto 32 or 64
 rows serialises on them); the 1D table's gradient is summed over the batch
@@ -137,22 +142,23 @@ def _bucket_sum(grad: torch.Tensor, bucket: torch.Tensor, bins: int):
 class RelBias(torch.autograd.Function):
     """``rel_bias[b, h, i, j] = (w1[h, b1[i, j]] + wx[h, bx[b, i, j]] +
     wy[h, by[b, i, j]]) / div`` as fp32 ``(B, nh, L, L)`` with a contiguous
-    last dim (a view of an (nh, B, L, L) buffer, which the attention
-    kernels read through its strides). ``w1`` with ``b1`` (L, L), or ``wx``,
-    ``wy`` with ``bx``, ``by`` (B, L, L), may be None. See the module
-    docstring for the backward."""
+    last dim: a view of an (nh, B, L, L4) buffer, which the attention
+    kernels read through its strides. The buckets come with their key axis
+    padded to L4 (a multiple of 4): ``w1`` with ``b1`` (L, L4), or ``wx``,
+    ``wy`` with ``bx``, ``by`` (B, L, L4), may be None. The gradient may
+    come at any strides. See the module docstring for the backward."""
 
     @staticmethod
     def forward(ctx, w1, wx, wy, b1, bx, by, batch, div):
         nh = (w1 if w1 is not None else wx).shape[0]
-        L = (b1 if b1 is not None else bx).shape[-1]
+        L, L4 = (b1 if b1 is not None else bx).shape[-2:]
         out = None
         if wx is not None:
             bins = wx.shape[1]
             both = (wx.float()[:, :, None] + wy.float()[:, None, :])
             out = torch.index_select(both.reshape(nh, bins * bins), 1,
                                      (bx * bins + by).reshape(-1))
-            out = out.view(nh, batch, L * L)
+            out = out.view(nh, batch, L * L4)
         if w1 is not None:
             one_d = torch.index_select(w1.float(), 1, b1.reshape(-1))
             out = (out.add_(one_d[:, None]) if out is not None
@@ -161,19 +167,21 @@ class RelBias(torch.autograd.Function):
         ctx.save_for_backward(b1, bx, by)
         ctx.shapes = (None if w1 is None else w1.shape[1],
                       None if wx is None else wx.shape[1], div)
-        return out.view(nh, batch, L, L).permute(1, 0, 2, 3)
+        return out.view(nh, batch, L, L4).permute(1, 0, 2, 3)[..., :L]
 
     @staticmethod
     def backward(ctx, grad):
         b1, bx, by = ctx.saved_tensors
         bins1, bins2, div = ctx.shapes
         grad = grad.float()
+        L = grad.shape[-1]
         g1 = gx = gy = None
         if bins1 is not None:
-            g1 = _bucket_sum(grad.sum(0, keepdim=True), b1[None], bins1) / div
+            g1 = _bucket_sum(grad.sum(0, keepdim=True), b1[None, :, :L],
+                             bins1) / div
         if bins2 is not None:
-            gx = _bucket_sum(grad, bx, bins2) / div
-            gy = _bucket_sum(grad, by, bins2) / div
+            gx = _bucket_sum(grad, bx[..., :L], bins2) / div
+            gy = _bucket_sum(grad, by[..., :L], bins2) / div
         return g1, gx, gy, None, None, None, None, None
 
 
@@ -395,21 +403,23 @@ class LayoutLMv3Model(nn.Module):
 
     def rel_bias(self, bbox, seq_len: int, n_vis: int):
         """The fp32 (B, nh, L', L') relative-position bias of boxes ``bbox``
-        (B, L', 4), already divided by √d, or zeros where the config has
-        neither table."""
+        (B, L', 4), already divided by √d (rows 16-byte aligned, see
+        :class:`RelBias`), or zeros where the config has neither table."""
         cfg, enc = self.cfg, self.encoder
         B, Lp = bbox.shape[:2]
         if not (cfg.has_relative_attention_bias
                 or cfg.has_spatial_attention_bias):
             return torch.zeros((1, 1, Lp, Lp), device=bbox.device).expand(
                 B, cfg.num_attention_heads, Lp, Lp)
+        pad = -Lp % 4  # keys appended so that a row is a multiple of 4
         w1 = wx = wy = b1 = bx = by = None
         if cfg.has_relative_attention_bias:
             w1 = enc.rel_pos_bias.weight
             b1 = self._static_tensor(
                 ("bucket", seq_len, n_vis),
-                lambda: static_rel_pos_bucket(seq_len, n_vis, cfg.rel_pos_bins,
-                                              cfg.max_rel_pos), bbox.device)
+                lambda: np.pad(static_rel_pos_bucket(
+                    seq_len, n_vis, cfg.rel_pos_bins, cfg.max_rel_pos),
+                    ((0, 0), (0, pad))), bbox.device)
         if cfg.has_spatial_attention_bias:
             wx, wy = enc.rel_pos_x_bias.weight, enc.rel_pos_y_bias.weight
             cx, cy = bbox[:, :, 0], bbox[:, :, 3]
@@ -417,10 +427,11 @@ class LayoutLMv3Model(nn.Module):
             lut = self._static_tensor(
                 ("lut", bins, far), lambda: bucket_table(bins, far).copy(),
                 bbox.device)
-            bx = relative_position_bucket(cx[:, None, :] - cx[:, :, None],
-                                          bins, far, lut)
-            by = relative_position_bucket(cy[:, None, :] - cy[:, :, None],
-                                          bins, far, lut)
+            keys_x, keys_y = F.pad(cx, (0, pad)), F.pad(cy, (0, pad))
+            bx = relative_position_bucket(
+                keys_x[:, None, :] - cx[:, :, None], bins, far, lut)
+            by = relative_position_bucket(
+                keys_y[:, None, :] - cy[:, :, None], bins, far, lut)
         dh = cfg.hidden_size // cfg.num_attention_heads
         return RelBias.apply(w1, wx, wy, b1, bx, by, B, math.sqrt(dh))
 

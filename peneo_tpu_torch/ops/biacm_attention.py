@@ -46,9 +46,9 @@ independent dropout masks over the shared ``p``, one per stream, keep iff
   stream of key ``2·(j >> 1)``, words 2 / 3 those of key ``2·(j >> 1) + 1``.
   The bits are a pure function of ``(seed, b, h, i, j, stream)``, so a
   checkpoint recompute draws identical masks.
-  :func:`element_dropout_bits` is the one-draw-per-element mapping (word 0
-  of the counter ``(j, i, h, b)``) that the rel-bias kernels
-  (``ops/bias_attention.py``) draw.
+  :func:`element_dropout_bits` is the one-mask mapping of the rel-bias mask
+  kernel (``ops/bias_attention.py``): four keys per draw, word ``j & 3`` of
+  the draw at the counter ``(j >> 2, i, h, b)``.
 - The forward launch hands the masks to the backward bit-packed, int32
   ``(2, B, nh, L, ceil(L / 32))`` (stream, …, bit ``j % 32`` of word
   ``j // 32``); :func:`pack_keep_mask` / :func:`unpack_keep_mask` are the
@@ -277,13 +277,16 @@ def attention_dropout_bits(seed: int, B: int, nh: int, L: int, device=None):
 
 
 def element_dropout_bits(seed: int, B: int, nh: int, L: int, device=None):
-    """One draw per element: word 0 of Philox4x32-10 at the counter
-    ``(j, i, h, b)``, int64 ``(B, nh, L, L)`` in [0, 2³²). The bits the
-    rel-bias training kernels draw in-kernel for their one mask."""
-    out = philox4x32_10(_index(L, 3, device), _index(L, 2, device),
+    """The bits the rel-bias mask kernel draws on the card for its one
+    mask, int64 ``(B, nh, L, L)`` in [0, 2³²): four keys per draw, the bits
+    of (query i, key j) are word ``j & 3`` of Philox4x32-10 at the counter
+    ``(j >> 2, i, h, b)`` (a ragged last draw uses its first words)."""
+    quads = (L + 3) // 4
+    out = philox4x32_10(_index(quads, 3, device), _index(L, 2, device),
                         _index(nh, 1, device), _index(B, 0, device),
                         *_seed_key(seed))
-    return out[0].expand(B, nh, L, L)
+    words = torch.stack([w.expand(B, nh, L, quads) for w in out], -1)
+    return words.reshape(B, nh, L, 4 * quads)[..., :L]
 
 
 def pack_keep_mask(keep: torch.Tensor) -> torch.Tensor:

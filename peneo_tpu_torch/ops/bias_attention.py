@@ -14,7 +14,9 @@ Public layout is the JAX package's: q/k/v ``(B, nh, L, d)`` (any strides
 with a contiguous last dim — the layer passes transposed views of its
 ``(B, L, nh, d)`` projections), ``bias`` ``(B, nh, L, L)`` fp32 (the
 relative-position bias, already divided by √d; any batch/head/row strides
-with a contiguous last dim), ``mask`` ``(B, L)`` fp32 additive key mask.
+with a contiguous last dim: rows 16-byte aligned, as the model's ``RelBias``
+lays them out, move in 16-byte requests, others in 4-byte ones), ``mask``
+``(B, L)`` fp32 additive key mask.
 
 - :func:`bias_attention` is the inference entry point. On a CUDA tensor it
   launches the hand-written kernel (``csrc/bias_attention.cu``, built with
@@ -29,13 +31,18 @@ with a contiguous last dim), ``mask`` ``(B, L)`` fp32 additive key mask.
   :func:`bias_attention_train_reference` and its autograd gradient.
   Gradients flow to q, k, v **and the bias** (``dbias = dS``, fp32).
 - One dropout mask over ``p``: keep iff ``bits < keep_threshold(rate)``,
-  kept values scaled by ``1/(1-rate)``. In-kernel the bits are word 0 of
-  one Philox4x32-10 draw per element at the counter ``(j, i, h, b)``, i.e.
-  ``element_dropout_bits(seed, B, nh, L)``.
+  kept values scaled by ``1/(1-rate)``. On the card a mask kernel, launched
+  with the forward, draws the bits: four keys per Philox4x32-10 draw, word
+  ``j & 3`` of the draw at the counter ``(j >> 2, i, h, b)``, i.e.
+  ``element_dropout_bits(seed, B, nh, L)``. It writes the keep flags
+  bit-packed, int32 ``(B, nh, L, ceil(L / 32))`` (``pack_keep_mask``'s
+  layout), which the forward and the backward read: the backward draws
+  nothing, and the flags, not the seed, are saved for it.
 - :func:`bias_attention_cuda`, :func:`bias_attention_train_fwd_cuda` and
   :func:`bias_attention_train_bwd_cuda` launch the kernels; each counts its
-  launches in ``launches`` (the backward counts one per call of its two
-  kernels).
+  launches in ``launches`` (the forward one per call of the mask kernel and
+  the attention kernel, the backward one per call of its two kernels).
+  :func:`kernel_occupancy` reports what the runtime grants each kernel.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ import threading
 import torch
 
 from .biacm_attention import (_MODES, _U32, _aligned, _check, _u32,
-                              element_dropout_bits, keep_threshold)
+                              element_dropout_bits, keep_threshold,
+                              unpack_keep_mask)
 
 SOURCE = "bias_attention.cu"
 TRAIN_SOURCE = "bias_attention_train.cu"
@@ -112,11 +120,15 @@ def load_kernel():
         if _LIB is None:
             from .cuda_build import build_library
 
-            _LIB = _bind(
+            lib = _bind(
                 ctypes.CDLL(build_library(SOURCE)), ["bias_attention_fwd"],
                 [_PTRS, _STRIDES, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_float, ctypes.c_void_p],
                 "bias_attention_error_string")
+            lib.bias_attention_occupancy.argtypes = [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.bias_attention_occupancy.restype = ctypes.c_int
+            _LIB = lib
     return _LIB
 
 
@@ -135,8 +147,39 @@ def load_train_kernel():
                       u32, ctypes.c_float]
             _bind(lib, ["bias_train_fwd", "bias_train_bwd"],
                   common + [ctypes.c_void_p], "bias_train_error_string")
+            lib.bias_train_occupancy.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.bias_train_occupancy.restype = ctypes.c_int
             _TRAIN_LIB = lib
     return _TRAIN_LIB
+
+
+KERNEL_NAMES = ("bias_fwd_kernel", "bias_train_fwd_kernel<true>",
+                "bias_train_fwd_kernel<false>", "bias_train_dq_kernel",
+                "bias_train_dkdv_kernel", "bias_keep_mask_kernel")
+
+
+def kernel_occupancy(device=None) -> dict:
+    """What ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` grants each
+    rel-bias kernel on ``device``: ``{name: {"ctas_per_sm",
+    "dynamic_smem"}}`` at the kernels' 128 threads a CTA."""
+    out = {}
+    with torch.cuda.device(device):
+        for i, name in enumerate(KERNEL_NAMES):
+            smem = ctypes.c_int(0)
+            if i == 0:
+                lib = load_kernel()
+                n = lib.bias_attention_occupancy(ctypes.byref(smem))
+                err = lib.bias_attention_error_string
+            else:
+                lib = load_train_kernel()
+                n = lib.bias_train_occupancy(i - 1, ctypes.byref(smem))
+                err = lib.bias_train_error_string
+            if n < 0:
+                raise RuntimeError(f"occupancy query of {name} failed: "
+                                   + err(-n).decode())
+            out[name] = {"ctas_per_sm": n, "dynamic_smem": smem.value}
+    return out
 
 
 def _check_inputs(q, k, v, bias, mask):
@@ -147,8 +190,8 @@ def _check_inputs(q, k, v, bias, mask):
     if d != HEAD_DIM:
         raise ValueError(f"the CUDA kernels are built for head dim "
                          f"{HEAD_DIM}, got {d}")
-    if L < 1:
-        raise ValueError("L must be >= 1")
+    if L < 1 or L >= 2 ** 17:  # a head's L·ceil(L/32) keep words: 32 bits
+        raise ValueError("L must be in [1, 2^17)")
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, (B, nh, L, d), torch.bfloat16, dev)
@@ -158,6 +201,10 @@ def _check_inputs(q, k, v, bias, mask):
             f"bias: expected float32 (B, nh, L, L) = {(B, nh, L, L)} on "
             f"{dev} with a contiguous last dim, got {bias.dtype} "
             f"{tuple(bias.shape)} strides {bias.stride()} on {bias.device}")
+    # the kernels index a head's bias rows with 32-bit element offsets
+    if (L + 64) * bias.stride(2) >= 2 ** 31:
+        raise ValueError(f"bias: a head's rows must span fewer than 2^31 "
+                         f"elements (row stride {bias.stride(2)})")
     if mask.device != dev or mask.dtype != torch.float32 \
             or tuple(mask.shape) != (B, L) or mask.stride(-1) != 1:
         raise ValueError(f"mask: expected contiguous-row float32 (B, L) on "
@@ -189,7 +236,7 @@ def bias_attention_cuda(q, k, v, bias, mask, scale: float):
     out = torch.empty((B, L, nh, HEAD_DIM), dtype=torch.bfloat16,
                       device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            mask.data_ptr(), 0, 0, out.data_ptr()]
+            mask.data_ptr(), 0, 0, out.data_ptr(), 0]
     with torch.cuda.device(q.device):  # the launch targets the inputs' device
         rc = lib.bias_attention_fwd(
             _carray(ctypes.c_uint64, ptrs),
@@ -242,19 +289,27 @@ def _dropout_args(rng, rate):
 
 def bias_attention_train_fwd_cuda(q, k, v, bias, mask, rng, scale: float,
                                   rate: float = 0.0):
-    """Launch the training forward (kernel #5) on the current stream.
-    Returns ``(ctx, stats)``: the output as a ``(B, nh, L, d)`` view of a
-    ``(B, L, nh, d)`` bf16 buffer, and fp32 ``(B, nh, L, 2)`` row statistics
-    (max, log of the sum) for the backward."""
+    """Launch the training forward (kernel #5; at ``rate > 0`` the mask
+    kernel first, then the attention kernel) on the current stream.
+    Returns ``(ctx, stats, keep)``: the output as a ``(B, nh, L, d)`` view
+    of a ``(B, L, nh, d)`` bf16 buffer, fp32 ``(B, nh, L, 2)`` row
+    statistics (max, log of the sum) and, at ``rate > 0``, the keep flags
+    packed as :func:`pack_keep_mask` packs them, int32 ``(B, nh, L,
+    ceil(L / 32))`` (else None), both for the backward."""
     B, nh, L = _check_inputs(q, k, v, bias, mask)
     dev = q.device
     rng = _rng_args(rng, rate, (B, nh, L, L), dev)
     lib = load_train_kernel()
     out = torch.empty((B, L, nh, HEAD_DIM), dtype=torch.bfloat16, device=dev)
     stats = torch.empty((B, nh, L, 2), dtype=torch.float32, device=dev)
+    keep = None
+    if rate > 0.0:
+        keep = torch.empty((B, nh, L, (L + 31) // 32), dtype=torch.int32,
+                           device=dev)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             mask.data_ptr(), 0 if rng[3] is None else rng[3].data_ptr(),
-            stats.data_ptr(), out.data_ptr()]
+            stats.data_ptr(), out.data_ptr(),
+            0 if keep is None else keep.data_ptr()]
     with torch.cuda.device(dev):
         rc = lib.bias_train_fwd(
             _carray(ctypes.c_uint64, ptrs),
@@ -264,23 +319,25 @@ def bias_attention_train_fwd_cuda(q, k, v, bias, mask, rng, scale: float,
     _raise_on(rc, lib, "bias_train_error_string",
               "bias_attention_train forward")
     bias_attention_train_fwd_cuda.launches += 1
-    return out.transpose(1, 2), stats
+    return out.transpose(1, 2), stats, keep
 
 
 bias_attention_train_fwd_cuda.launches = 0
 
 
-def bias_attention_train_bwd_cuda(q, k, v, bias, mask, rng, stats, dctx,
+def bias_attention_train_bwd_cuda(q, k, v, bias, mask, keep, stats, dctx,
                                   scale: float, rate: float = 0.0):
     """Launch the training backward (kernel #6: the dq kernel, which also
     sums ``D = rowsum(p ⊙ dP)`` and writes ``dbias``, then the dk/dv kernel)
-    on the current stream. ``stats`` are the forward's row statistics,
-    ``dctx`` the output gradient (bf16, any strides with a contiguous,
-    16-byte aligned last dim). dS enters the dq/dk products as hi + lo bf16
-    parts.
+    on the current stream. ``stats`` and ``keep`` are the forward's row
+    statistics and packed keep flags (``keep`` is ignored at ``rate ==
+    0``); the backward draws no bits. ``dctx`` is the output gradient
+    (bf16, any strides with a contiguous, 16-byte aligned last dim). dS
+    enters the dq/dk products as hi + lo bf16 parts.
     Returns ``(dq, dk, dv, dbias)``: dq/dk/dv as ``(B, nh, L, d)`` views of
     ``(B, L, nh, d)`` bf16 buffers (dk/dv accumulate in fp32 registers),
-    dbias fp32 ``(B, nh, L, L)`` contiguous."""
+    dbias fp32 ``(B, nh, L, L)``, a view of a ``(B, nh, L, L4)`` buffer with
+    ``L4`` = L rounded up to a multiple of 4 (16-byte rows)."""
     B, nh, L = _check_inputs(q, k, v, bias, mask)
     dev = q.device
     _check("dctx", dctx, (B, nh, L, HEAD_DIM), torch.bfloat16, dev)
@@ -288,20 +345,31 @@ def bias_attention_train_bwd_cuda(q, k, v, bias, mask, rng, stats, dctx,
             or stats.dtype != torch.float32 or stats.device != dev:
         raise ValueError("stats: expected the forward's contiguous float32 "
                          f"(B, nh, L, 2) on {dev}")
-    rng = _rng_args(rng, rate, (B, nh, L, L), dev)
+    if rate > 0.0:
+        shape = (B, nh, L, (L + 31) // 32)
+        if keep is None or tuple(keep.shape) != shape \
+                or not keep.is_contiguous() or keep.dtype != torch.int32 \
+                or keep.device != dev:
+            raise ValueError("keep: expected the forward's contiguous int32 "
+                             f"{shape} on {dev}")
+    # the backward reads only whether there is dropout (mode 0 or not)
+    rng = (_MODES["philox"] if rate > 0.0 else _MODES["none"], 0, 0, None)
     lib = load_train_kernel()
     grads = [torch.empty((B, L, nh, HEAD_DIM), dtype=torch.bfloat16,
                          device=dev) for _ in range(3)]
-    dbias = torch.empty((B, nh, L, L), dtype=torch.float32, device=dev)
+    dbias = torch.empty((B, nh, L, -(-L // 4) * 4), dtype=torch.float32,
+                        device=dev)[..., :L]
     delta = torch.empty((B, nh, L), dtype=torch.float32, device=dev)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            mask.data_ptr(), 0 if rng[3] is None else rng[3].data_ptr(),
-            stats.data_ptr(), 0, dctx.data_ptr(), delta.data_ptr(),
-            *(g.data_ptr() for g in grads), dbias.data_ptr()]
+            mask.data_ptr(), 0, stats.data_ptr(), 0,
+            keep.data_ptr() if rate > 0.0 else 0, dctx.data_ptr(),
+            delta.data_ptr(), *(g.data_ptr() for g in grads),
+            dbias.data_ptr()]
     with torch.cuda.device(dev):
         rc = lib.bias_train_bwd(
             _carray(ctypes.c_uint64, ptrs),
-            _carray(ctypes.c_int64, _strides(q, k, v, bias, mask, dctx)),
+            _carray(ctypes.c_int64,
+                    _strides(q, k, v, bias, mask, dctx, dbias)),
             B, nh, L, float(scale), *_dropout_args(rng, rate),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "bias_train_error_string",
@@ -311,6 +379,13 @@ def bias_attention_train_bwd_cuda(q, k, v, bias, mask, rng, stats, dctx,
 
 
 bias_attention_train_bwd_cuda.launches = 0
+
+
+def keep_flag_bits(keep: torch.Tensor, L: int) -> torch.Tensor:
+    """Bits for the plain twin from kernel #5's packed keep flags ``(B, nh,
+    L, ceil(L / 32))``: 0 where an element is kept (below every threshold),
+    2³² − 1 where it is dropped."""
+    return torch.where(unpack_keep_mask(keep, L), 0, _U32)
 
 
 def _cpu_bits(rng, rate, q):
@@ -324,19 +399,20 @@ def _cpu_bits(rng, rate, q):
 
 class BiasAttentionTrain(torch.autograd.Function):
     """Differentiable training rel-bias attention. CUDA tensors: kernel #5
-    forward, kernel #6 backward; the seed (not the mask) is kept for the
-    backward, so a checkpoint recompute replays it. CPU tensors: the plain
-    twin, and its autograd gradient recomputed in the backward. The bias
-    gets ``dbias = dS``; the key mask gets no gradient."""
+    forward, kernel #6 backward; the forward's packed keep flags (not the
+    seed) are kept for the backward with the row statistics (a checkpoint
+    recompute redraws the same flags from the same seed). CPU tensors: the
+    plain twin, and its autograd gradient recomputed in the backward. The
+    bias gets ``dbias = dS``; the key mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, rng, scale, rate):
         ctx.args = (scale, rate)
         if q.is_cuda:
-            out, stats = bias_attention_train_fwd_cuda(q, k, v, bias, mask,
-                                                       rng, scale, rate)
-            ctx.rng = rng
-            ctx.save_for_backward(q, k, v, bias, mask, stats)
+            out, stats, keep = bias_attention_train_fwd_cuda(
+                q, k, v, bias, mask, rng, scale, rate)
+            saved = (q, k, v, bias, mask, stats)
+            ctx.save_for_backward(*saved + (() if keep is None else (keep,)))
             return out
         ctx.rng = _cpu_bits(rng, rate, q)
         ctx.save_for_backward(q, k, v, bias, mask)
@@ -348,9 +424,10 @@ class BiasAttentionTrain(torch.autograd.Function):
         scale, rate = ctx.args
         saved = ctx.saved_tensors  # once: a checkpoint unpacks it once
         if saved[0].is_cuda:
-            q, k, v, bias, mask, stats = saved
+            q, k, v, bias, mask, stats = saved[:6]
+            keep = saved[6] if len(saved) > 6 else None
             grads = bias_attention_train_bwd_cuda(
-                q, k, v, bias, mask, ctx.rng, stats,
+                q, k, v, bias, mask, keep, stats,
                 _aligned(dctx.to(torch.bfloat16)), scale, rate)
             return (*grads, None, None, None, None)
         q, k, v, bias, mask = saved
@@ -367,7 +444,7 @@ def bias_attention_train(q, k, v, bias, mask, rng, scale: float,
     """Differentiable rel-bias attention with attention dropout at ``rate``
     (one mask over the probabilities). Layout of the JAX function: q/k/v
     ``(B, nh, L, d)``, ``bias (B, nh, L, L)`` fp32 (trained), ``mask
-    (B, L)`` fp32; ``rng`` an int seed (the kernels' Philox bits,
+    (B, L)`` fp32; ``rng`` an int seed (the mask kernel's Philox bits,
     ``element_dropout_bits(...)`` on the CPU) or explicit bits
     ``(B, nh, L, L)``. Returns ``ctx (B, nh, L, d)``."""
     return BiasAttentionTrain.apply(q, k, v, bias, mask, rng, float(scale),

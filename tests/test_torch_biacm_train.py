@@ -216,20 +216,28 @@ def test_twin_gradients_from_packed_mask():
         assert np.array_equal(got.detach().numpy(), want)
 
 
-def test_element_bits_are_unchanged():
-    """The one-draw-per-element mapping the rel-bias kernels keep: word 0
-    of the draw at counter (j, i, h, b), fixed values."""
+@pytest.mark.parametrize("L", [7, 8])
+def test_four_keys_per_draw(L):
+    """The rel-bias mask's bits at keys 4m .. 4m + 3 of query i are words
+    0-3 of the one draw at counter (m, i, h, b); L = 7 uses three words of
+    its last draw. A slice of the full draw equals the draw of the slice's
+    indices (tile independence)."""
     seed = 2 ** 40 + 17
-    bits = ba.element_dropout_bits(seed, 2, 3, 5)
-    assert bits.shape == (2, 3, 5, 5)
-    assert bits[1, 2, 0].tolist() == [2108781759, 1312815228, 1859089081,
-                                      209002179, 3654405218]
-    assert bits[1, 2, 4].tolist() == [1554120550, 3448052366, 4134170061,
-                                      463066920, 198101815]
-    assert int(bits.sum()) == 310301325824
-    want = ba.philox4x32_10(*(torch.tensor(c) for c in (3, 1, 2, 0)),
-                            seed & 0xFFFFFFFF, seed >> 32)[0]
-    assert int(bits[0, 2, 1, 3]) == int(want)
+    bits = ba.element_dropout_bits(seed, 2, 3, L)
+    assert bits.shape == (2, 3, L, L)
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for b, h, i, m in [(0, 0, 0, 0), (1, 2, L - 1, (L - 1) // 4),
+                       (1, 1, 3, 1), (0, 2, 5, 0)]:
+        w = [int(x) for x in ba.philox4x32_10(
+            *(torch.tensor(c) for c in (m, i, h, b)), *key)]
+        n = min(4, L - 4 * m)
+        assert bits[b, h, i, 4 * m:4 * m + n].tolist() == w[:n]
+    # the draw of query i differs from that of query i + 1 and of head h + 1
+    assert not torch.equal(bits[0, 0, 0], bits[0, 0, 1])
+    assert not torch.equal(bits[0, 0], bits[0, 1])
+    big = ba.element_dropout_bits(seed, 2, 3, 4 * L + 1)
+    assert torch.equal(big[..., :L, :L], bits)
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
 
 
 def test_cuda_launchers_refuse_cpu_tensors():

@@ -99,8 +99,9 @@ def test_matches_pallas_training_kernel(L, rate, fn):
 
 
 def test_seed_path_draws_word_0_of_the_biacm_bits():
-    """An int seed on CPU tensors draws ``element_dropout_bits(...)``,
-    the one mask the CUDA kernels draw in-kernel."""
+    """An int seed on CPU tensors draws ``element_dropout_bits(...)``, the
+    one mask the CUDA mask kernel draws on the card (four keys per Philox
+    draw); its kept share is 1 - rate within 4 standard deviations."""
     L = 48
     qkv, bias, mask, _, _ = _inputs(L, seed=3)
     bits = ba.element_dropout_bits(99, B, NH, L)
@@ -110,6 +111,25 @@ def test_seed_path_draws_word_0_of_the_biacm_bits():
     assert torch.equal(a, b)
     kept = (bits < ba.keep_threshold(0.1)).float().mean().item()
     assert abs(kept - 0.9) < 4 * (0.09 / bits.numel()) ** 0.5
+
+
+def test_twin_gradients_from_packed_flags():
+    """The twin fed ``keep_flag_bits`` of the packed keep flags (kernel
+    #5's output layout, ``pack_keep_mask`` of the keep flags) gives exactly
+    the outputs and gradients it gives from the bits themselves."""
+    L, rate = 40, 0.1
+    qkv, bias, mask, dctx, bits = _inputs(L, seed=11)
+    t = [torch.from_numpy(x).requires_grad_() for x in (*qkv, bias)]
+    m, d = torch.from_numpy(mask), torch.from_numpy(dctx)
+    raw = torch.from_numpy(bits.astype(np.int64))
+    packed = ba.pack_keep_mask(raw < ba.keep_threshold(rate))
+    assert packed.shape == (B, NH, L, 2) and packed.dtype == torch.int32
+    outs = []
+    for b in (raw, rb.keep_flag_bits(packed, L)):
+        out = rb.bias_attention_train_reference(*t, m, b, SCALE, rate)
+        outs.append([out] + list(torch.autograd.grad(out, t, d)))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 def test_fully_masked_row_is_finite():

@@ -226,12 +226,28 @@ def test_train_kernels_match_plain_twin_on_card(L, rate):
 
 
 # ------------------------------------------------------------------ rel-bias
-def _bias_inputs(L, seed, spread=None, text_masked=False):
+def _with_stride(bias, stride):
+    """``bias`` itself ("natural": contiguous, rows of L floats, 4-byte
+    aligned when L is odd) or the same values as a view of an (nh, B, L, L4)
+    buffer, L4 = L rounded up to a multiple of 4 ("padded": 16-byte rows,
+    the layout of the model's RelBias)."""
+    if stride == "natural":
+        return bias
+    B, nh, L, _ = bias.shape
+    buf = torch.full((nh, B, L, -(-L // 4) * 4), float("nan"),
+                     device=bias.device)
+    out = buf.permute(1, 0, 2, 3)[..., :L]
+    out.copy_(bias)
+    return out
+
+
+def _bias_inputs(L, seed, spread=None, text_masked=False, stride="natural"):
     """q/k/v (B, nh, L, 64) views of (B, L, nh, 64), an fp32 (B, nh, L, L)
-    bias, a key mask and an output gradient. ``text_masked``: every key of
-    batch row 0 but the last 197 (the visual tokens) is masked with
-    finfo(f32).min itself, under a bias made negative there (mask + bias
-    would overflow without the kernel's clamp)."""
+    bias (at the row stride ``stride`` names, see _with_stride), a key mask
+    and an output gradient. ``text_masked``: every key of batch row 0 but
+    the last 197 (the visual tokens) is masked with finfo(f32).min itself,
+    under a bias made negative there (mask + bias would overflow without
+    the kernel's clamp)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     B, nh = 2, 12
 
@@ -251,10 +267,11 @@ def _bias_inputs(L, seed, spread=None, text_masked=False):
     else:
         mask[0, : L // 2] = NEG
     mask[1, L - L // 3:] = NEG
-    return qkv, bias, mask, heads()
+    return qkv, _with_stride(bias, stride), mask, heads()
 
 
 BIAS_CASES = [1, 63, 128, 200, 709, "709-collinear", "709-textmasked"]
+STRIDES = ["natural", "padded"]
 
 
 def _bias_case(L):
@@ -265,14 +282,16 @@ def _bias_case(L):
     return L, {}
 
 
+@pytest.mark.parametrize("stride", STRIDES)
 @pytest.mark.parametrize("L", BIAS_CASES)
-def test_bias_kernel_matches_plain_twin_on_card(L):
+def test_bias_kernel_matches_plain_twin_on_card(L, stride):
     """Kernel #4 against the fp32 twin: max abs err <= 2e-2 (bf16 rounding
-    of p and of the output)."""
+    of p and of the output), with the bias rows in 4-byte and in 16-byte
+    requests."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     L, kw = _bias_case(L)
-    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L, **kw)
+    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L, stride=stride, **kw)
     before = rb.bias_attention_cuda.launches
     got = rb.bias_attention(q, k, v, bias, mask, 0.125)
     want = rb.bias_attention_reference(q.float(), k.float(), v.float(), bias,
@@ -293,20 +312,52 @@ def test_bias_kernel_matches_plain_twin_on_card(L):
             rb.bias_attention(q, k, v, bias.transpose(2, 3), mask, 0.125)
 
 
+@pytest.mark.parametrize("L", [1, 63, 128, 200, 709])
+def test_bias_packed_keep_flags_on_card(L):
+    """Kernel #5's packed keep flags equal pack_keep_mask of
+    ``element_dropout_bits < threshold`` word for word, with the in-kernel
+    generator and with explicit bits; kernel #6 fed the forward's flags and
+    fed the plainly packed ones agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (q, k, v), bias, mask, dctx = _bias_inputs(L, seed=L + 3,
+                                               stride="padded")
+    B, nh = mask.shape[0], q.shape[1]
+    seed, rate = 99 + L, 0.1
+    bits = ba.element_dropout_bits(seed, B, nh, L, device="cuda")
+    want = ba.pack_keep_mask(bits < ba.keep_threshold(rate))
+    for rng in (seed, bits):
+        _, stats, keep = rb.bias_attention_train_fwd_cuda(
+            q, k, v, bias, mask, rng, 0.125, rate)
+        torch.cuda.synchronize()
+        assert keep.dtype == torch.int32 and keep.shape == want.shape
+        assert torch.equal(keep, want)
+    a = rb.bias_attention_train_bwd_cuda(q, k, v, bias, mask, keep, stats,
+                                         dctx, 0.125, rate)
+    b = rb.bias_attention_train_bwd_cuda(q, k, v, bias, mask,
+                                         want.contiguous(), stats, dctx,
+                                         0.125, rate)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("stride", STRIDES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("L", BIAS_CASES)
-def test_bias_train_kernels_match_plain_twin_on_card(L, rate):
+def test_bias_train_kernels_match_plain_twin_on_card(L, rate, stride):
     """Kernels #5 (forward) and #6 (backward) against the fp32 twin and its
     autograd gradients (dq, dk, dv and dbias) on the same bf16 inputs, with
     the in-kernel bits (the twin takes element_dropout_bits of the same
-    seed) and with explicit bits. Forward max abs err <= 2e-2;
-    each gradient's max abs err <= 2e-2 of its own max |reference|; where
-    the reference is exactly 0 (L = 1: one key, p = 1, dS = 0) the kernel's
-    value is bounded by 2^-16 of the row's sum of |dc * v| terms."""
+    seed) and with explicit bits, the bias rows in 4-byte and in 16-byte
+    requests. Forward max abs err <= 2e-2; each gradient's max abs err
+    <= 2e-2 of its own max |reference|; where the reference is exactly 0
+    (L = 1: one key, p = 1, dS = 0) the kernel's value is bounded by 2^-16
+    of the row's sum of |dc * v| terms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     L, kw = _bias_case(L)
-    qkv, bias, mask, dctx = _bias_inputs(L, seed=L + 7, **kw)
+    qkv, bias, mask, dctx = _bias_inputs(L, seed=L + 7, stride=stride, **kw)
     B, nh = mask.shape[0], qkv[0].shape[1]
     seed = 4321 + L
     bits = ba.element_dropout_bits(seed, B, nh, L, device="cuda")
@@ -322,7 +373,7 @@ def test_bias_train_kernels_match_plain_twin_on_card(L, rate):
     outs = {}
     for name, rng in (("philox", seed), ("bits", bits)):
         ins = [x.detach().clone().requires_grad_() for x in qkv] \
-            + [bias.clone().requires_grad_()]
+            + [_with_stride(bias.detach(), stride).requires_grad_()]
         fwd0 = rb.bias_attention_train_fwd_cuda.launches
         bwd0 = rb.bias_attention_train_bwd_cuda.launches
         got = rb.bias_attention_train(*ins, mask, rng, 0.125, rate)

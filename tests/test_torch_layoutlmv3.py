@@ -131,40 +131,47 @@ def test_backbone_matches_jax(backbones, with_image):
 
 def test_rel_bias_matches_jax_gather_and_plain_gradients(backbones):
     """The (B, nh, L', L') bias equals the JAX model's gather arithmetic bit
-    for bit, and the tables' gradients through the one-hot products equal
-    autograd through a plain gather (atol 2e-4: each entry is an fp32 sum
-    of B·L'²/bins terms whose absolute values add up to ~3e3, taken in
-    another order: 2^-24 · 3e3 ≈ 2e-4)."""
+    for bit, with rows 16-byte aligned (row stride a multiple of 4 floats:
+    padded at L' = 123 without the image, exact at 128 with it), and the
+    tables' gradients through the one-hot products equal autograd through a
+    plain gather (atol 2e-4: each entry is an fp32 sum of B·L'²/bins terms
+    whose absolute values add up to ~3e3, taken in another order: 2^-24 ·
+    3e3 ≈ 2e-4)."""
     _, params, model = backbones
     ids, bbox, _, _ = _inputs()
-    n_vis = 5
-    box = np.concatenate(
-        [bbox, np.broadcast_to(pv3.visual_bbox(2)[None], (2, n_vis, 4))], 1)
-    tbox = torch.from_numpy(box).long()
     enc = model.encoder
     for p in enc.parameters():
         p.requires_grad_(True)
-    got = model.rel_bias(tbox, L, n_vis)
-    assert got.dtype == torch.float32 and got.stride(-1) == 1
-    b1 = np.array(jv3.static_rel_pos_bucket(L, n_vis, 32, 128))
-    cx, cy = box[:, :, 0], box[:, :, 3]
-    bx = np.array(jv3.relative_position_bucket(
-        jnp.asarray(cx[:, None, :] - cx[:, :, None]), 64, 256))
-    by = np.array(jv3.relative_position_bucket(
-        jnp.asarray(cy[:, None, :] - cy[:, :, None]), 64, 256))
-    want = (params["rel_pos_bias"][b1][None]
-            + (params["rel_pos_x_bias"][bx] + params["rel_pos_y_bias"][by]))
-    want = want.transpose(0, 3, 1, 2) / np.float32(np.sqrt(64.0))
-    np.testing.assert_array_equal(got.detach().numpy(), want)
-
     tables = [enc.rel_pos_bias.weight, enc.rel_pos_x_bias.weight,
               enc.rel_pos_y_bias.weight]
-    upstream = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        got.shape).astype(np.float32))
-    grads = torch.autograd.grad(got, tables, upstream)
-    plain = (tables[0].t()[torch.from_numpy(b1)][None]
-             + tables[1].t()[torch.from_numpy(bx)]
-             + tables[2].t()[torch.from_numpy(by)]).permute(0, 3, 1, 2) / 8.0
-    want_grads = torch.autograd.grad(plain, tables, upstream)
-    for g, w in zip(grads, want_grads):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=2e-4)
+    for n_vis in (5, 0):
+        box = np.concatenate(
+            [bbox, np.broadcast_to(pv3.visual_bbox(2)[None], (2, 5, 4))],
+            1)[:, :L + n_vis]
+        got = model.rel_bias(torch.from_numpy(box).long(), L, n_vis)
+        assert got.dtype == torch.float32 and got.stride(-1) == 1
+        assert got.shape[-1] == L + n_vis and got.data_ptr() % 16 == 0
+        assert all(s % 4 == 0 for s in got.stride()[:3]), got.stride()
+        b1 = np.array(jv3.static_rel_pos_bucket(L, n_vis, 32, 128))
+        cx, cy = box[:, :, 0], box[:, :, 3]
+        bx = np.array(jv3.relative_position_bucket(
+            jnp.asarray(cx[:, None, :] - cx[:, :, None]), 64, 256))
+        by = np.array(jv3.relative_position_bucket(
+            jnp.asarray(cy[:, None, :] - cy[:, :, None]), 64, 256))
+        want = (params["rel_pos_bias"][b1][None]
+                + (params["rel_pos_x_bias"][bx]
+                   + params["rel_pos_y_bias"][by]))
+        want = want.transpose(0, 3, 1, 2) / np.float32(np.sqrt(64.0))
+        np.testing.assert_array_equal(got.detach().numpy(), want)
+
+        upstream = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            got.shape).astype(np.float32))
+        grads = torch.autograd.grad(got, tables, upstream)
+        plain = (tables[0].t()[torch.from_numpy(b1)][None]
+                 + tables[1].t()[torch.from_numpy(bx)]
+                 + tables[2].t()[torch.from_numpy(by)]).permute(0, 3, 1, 2) \
+            / 8.0
+        want_grads = torch.autograd.grad(plain, tables, upstream)
+        for g, w in zip(grads, want_grads):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=2e-4)
