@@ -75,15 +75,16 @@ of 64, vocab 250002, 224 px image → 197 visual tokens, so L' = 709 at 512
 text positions), seeded random weights:
 
 12. kernel_bias — kernel #4 against its fp32 twin at B=32, nh=12, d=64 and
-   L' = 709 (last 100 text keys of half the rows masked), 128 and a ragged
-   200, with a random fp32 (B, nh, L', L') bias at its natural row stride
-   (rows of L' floats, fetched in 4-byte requests) and at the model's
-   padded one (``RelBias``: L' rounded up to a multiple of 4, 16-byte
+   L' = 709 (last 100 text keys of half the rows masked), 128, a ragged
+   200 and LayoutXLM's 561 (512 text + 49 visual tokens: the last key
+   tile holds 49), with a random fp32 (B, nh, L', L') bias at its natural
+   row stride (rows of L' floats, fetched in 4-byte requests) and at the
+   model's padded one (``RelBias``: L' rounded up to a multiple of 4, 16-byte
    requests); max abs error ≤ 2e-2. Times of the kernel (padded stride, the
    main path's; events and device), the twin and
    ``F.scaled_dot_product_attention(q, k, v, attn_mask=bias + mask)`` at
    both strides (events and device; and each backend that accepts the
-   mask).
+   mask); at 561 the device times and the bound.
 13. kernel_bias_train — kernels #5 and #6 against the fp32 twin and its
    autograd gradients (dq, dk, dv and dbias) at B=8 and the same lengths
    plus 709 with nearly collinear rows, rates 0 and 0.1, explicit bits and
@@ -92,7 +93,8 @@ text positions), seeded random weights:
    gradient ≤ 2e-2 of its own max |reference|; kernel #5's packed keep
    flags equal to ``pack_keep_mask(element_dropout_bits(...) < threshold)``
    word for word, and kernel #6 fed either, bit for bit; the kept share;
-   timings (events and device) beside SDPA's at both strides.
+   timings (events and device) beside SDPA's at both strides, and at 561
+   the device times.
 14. serve_v3 — the model saved as config.json / pytorch_model.bin /
    toy_tokenizer.json, the 96 pages through ``InferenceService.run`` (B=32,
    L=512, bf16, raw uint8 page images normalized on the card): a record per
@@ -112,7 +114,31 @@ text positions), seeded random weights:
    1e-2 of the twin's backward everywhere).
 18. train_breakdown_v3 — as 11, with the bias build and the table gradients
    timed on their own.
-19. the ``kernels`` line (all six), then the final ``{"ok": true, ...}``.
+
+The LayoutXLM family (LayoutLMv2: kernels #4-#6 again, on an unscaled bias,
+and a ResNeXt-101 32x8d + FPN tower) at full width and depth:
+``layoutxlm-base`` geometry (768 hidden, 12 layers, 12 heads of 64, vocab
+250002, fast_qkv, 224 px BGR image → p2 56x56 → 7x7 = 49 visual tokens, so
+L' = 561), seeded random weights (the tower's residual branches at a small
+gain, so that p2 stays of order 1):
+
+19. serve_v2 — as 14: a record per page, kernel #4 exactly 12 times per
+   forward, kernel #1 never; warm pages/s, peak memory, and the p2 map's
+   max |x| over one batch (finite).
+20. parity_v2 — as 15's parity.
+21. breakdown_v2 — as 15's breakdown, plus the device time of the tower
+   with its pooling (NCHW and channels_last), of the bias build and of the
+   decoder with its pair head alone.
+22. train_v2 — as 16.
+23. train_parity_v2 — as 17, over layers 0 and 11's q, k and v row blocks
+   of ``qkv_linear``'s weight gradient, combine_fc's and the three tables'
+   (layer 11's q and k within 3e-2 of the twins' path); the stem conv's
+   gradient error is reported.
+24. train_breakdown_v2 — as 18, plus the tower's forward and forward +
+   backward device time.
+25. the ``kernels`` line (all six; ``launches`` sums every path's serving
+   and training runs, the phase lines give each path's), then the final
+   ``{"ok": true, ...}``.
 
 Every phase also prints its seconds.
 """
@@ -165,6 +191,9 @@ PATH_QK_TOL = 3e-2
 # LayoutLMv3: 224 px image in 16 px patches + the visual cls token
 N_VIS = 197
 LV = L + N_VIS  # 709
+# LayoutLMv2 / LayoutXLM: the 7x7 grid pooled from the ResNeXt-FPN's p2
+N_VIS_V2 = 49
+LV2 = L + N_VIS_V2  # 561 = 8 key tiles of 64 + a ragged one of 49
 BIAS_GRAD_NAMES = ("dq", "dk", "dv", "dbias")
 # dense bf16 tensor-core peak (FLOP/s) and memory rate (B/s) of the two
 # H100 parts, by the names the driver reports (NVIDIA data sheets, dense
@@ -593,11 +622,13 @@ def device_rows(prof, wall_ms, profile_dir, stem):
     return rows, device_ms
 
 
-def phase_breakdown(svc, img_dir, ocr_dir, profile_dir, v3=False):
+def phase_breakdown(svc, img_dir, ocr_dir, profile_dir, tag=""):
     """Where one batch's time goes: host preprocess per page, the forward's
     enqueue and wall time (host clock to the fetched outputs), and the
-    device time by kernel from torch.profiler. ``v3``: the LayoutLMv3
-    service (kernel #4; also times the relative-bias build on its own)."""
+    device time by kernel from torch.profiler. ``tag`` "v3" / "v2": the
+    LayoutLMv3 / LayoutXLM service (kernel #4; also times the
+    relative-bias build on its own, and for LayoutXLM the visual tower, in
+    NCHW and in channels_last, and the decoder (pair head) alone)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -623,41 +654,88 @@ def phase_breakdown(svc, img_dir, ocr_dir, profile_dir, v3=False):
         t0 = time.perf_counter()
         svc._fetch(svc.dispatch_batch(pages))
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, device_ms = device_rows(prof, prof_wall_ms, profile_dir,
-                                  "serve_v3_forward" if v3 else "serve_forward")
+    stem = f"serve_{tag}_forward" if tag else "serve_forward"
+    rows, device_ms_total = device_rows(prof, prof_wall_ms, profile_dir, stem)
     attn_ms = sum(r[1] for r in rows
-                  if ("bias_fwd_kernel" if v3 else "biacm") in r[0])
+                  if ("bias_fwd_kernel" if tag else "biacm") in r[0])
     extra = {}
-    if v3:
-        bbox = v3_boxes(svc.model.backbone, torch.from_numpy(
-            np.stack([p[0]["bbox"] for p in pages])).cuda())
+    if tag:
+        backbone = svc.model.backbone
+        bbox = torch.from_numpy(np.stack([p[0]["bbox"] for p in pages])).cuda()
+        n_vis = N_VIS_V2 if tag == "v2" else N_VIS
+        boxes = rel_boxes(backbone, bbox)
         with torch.inference_mode():
             extra["rel_bias_build_ms"] = time_ms(
-                lambda: svc.model.backbone.rel_bias(bbox, L, N_VIS))
-    emit({"phase": "breakdown_v3" if v3 else "breakdown", "batch_size": B,
-          "L": L, **extra, "preprocess_ms_per_page": prep_ms,
+                lambda: backbone.rel_bias(boxes, L, n_vis))
+            extra["rel_bias_build_device_ms"] = device_ms(
+                lambda: backbone.rel_bias(boxes, L, n_vis))
+        if tag == "v2":
+            extra.update(v2_breakdown(svc, pages))
+    emit({"phase": f"breakdown_{tag}" if tag else "breakdown",
+          "batch_size": B, "L": L, **extra,
+          "preprocess_ms_per_page": prep_ms,
           "forward_enqueue_ms": statistics.median(enqueue),
           "forward_wall_ms": statistics.median(wall),
           "profiled_forward_wall_ms": prof_wall_ms,
-          "device_busy_ms": device_ms,
-          "bias_attention_ms" if v3 else "biacm_attention_ms": attn_ms,
-          "device_idle_share": 1 - device_ms / prof_wall_ms,
+          "device_busy_ms": device_ms_total,
+          "bias_attention_ms" if tag else "biacm_attention_ms": attn_ms,
+          "device_idle_share": 1 - device_ms_total / prof_wall_ms,
           "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:12]]})
 
 
-def v3_boxes(backbone, bbox):
-    """Text boxes (B, L, 4) followed by the visual tokens' boxes, as
-    ``LayoutLMv3Model.forward`` concatenates them."""
+def v2_breakdown(svc, pages):
+    """LayoutXLM's serving forward in parts, device time each: the visual
+    tower with its pooling (NCHW, the model's layout, and the same weights
+    and image in channels_last) and the decoder (shrink MLP, combine and
+    pair head) on the backbone's text rows."""
+    import numpy as np
     import torch
 
+    backbone = svc.model.backbone
+    image = batch_images(svc, pages)
+    ids, bbox, attn = (torch.from_numpy(np.stack([p[0][k] for p in pages]))
+                       .cuda() for k in ("input_ids", "bbox",
+                                         "attention_mask"))
+    out = {}
+    with torch.inference_mode():
+        out["tower_device_ms"] = device_ms(
+            lambda: backbone.visual_features(image), n=5)
+        hidden = backbone(ids, bbox, attn, image=image)[
+            "last_hidden_state"][:, 1:L]
+        out["pair_head_device_ms"] = device_ms(
+            lambda: svc.model.peneo_decoder(hidden), n=5)
+        tower = backbone.visual.backbone
+        tower.to(memory_format=torch.channels_last)
+        try:
+            nhwc = image.contiguous(memory_format=torch.channels_last)
+            out["tower_channels_last_device_ms"] = device_ms(
+                lambda: backbone.visual_features(nhwc), n=5)
+            same = (backbone.visual_features(nhwc).float()
+                    - backbone.visual_features(image).float()).abs().max()
+            out["tower_channels_last_max_abs_diff"] = same.item()
+        finally:
+            tower.to(memory_format=torch.contiguous_format)
+    return out
+
+
+def rel_boxes(backbone, bbox):
+    """Text boxes (B, L, 4) followed by the visual tokens' boxes, as the
+    LayoutLMv3 / LayoutLMv2 forward concatenates them."""
+    import torch
+
+    from peneo_tpu_torch.models.layoutlmv2 import LayoutLMv2Model, \
+        visual_grid_bbox
     from peneo_tpu_torch.models.layoutlmv3 import visual_bbox
 
-    vis = torch.from_numpy(visual_bbox(backbone.grid)).to(bbox.device)
+    vis = (visual_grid_bbox(*backbone.grid)
+           if isinstance(backbone, LayoutLMv2Model)
+           else visual_bbox(backbone.grid))
+    vis = torch.from_numpy(vis).to(bbox.device)
     return torch.cat([bbox.long(),
                       vis[None].expand(bbox.shape[0], -1, -1)], dim=1)
 
 
-def phase_parity(svc, img_dir, ocr_dir, v3=False):
+def phase_parity(svc, img_dir, ocr_dir, tag=""):
     import numpy as np
     import torch
 
@@ -666,12 +744,8 @@ def phase_parity(svc, img_dir, ocr_dir, v3=False):
     ids, bbox, attn = (torch.from_numpy(np.stack([p[0][k] for p in pages]))
                        .cuda() for k in ("input_ids", "bbox", "attention_mask"))
     kw = {}
-    if v3:  # the raw uint8 pages, normalized on the card as the service does
-        from peneo_tpu_torch.data.image_processing import \
-            device_image_normalize
-
-        kw["image"] = device_image_normalize(torch.from_numpy(
-            np.stack([p[0]["image"] for p in pages])).cuda(), svc.info.family)
+    if tag:  # the raw uint8 pages, normalized on the card as the service does
+        kw["image"] = batch_images(svc, pages)
     out = {}
     with torch.inference_mode():
         for impl in ("kernel", "plain"):
@@ -691,7 +765,7 @@ def phase_parity(svc, img_dir, ocr_dir, v3=False):
         if rel[name] > PARITY_TOL:
             raise RuntimeError(f"path parity {name}: rel err {rel[name]:.3e} "
                                f"> {PARITY_TOL}")
-    emit({"phase": "parity_v3" if v3 else "parity", "rel_err": rel,
+    emit({"phase": f"parity_{tag}" if tag else "parity", "rel_err": rel,
           "tol": PARITY_TOL, "shape": list(ids.shape),
           "hidden_shape": list(out["kernel"][0].shape)})
 
@@ -1063,35 +1137,64 @@ def bias_twin_backward(rb):
     return bwd
 
 
-def phase_train_parity(ops, model, batch, v3=False):
+TABLES = ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")
+
+
+def phase_train_parity(ops, model, batch, tag=""):
     """One training step's loss and gradients from the same weights and
     seeds: through the kernels, through the plain twins, and through the
     forward kernel with the twin's backward. The last pair differs only in
     the backward kernel's arithmetic; the first also in the forwards'
     rounding. ``ops`` is the family's kernel module: BiACM (kernels #2/#3),
-    or with ``v3`` rel-bias (kernels #5/#6), where the three bucket tables'
-    gradients are compared too."""
+    or with ``tag`` "v3" / "v2" rel-bias (kernels #5/#6), where the three
+    bucket tables' gradients are compared too. LayoutXLM's q, k and v are
+    the row blocks of one ``qkv_linear`` weight, each compared on its own;
+    its stem conv's gradient error is reported (the whole tower lies
+    between it and the loss)."""
     import torch
 
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
-    proj = ("query", "key", "value") if v3 else (
-        "query", "key", "value", "layout_query", "layout_key", "layout_value")
     last = model.cfg.backbone().num_hidden_layers - 1
-    weights = {f"layer{i}.{n}":
-               f"backbone.encoder.layer.{i}.attention.self.{n}.weight"
-               for i in (0, last) for n in proj}
-    weights["combine_fc"] = \
-        "peneo_decoder.handshaking_kernel.combine_fc.weight"
-    if v3:
-        weights.update({n: f"backbone.encoder.{n}.weight" for n in
-                        ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")})
-    bwd_name = ("bias_attention_train_bwd_cuda" if v3
+    hidden = model.cfg.backbone().hidden_size
+    prefix = "backbone.encoder.layer.{}.attention.self."
+    # name → (parameter, rows of its gradient)
+    weights = {}
+    for i in (0, last):
+        if tag == "v2":
+            for j, n in enumerate(("query", "key", "value")):
+                weights[f"layer{i}.{n}"] = (
+                    prefix.format(i) + "qkv_linear.weight",
+                    slice(j * hidden, (j + 1) * hidden))
+            continue
+        for n in ("query", "key", "value") + (
+                () if tag else ("layout_query", "layout_key",
+                                "layout_value")):
+            weights[f"layer{i}.{n}"] = (prefix.format(i) + n + ".weight",
+                                        slice(None))
+    weights["combine_fc"] = (
+        "peneo_decoder.handshaking_kernel.combine_fc.weight", slice(None))
+    if tag:
+        weights.update({n: (f"backbone.encoder.{n}.weight", slice(None))
+                        for n in TABLES})
+    reported = {}
+    if tag == "v2":
+        reported["stem_conv"] = (
+            "backbone.visual.backbone.bottom_up.stem.conv1.weight",
+            slice(None))
+    bwd_name = ("bias_attention_train_bwd_cuda" if tag
                 else "biacm_attention_train_bwd_cuda")
     layers = model.backbone.encoder.layer
     keys = {}
-    hooks = [layers[i].attention.self.key.register_forward_hook(
-        lambda mod, inp, out, i=i: keys.__setitem__(i, out.detach()))
-        for i in (0, last)]
+
+    def keep_keys(i):
+        if tag == "v2":  # the key block of the fused projection
+            return layers[i].attention.self.qkv_linear.register_forward_hook(
+                lambda mod, inp, out: keys.__setitem__(
+                    i, out[..., hidden:2 * hidden].detach()))
+        return layers[i].attention.self.key.register_forward_hook(
+            lambda mod, inp, out: keys.__setitem__(i, out.detach()))
+
+    hooks = [keep_keys(i) for i in (0, last)]
     kernel_bwd = getattr(ops, bwd_name)
     res = {}
     try:
@@ -1099,7 +1202,7 @@ def phase_train_parity(ops, model, batch, v3=False):
             model.load_state_dict(state0)
             model.set_attention_impl("plain" if run == "plain" else "kernel")
             if run == "twin_backward":
-                setattr(ops, bwd_name, bias_twin_backward(ops) if v3
+                setattr(ops, bwd_name, bias_twin_backward(ops) if tag
                         else twin_backward(ops))
             model.train()
             model.zero_grad(set_to_none=True)
@@ -1113,8 +1216,9 @@ def phase_train_parity(ops, model, batch, v3=False):
             losses["total"].backward()
             params = dict(model.named_parameters())
             res[run] = (losses["total"].item(),
-                        {k: params[n].grad.clone()
-                         for k, n in weights.items()})
+                        {k: params[n].grad[rows].clone()
+                         for k, (n, rows) in {**weights,
+                                              **reported}.items()})
             if run == "kernel":
                 spread = {f"layer{i}": key_spread(k, batch["attention_mask"])
                           for i, k in keys.items()}
@@ -1125,19 +1229,25 @@ def phase_train_parity(ops, model, batch, v3=False):
         model.set_attention_impl("kernel")
         model.load_state_dict(state0)
 
-    def rel_errs(other):
+    def rel_errs(other, names):
         (la, ga), (lb, gb) = res["kernel"], res[other]
         rel = {"loss_total": abs(la - lb) / abs(lb)}
-        for k in weights:
+        for k in names:
             rel[k] = ((ga[k] - gb[k]).norm() / gb[k].norm()).item()
         return rel
 
-    path, backward = rel_errs("plain"), rel_errs("twin_backward")
+    path, backward = rel_errs("plain", weights), rel_errs("twin_backward",
+                                                          weights)
     tol = {k: TRAIN_GRAD_TOL for k in weights}
     tol.update({f"layer{last}.{n}": PATH_QK_TOL for n in ("query", "key")})
-    emit({"phase": "train_parity_v3" if v3 else "train_parity",
+    extra = {}
+    if reported:
+        extra["reported_rel_err"] = {
+            "path": rel_errs("plain", reported),
+            "backward_only": rel_errs("twin_backward", reported)}
+    emit({"phase": f"train_parity_{tag}" if tag else "train_parity",
           "loss": {run: res[run][0] for run in res},
-          "rel_err": path, "rel_err_backward_only": backward,
+          "rel_err": path, "rel_err_backward_only": backward, **extra,
           "key_spread": spread,
           "tol": {"loss": TRAIN_LOSS_TOL, "backward_only": TRAIN_GRAD_TOL,
                   "path": tol}})
@@ -1150,11 +1260,12 @@ def phase_train_parity(ops, model, batch, v3=False):
                            f"{backward}")
 
 
-def phase_train_breakdown(model, batch, profile_dir, v3=False):
+def phase_train_breakdown(model, batch, profile_dir, tag=""):
     """Where one training step's device time goes (torch.profiler,
-    device-side events only). ``v3``: LayoutLMv3 (kernels #5/#6); also
-    times the relative-bias build and the bucket tables' gradient (the
-    backward of ``RelBias``) on their own."""
+    device-side events only). ``tag`` "v3" / "v2": the rel-bias families
+    (kernels #5/#6); also times the relative-bias build and the bucket
+    tables' gradient (the backward of ``RelBias``) on their own, and for
+    LayoutXLM the visual tower's forward and backward."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1177,35 +1288,54 @@ def phase_train_breakdown(model, batch, profile_dir, v3=False):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, device_ms = device_rows(prof, wall_ms, profile_dir,
-                                  "train_v3_step" if v3 else "train_step")
-    stem = "bias_train_" if v3 else "biacm_train_"
-    mask_stem = "bias_keep_mask" if v3 else "biacm_keep_mask"
+    rows, device_ms_total = device_rows(
+        prof, wall_ms, profile_dir, f"train_{tag}_step" if tag
+        else "train_step")
+    stem = "bias_train_" if tag else "biacm_train_"
+    mask_stem = "bias_keep_mask" if tag else "biacm_keep_mask"
     fwd_ms = sum(r[1] for r in rows if stem + "fwd" in r[0]
                  or mask_stem in r[0])
     bwd_ms = sum(r[1] for r in rows if stem + "dkdv" in r[0]
                  or stem + "dq" in r[0])
     extra = {}
-    if v3:
+    if tag:
         bb = model.backbone
-        bbox = v3_boxes(bb, batch["bbox"])
-        tables = [bb.encoder.rel_pos_bias.weight,
-                  bb.encoder.rel_pos_x_bias.weight,
-                  bb.encoder.rel_pos_y_bias.weight]
-        rel = bb.rel_bias(bbox, L, N_VIS)
+        n_vis = N_VIS_V2 if tag == "v2" else N_VIS
+        bbox = rel_boxes(bb, batch["bbox"])
+        tables = [getattr(bb.encoder, n).weight for n in TABLES]
+        rel = bb.rel_bias(bbox, L, n_vis)
         upstream = torch.randn(rel.shape, device="cuda")
         extra = {
             "rel_bias_build_ms": time_ms(
-                lambda: bb.rel_bias(bbox, L, N_VIS)),
+                lambda: bb.rel_bias(bbox, L, n_vis)),
             "table_grad_ms": time_ms(lambda: torch.autograd.grad(
                 rel, tables, upstream, retain_graph=True))}
         del rel, upstream
-    emit({"phase": "train_breakdown_v3" if v3 else "train_breakdown",
+    if tag == "v2":
+        # the tower's forward and backward under the step's autocast, the
+        # pooled features' gradient a random one
+        image = batch["image"]
+        tower = [p for p in bb.visual.parameters() if p.requires_grad]
+
+        def tower_fwd():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return bb.visual_features(image)
+
+        upstream = torch.randn_like(tower_fwd())
+
+        def tower_step():
+            return torch.autograd.grad(tower_fwd(), tower, upstream)
+
+        with torch.no_grad():
+            extra["tower_fwd_device_ms"] = device_ms(tower_fwd, n=5)
+        extra["tower_fwd_bwd_device_ms"] = device_ms(tower_step, n=5)
+        del upstream
+    emit({"phase": f"train_breakdown_{tag}" if tag else "train_breakdown",
           "batch_size": TRAIN_B, "L": L, **extra,
-          "profiled_step_wall_ms": wall_ms, "device_busy_ms": device_ms,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": device_ms_total,
           "train_fwd_kernel_ms": fwd_ms, "train_bwd_kernels_ms": bwd_ms,
-          "train_kernels_share": (fwd_ms + bwd_ms) / device_ms,
-          "device_idle_share": 1 - device_ms / wall_ms,
+          "train_kernels_share": (fwd_ms + bwd_ms) / device_ms_total,
+          "device_idle_share": 1 - device_ms_total / wall_ms,
           "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:15]]})
 
 
@@ -1258,12 +1388,16 @@ BIAS_STRIDES = (("natural", lambda x: x), ("padded", relbias_layout))
 
 
 def bias_cases(batch):
-    """L' = 709 with the last 100 text keys of half the rows masked (the
-    visual keys after them stay live), 128, and a ragged 200."""
+    """L' = 709 (LayoutLMv3) with the last 100 text keys of half the rows
+    masked (the visual keys after them stay live), 128, a ragged 200, and
+    561 (LayoutLMv2) with the first 80 keys of row 0 and the last 100 text
+    keys of the odd rows masked."""
     return {
         LV: [(r, slice(L - 100, L)) for r in range(0, batch, 2)],
         128: [(r, slice(128 - 17, 128)) for r in range(1, batch, 2)],
         200: [(0, slice(0, 80))] + [(r, slice(200 - 37, 200))
+                                     for r in range(1, batch, 2)],
+        LV2: [(0, slice(0, 80))] + [(r, slice(L - 100, L))
                                      for r in range(1, batch, 2)],
     }
 
@@ -1304,13 +1438,21 @@ def padded_rows(x):
     return buf[..., :n]
 
 
+def bias_bound(batch, length, peaks):
+    """Least time for one kernel #4 call: q/k/v, the bias and the mask read
+    once, the output written once, vs the FLOPs of the 2 products."""
+    return bound_of(4 * batch * NH * length * 64 * 2
+                    + batch * NH * length * length * 4 + batch * length * 4,
+                    4 * batch * NH * length * length * 64, peaks)
+
+
 def phase_kernel_bias(rb, peaks):
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     scale = 1.0 / 8.0
-    errs, timing = {}, {}
+    errs, timing, timing_v2 = {}, {}, {}
     for length, masked in bias_cases(B).items():
         (q, k, v), natural, mask = bias_inputs(B, length, masked, gen)
         want = rb.bias_attention_reference(q.float(), k.float(), v.float(),
@@ -1326,11 +1468,11 @@ def phase_kernel_bias(rb, peaks):
             if errs[key] > KERNEL_TOL:
                 raise RuntimeError(f"kernel #4 vs plain twin, {key}: max abs "
                                    f"err {errs[key]:.3e} > {KERNEL_TOL}")
-        if length != LV:
+        if length not in (LV, LV2):
             continue
         # the kernel at the main path's (padded) stride and at the natural
         # one; the library call: one additive bf16 mask, at its natural row
-        # stride (709 · 2 bytes, not 16-byte aligned) and at a padded one
+        # stride (not 16-byte aligned at 709 or 561) and at a padded one
         full = (natural + mask[:, None, None, :]).to(torch.bfloat16)
         padded = padded_rows(full)
 
@@ -1340,31 +1482,31 @@ def phase_kernel_bias(rb, peaks):
         def sdpa(m):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
-        sdpa_err = (sdpa(full).float() - want).abs().max().item()
-        timing = {
-            "ms": time_ms(kernel),
-            "device_ms": device_ms(kernel),
-            "natural_stride_device_ms": device_ms(lambda: kernel(natural)),
-            "plain_ms": time_ms(lambda: rb.bias_attention_reference(
-                q, k, v, natural, mask, scale)),
-            "library_ms": time_ms(lambda: sdpa(full)),
-            "library_device_ms": device_ms(lambda: sdpa(full)),
-            "library_padded_stride_ms": time_ms(lambda: sdpa(padded)),
-            "library_padded_stride_device_ms": device_ms(
-                lambda: sdpa(padded)),
-            "library_backends": {
-                "natural_stride": sdpa_backends(lambda: sdpa(full)),
-                "padded_stride": sdpa_backends(lambda: sdpa(padded))},
-            "sdpa_max_abs_err": sdpa_err,
-        }
+        t = {"device_ms": device_ms(kernel),
+             "natural_stride_device_ms": device_ms(lambda: kernel(natural)),
+             "library_device_ms": device_ms(lambda: sdpa(full)),
+             "library_padded_stride_device_ms": device_ms(
+                 lambda: sdpa(padded))}
+        if length == LV2:  # LayoutLMv2's shape: device times and the bound
+            timing_v2 = {**t, **bias_bound(B, LV2, peaks)}
+        else:
+            timing = {
+                **t, "ms": time_ms(kernel),
+                "plain_ms": time_ms(lambda: rb.bias_attention_reference(
+                    q, k, v, natural, mask, scale)),
+                "library_ms": time_ms(lambda: sdpa(full)),
+                "library_padded_stride_ms": time_ms(lambda: sdpa(padded)),
+                "library_backends": {
+                    "natural_stride": sdpa_backends(lambda: sdpa(full)),
+                    "padded_stride": sdpa_backends(lambda: sdpa(padded))},
+                "sdpa_max_abs_err": (sdpa(full).float() - want).abs().max()
+                .item()}
         del full, padded, bias
-    # least time for one serving-shape call: q/k/v, the bias and the mask
-    # read once, the output written once, vs the FLOPs of the 2 products
-    bound = bound_of(4 * B * NH * LV * 64 * 2 + B * NH * LV * LV * 4
-                     + B * LV * 4, 4 * B * NH * LV * LV * 64, peaks)
+    bound = bias_bound(B, LV, peaks)
     emit({"phase": "kernel_bias", "max_abs_err": errs, "tol": KERNEL_TOL,
-          "shape": [B, NH, LV, 64], **timing, **bound})
-    return max(errs.values()), timing, bound
+          "shape": [B, NH, LV, 64], **timing, **bound,
+          f"L{LV2}": {"shape": [B, NH, LV2, 64], **timing_v2}})
+    return max(errs.values()), timing, bound, timing_v2
 
 
 def phase_kernel_bias_train(rb, ba, peaks):
@@ -1472,11 +1614,38 @@ def phase_kernel_bias_train(rb, ba, peaks):
         raise RuntimeError(f"kept share {kept} is not within {KEEP_TOL} of "
                            f"{1.0 - DROP}")
 
-    # timings at the training shape, with the main path's in-kernel bits and
-    # bias layout (and device times at the natural stride)
-    (q, k, v), natural, mask = bias_inputs(bt, LV, cases[LV], gen)
+    timing, bounds = bias_train_timing(rb, ba, gen, LV, cases[LV], peaks,
+                                       full=True)
+    timing_v2, bounds_v2 = bias_train_timing(rb, ba, gen, LV2, cases[LV2],
+                                             peaks, full=False)
+    emit({"phase": "kernel_bias_train", "fwd_max_abs_err": fwd_err,
+          "grad_max_abs_err": grad_abs, "grad_rel_err": grad_rel,
+          "tol": TRAIN_KERNEL_TOL, "kept_share": kept, "rate": DROP,
+          "packed_keep_flags_equal": packed_checked,
+          "shape": [bt, NH, LV, 64], **timing, "bounds": bounds,
+          f"L{LV2}": {"shape": [bt, NH, LV2, 64], **timing_v2,
+                      "bounds": bounds_v2}})
+    errors = {"fwd_max_abs_err": max(fwd_err.values()),
+              "grad_max_abs_err": max(grad_abs.values()),
+              "grad_max_rel_err": max(max(r.values())
+                                      for r in grad_rel.values())}
+    return errors, timing, bounds, (timing_v2, bounds_v2)
+
+
+def bias_train_timing(rb, ba, gen, length, masked, peaks, full):
+    """Kernels #5 and #6 at the training shape (B=8, L' = ``length``), with
+    the main path's in-kernel bits and bias layout: device times (and at
+    the natural stride), the library call's (no dropout, its mask trained
+    as the bias is) at both strides, and the bounds. ``full`` adds the
+    event times, the plain twin's and each SDPA backend's."""
+    import torch
+    import torch.nn.functional as F
+
+    scale, bt = 1.0 / 8.0, TRAIN_B
+    (q, k, v), natural, mask = bias_inputs(bt, length, masked, gen)
     bias = relbias_layout(natural)
-    dctx = out_grad(LV)
+    dctx = torch.randn((bt, length, NH, 64), generator=gen, device="cuda") \
+        .to(torch.bfloat16).transpose(1, 2)
     _, stats, keep = rb.bias_attention_train_fwd_cuda(q, k, v, bias, mask,
                                                       SEED, scale, DROP)
 
@@ -1490,29 +1659,31 @@ def phase_kernel_bias_train(rb, ba, peaks):
             scale, rate)
 
     timing = {
-        "fwd_ms": time_ms(fwd), "fwd_device_ms": device_ms(fwd),
-        "bwd_ms": time_ms(bwd), "bwd_device_ms": device_ms(bwd),
-        "fwd_rate0_ms": time_ms(lambda: fwd(0.0)),
+        "fwd_device_ms": device_ms(fwd), "bwd_device_ms": device_ms(bwd),
         "fwd_rate0_device_ms": device_ms(lambda: fwd(0.0)),
         "bwd_rate0_device_ms": device_ms(lambda: bwd(0.0)),
         "fwd_natural_stride_device_ms": device_ms(lambda: fwd(b=natural)),
         "bwd_natural_stride_device_ms": device_ms(lambda: bwd(b=natural)),
     }
-    bits = ba.element_dropout_bits(SEED, bt, NH, LV, "cuda")
-    timing["plain_fwd_ms"] = time_ms(
-        lambda: rb.bias_attention_train_reference(q, k, v, natural, mask,
-                                                  bits, scale, DROP))
-    leaves = [x.detach().requires_grad_() for x in (q, k, v, natural)]
-    out = rb.bias_attention_train_reference(*leaves, mask, bits, scale, DROP)
-    timing["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-        out, leaves, dctx, retain_graph=True))
-    del out, leaves, bits
+    if full:
+        timing.update(fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
+                      fwd_rate0_ms=time_ms(lambda: fwd(0.0)))
+        bits = ba.element_dropout_bits(SEED, bt, NH, length, "cuda")
+        timing["plain_fwd_ms"] = time_ms(
+            lambda: rb.bias_attention_train_reference(q, k, v, natural, mask,
+                                                      bits, scale, DROP))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, natural)]
+        out = rb.bias_attention_train_reference(*leaves, mask, bits, scale,
+                                                DROP)
+        timing["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, leaves, dctx, retain_graph=True))
+        del out, leaves, bits
     # the library call (no dropout), its mask trained as the bias is
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    full = (natural + mask[:, None, None, :]).to(torch.bfloat16)
+    full_mask = (natural + mask[:, None, None, :]).to(torch.bfloat16)
     backends = {}
-    for label, m in (("natural_stride", full),
-                     ("padded_stride", padded_rows(full))):
+    for label, m in (("natural_stride", full_mask),
+                     ("padded_stride", padded_rows(full_mask))):
         m = m.detach().requires_grad_()
 
         def sdpa(m=m):
@@ -1523,7 +1694,8 @@ def phase_kernel_bias_train(rb, ba, peaks):
 
         tag = "" if label == "natural_stride" else "_padded_stride"
         with torch.no_grad():
-            timing[f"library{tag}_fwd_ms"] = time_ms(sdpa)
+            if full:
+                timing[f"library{tag}_fwd_ms"] = time_ms(sdpa)
             timing[f"library{tag}_fwd_device_ms"] = device_ms(sdpa)
         o = sdpa()
 
@@ -1531,76 +1703,87 @@ def phase_kernel_bias_train(rb, ba, peaks):
             return torch.autograd.grad(o, (ql, kl, vl, m), dctx,
                                        retain_graph=True)
 
-        timing[f"library{tag}_bwd_ms"] = time_ms(library_bwd)
+        if full:
+            timing[f"library{tag}_bwd_ms"] = time_ms(library_bwd)
+            backends[label] = sdpa_backends(fwd_bwd)
         timing[f"library{tag}_bwd_device_ms"] = device_ms(library_bwd)
         del o
-        backends[label] = sdpa_backends(fwd_bwd)
-    timing["library_backends_fwd_bwd"] = backends
-    del full
+    if full:
+        timing["library_backends_fwd_bwd"] = backends
+    del full_mask
 
-    qkv_bytes = bt * NH * LV * 64 * 2            # one of q, k, v, ctx, dctx…
-    bias_bytes = bt * NH * LV * LV * 4
-    small = bt * LV * 4 + bt * NH * LV * 2 * 4   # mask, statistics
+    qkv_bytes = bt * NH * length * 64 * 2        # one of q, k, v, ctx, dctx…
+    bias_bytes = bt * NH * length * length * 4
+    small = bt * length * 4 + bt * NH * length * 2 * 4  # mask, statistics
     keep_bytes = keep.numel() * 4                # the packed keep flags
+    timing["keep_flags_bytes"] = keep_bytes
     bounds = {
         # reads q/k/v, bias, mask; writes ctx, the statistics, the flags
         "fwd": bound_of(4 * qkv_bytes + bias_bytes + small + keep_bytes,
-                        4 * bt * NH * LV * LV * 64, peaks),
+                        4 * bt * NH * length * length * 64, peaks),
         # reads q/k/v, dctx, bias, mask, statistics, the flags; writes
         # dq/dk/dv, dbias
         "bwd": bound_of(7 * qkv_bytes + 2 * bias_bytes + small + keep_bytes,
-                        5 * 2 * bt * NH * LV * LV * 64, peaks),
+                        5 * 2 * bt * NH * length * length * 64, peaks),
     }
-    emit({"phase": "kernel_bias_train", "fwd_max_abs_err": fwd_err,
-          "grad_max_abs_err": grad_abs, "grad_rel_err": grad_rel,
-          "tol": TRAIN_KERNEL_TOL, "kept_share": kept, "rate": DROP,
-          "packed_keep_flags_equal": packed_checked,
-          "keep_flags_bytes": keep_bytes,
-          "shape": [bt, NH, LV, 64], **timing, "bounds": bounds})
-    errors = {"fwd_max_abs_err": max(fwd_err.values()),
-              "grad_max_abs_err": max(grad_abs.values()),
-              "grad_max_rel_err": max(max(r.values())
-                                      for r in grad_rel.values())}
-    return errors, timing, bounds
+    return timing, bounds
 
 
-def write_model_v3(wdir):
-    """layoutlmv3-base-chinese geometry (LayoutLMv3Config defaults at vocab
-    250002, pad_token_id 1) + PEneo decoder with seeded random weights →
-    wdir; dropout 0.1 and the decoder's ×30 learning rate for the train
-    phase (serving runs in eval mode)."""
+def write_model_rel(wdir, v2=False):
+    """A rel-bias model + PEneo decoder with seeded random weights → wdir:
+    the ``layoutlmv3-base-chinese`` geometry (LayoutLMv3Config defaults),
+    or with ``v2`` the ``layoutxlm-base`` one (LayoutLMv2Config defaults:
+    fast_qkv, ResNeXt-101 32x8d at 224 px), at vocab 250002 and
+    pad_token_id 1; dropout 0.1 and the decoder's ×30 learning rate for the
+    train phase (serving runs in eval mode)."""
     import torch
 
-    from peneo_tpu_torch.config import LayoutLMv3Config, PEneoConfig
+    from peneo_tpu_torch.config import (LayoutLMv2Config, LayoutLMv3Config,
+                                        PEneoConfig)
     from peneo_tpu_torch.data.synthetic import ToyTokenizer
     from peneo_tpu_torch.models.peneo import PEneoModel
 
     tok = ToyTokenizer(vocab_size=250002)
+    name, config = (("layoutxlm-base", LayoutLMv2Config) if v2
+                    else ("layoutlmv3-base-chinese", LayoutLMv3Config))
     cfg = PEneoConfig(
-        backbone_name="layoutlmv3-base-chinese",
-        backbone_config=LayoutLMv3Config(
+        backbone_name=name,
+        backbone_config=config(
             vocab_size=250002, max_position_embeddings=L + 8,
             pad_token_id=1, hidden_dropout_prob=DROP,
             attention_probs_dropout_prob=DROP).to_dict(),
         max_seq_len=L, peneo_category_weights=[1.0, 10.0, 10.0],
         peneo_downstream_speedup_ratio=30.0)
     model = PEneoModel(cfg).init_weights(
-        torch.Generator().manual_seed(SEED + 1))
+        torch.Generator().manual_seed(SEED + (4 if v2 else 1)))
     cfg.save_pretrained(wdir)
     tok.save_pretrained(wdir)
     torch.save(model.state_dict(), os.path.join(wdir, "pytorch_model.bin"))
     return sum(p.numel() for p in model.parameters())
 
 
-def phase_serve_v3(rb, ba, tmp, img_dir, ocr_dir):
-    """The 96 pages of the serve phase through the LayoutLMv3 service."""
+def batch_images(svc, pages):
+    """The pages' raw uint8 images on the card, normalized as the service
+    normalizes them."""
+    import numpy as np
+    import torch
+
+    from peneo_tpu_torch.data.image_processing import device_image_normalize
+
+    return device_image_normalize(torch.from_numpy(
+        np.stack([p[0]["image"] for p in pages])).cuda(), svc.info.family)
+
+
+def phase_serve_rel(rb, ba, tmp, img_dir, ocr_dir, v2=False):
+    """The 96 pages of the serve phase through the LayoutLMv3 service, or
+    with ``v2`` the LayoutXLM one."""
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
 
-    wdir = os.path.join(tmp, "model_v3")
+    wdir = os.path.join(tmp, "model_v2" if v2 else "model_v3")
     t0 = time.perf_counter()
-    n_params = write_model_v3(wdir)
+    n_params = write_model_rel(wdir, v2)
     svc = InferenceService(wdir, batch_size=B, dtype="bfloat16")
     setup_s = time.perf_counter() - t0
 
@@ -1637,8 +1820,25 @@ def phase_serve_v3(rb, ba, tmp, img_dir, ocr_dir):
              for i in range(B)]
     prep_ms = (time.perf_counter() - t0) / B * 1e3
     image = pages[0][0]["image"]
-    emit({"phase": "serve_v3", "params": n_params, "pages": run["pages"],
-          "batch_size": B, "L": L, "attention_length": LV,
+    extra = {}
+    if v2:  # the random tower's p2 map over one batch: finite, of order 1
+        backbone = svc.model.backbone
+        with torch.inference_mode():
+            x = batch_images(svc, pages)
+            stats = torch.tensor([svc.cfg.backbone().pixel_mean,
+                                  svc.cfg.backbone().pixel_std],
+                                 device="cuda")[:, :, None, None]
+            p2 = backbone.visual.backbone(
+                ((x - stats[0]) / stats[1]).to(backbone.dtype)).float()
+        extra = {"p2_shape": list(p2.shape),
+                 "p2_max_abs": p2.abs().max().item(),
+                 "p2_rms": p2.pow(2).mean().sqrt().item()}
+        if not torch.isfinite(p2).all():
+            raise RuntimeError("non-finite p2 map in the visual tower")
+        del p2, x
+    emit({"phase": "serve_v2" if v2 else "serve_v3", "params": n_params,
+          "pages": run["pages"], "batch_size": B, "L": L,
+          "attention_length": LV2 if v2 else LV,
           "dtype": "bfloat16", "setup_seconds": setup_s,
           "seconds": run["seconds"],
           "pages_per_s": run["pages"] / run["seconds"],
@@ -1646,7 +1846,7 @@ def phase_serve_v3(rb, ba, tmp, img_dir, ocr_dir):
           "warm_pages_per_s_runs": warm,
           "preprocess_ms_per_page": prep_ms,
           "image": [str(image.dtype), *image.shape],
-          "max_memory_allocated": peak,
+          "max_memory_allocated": peak, **extra,
           "kernel_launches": launches, "forwards": n_forwards,
           "launches_per_forward": launches / n_forwards,
           "mean_tokens_per_page": sum(p[3] for p in pages) / len(pages),
@@ -1655,15 +1855,17 @@ def phase_serve_v3(rb, ba, tmp, img_dir, ocr_dir):
     return svc, wdir, launches
 
 
-def phase_train_v3(rb, ba, tmp, wdir):
-    """LayoutLMv3 fine-tuning through the port's CLI, in process, from the
-    saved full-width model on the synthetic corpus with rendered pages."""
+def phase_train_rel(rb, ba, tmp, wdir, v2=False):
+    """LayoutLMv3 (or with ``v2`` LayoutXLM) fine-tuning through the port's
+    CLI, in process, from the saved full-width model on the synthetic corpus
+    with rendered pages."""
     import torch
 
     from peneo_tpu_torch import run_rfund
     from peneo_tpu_torch.pipeline.infer import InferenceService
 
-    out = os.path.join(tmp, "train_v3")
+    tag = "v2" if v2 else "v3"
+    out = os.path.join(tmp, f"train_{tag}")
     argv = ["--synthetic_data", "--model_name_or_path", wdir,
             "--output_dir", out, "--do_train",
             "--max_steps", str(TRAIN_STEPS), "--max_seq_len", str(L),
@@ -1717,8 +1919,8 @@ def phase_train_v3(rb, ba, tmp, wdir):
                  for a, b in zip(steps, steps[1:])]
 
     # the saved directory serves a page through kernel #4
-    img_dir = os.path.join(tmp, "one_img_v3")
-    ocr_dir = os.path.join(tmp, "one_ocr_v3")
+    img_dir = os.path.join(tmp, f"one_img_{tag}")
+    ocr_dir = os.path.join(tmp, f"one_ocr_{tag}")
     write_pages(img_dir, ocr_dir, n_pages=1)
     svc = InferenceService(out, batch_size=1, dtype="bfloat16")
     rb.bias_attention_cuda.launches = 0
@@ -1728,8 +1930,9 @@ def phase_train_v3(rb, ba, tmp, wdir):
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {rb.bias_attention_cuda.launches} "
                            "launches of kernel #4")
-    emit({"phase": "train_v3", "steps": TRAIN_STEPS, "batch_size": TRAIN_B,
-          "L": L, "attention_length": LV, "dropout": DROP,
+    emit({"phase": f"train_{tag}", "steps": TRAIN_STEPS,
+          "batch_size": TRAIN_B, "L": L,
+          "attention_length": LV2 if v2 else LV, "dropout": DROP,
           "launches": launches, "ms_per_step": ms_step,
           "samples_per_s": TRAIN_B / (ms_step / 1e3),
           "ms_per_step_window": [LOG_EVERY + 1, TRAIN_STEPS],
@@ -1743,6 +1946,42 @@ def phase_train_v3(rb, ba, tmp, wdir):
                    if k.startswith("eval/")},
           "wall_seconds": wall, "served_pages": len(served)})
     return launches, out
+
+
+def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
+    """A rel-bias family's main path at full width and depth (``tag`` "v3":
+    LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown, then train,
+    train_parity and train_breakdown. Returns its launch counts."""
+    import torch
+
+    v2 = tag == "v2"
+    svc, wdir, serve_launches = timed(
+        f"serve_{tag}", phase_serve_rel, rb, ba, tmp, img_dir, ocr_dir, v2)
+    timed(f"parity_{tag}", phase_parity, svc, img_dir, ocr_dir, tag)
+    timed(f"breakdown_{tag}", phase_breakdown, svc, img_dir, ocr_dir,
+          profile_dir, tag)
+    del svc
+    torch.cuda.empty_cache()
+    train_launches, train_out = timed(
+        f"train_{tag}", phase_train_rel, rb, ba, tmp, wdir, v2)
+    model, batch = train_batch(train_out)
+    timed(f"train_parity_{tag}", phase_train_parity, rb, model, batch, tag)
+    timed(f"train_breakdown_{tag}", phase_train_breakdown, model, batch,
+          profile_dir, tag)
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"serve": serve_launches, "train": train_launches}
+
+
+def timed(name, fn, *a, **kw):
+    """Run one phase and print its seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+    return out
 
 
 def main(argv=None):
@@ -1782,14 +2021,6 @@ def main(argv=None):
           "peaks": {"table": peaks[0], "bf16_flops": peaks[1],
                     "bytes_per_s": peaks[2]}})
 
-    def timed(name, fn, *a, **kw):
-        """Run one phase and print its seconds."""
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
-        return out
-
     t0 = time.perf_counter()
     sources = (ba.SOURCE, ba.TRAIN_SOURCE, rb.SOURCE, rb.TRAIN_SOURCE)
     build_libraries(sources)  # one nvcc each, all started together
@@ -1819,9 +2050,9 @@ def main(argv=None):
     max_err, timing, bound = timed("kernel", phase_kernel, ba, peaks)
     train_err, train_timing, train_bounds = timed(
         "kernel_train", phase_kernel_train, ba, peaks)
-    bias_err, bias_timing, bias_bound = timed(
+    bias_err, bias_timing, bias_bound, _ = timed(
         "kernel_bias", phase_kernel_bias, rb, peaks)
-    bias_train_err, bias_train_timing, bias_train_bounds = timed(
+    bias_train_err, bias_train_timing, bias_train_bounds, _ = timed(
         "kernel_bias_train", phase_kernel_bias_train, rb, ba, peaks)
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke-", dir=BUILD_DIR) as tmp:
@@ -1840,21 +2071,18 @@ def main(argv=None):
         del model, batch
         torch.cuda.empty_cache()
 
-        svc, wdir_v3, bias_launches = timed(
-            "serve_v3", phase_serve_v3, rb, ba, tmp, img_dir, ocr_dir)
-        timed("parity_v3", phase_parity, svc, img_dir, ocr_dir, v3=True)
-        timed("breakdown_v3", phase_breakdown, svc, img_dir, ocr_dir,
-              args.profile, v3=True)
-        del svc
-        torch.cuda.empty_cache()
-        bias_train_launches, train_out = timed(
-            "train_v3", phase_train_v3, rb, ba, tmp, wdir_v3)
-        model, batch = train_batch(train_out)
-        timed("train_parity_v3", phase_train_parity, rb, model, batch,
-              v3=True)
-        timed("train_breakdown_v3", phase_train_breakdown, model, batch,
-              args.profile, v3=True)
-        del model, batch
+        launches_v3 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
+                                   args.profile, "v3")
+        launches_v2 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
+                                   args.profile, "v2")
+    # launches on every path: serving, and the training runs (with their
+    # eval forwards)
+    launches += train_launches["biacm_attention"]
+    bias_launches = sum(p["serve"] + p["train"]["bias_attention"]
+                        for p in (launches_v3, launches_v2))
+    bias_train_launches = {k: sum(p["train"][k] for p in (launches_v3,
+                                                          launches_v2))
+                           for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
               library_ms, device, max_rel_err=None):

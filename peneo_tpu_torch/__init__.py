@@ -10,7 +10,8 @@ Ported so far: batched serving (``pipeline.infer.InferenceService``,
 ``python -m peneo_tpu_torch.serve``) and fine-tuning
 (``pipeline.trainer.PEneoTrainer``, ``python -m peneo_tpu_torch.run_rfund``)
 of the LiLT family through the CUDA BiACM attention kernels and of the
-LayoutLMv3 family through the CUDA rel-bias attention kernels.
+LayoutLMv3 and LayoutLMv2/LayoutXLM families through the CUDA rel-bias
+attention kernels.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -6,8 +6,9 @@ model/configuration_peneo.py:6-37 and tools/generate_peneo_weights.py:63-74 —
 nested ``backbone_config`` dict). Every field of the JAX package's config is
 kept, so one ``config.json`` is read and written identically by both
 packages; fields the port does not act on yet (the TPU kernel switches,
-``spot_streaming``, the int8 switches, ``spot_topk`` — the port's top-k is
-always exact) round-trip unchanged.
+``spot_streaming``, ``spot_topk`` — the port's top-k is always exact)
+round-trip unchanged; ``PEneoModel`` refuses a config that sets either int8
+switch.
 """
 
 from __future__ import annotations
@@ -188,8 +189,9 @@ class PEneoConfig:
     # "approx" | "exact"; the port's top-k (torch.topk) is always exact
     spot_topk: str = "approx"
     spot_streaming: bool = False
-    quantize_pair_head: Optional[str] = None  # None | "int8" (not ported yet)
-    quantize_backbone: Optional[str] = None   # None | "int8" (not ported yet)
+    # None | "int8"; "int8" is not ported yet and PEneoModel raises on it
+    quantize_pair_head: Optional[str] = None
+    quantize_backbone: Optional[str] = None
     model_type: str = "peneo"
 
     def __post_init__(self):

@@ -6,8 +6,8 @@ device half (:func:`device_image_normalize`) torch.
 - LayoutLMv3ImageProcessor: resize to 224×224 (bilinear), rescale 1/255,
   normalize mean=std=0.5, CHW float32.
 - LayoutLMv2ImageProcessor: resize to 224×224, RGB→BGR flip, raw 0-255
-  float32 CHW (the detectron2 visual tower normalizes internally). Nothing
-  in the port runs this family yet.
+  float32 CHW (the model normalizes by the detectron2 pixel mean and std
+  before its visual tower).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def device_image_normalize(image: torch.Tensor, family: str) -> torch.Tensor:
         # multiplies by its rounded reciprocal, which is not numpy's quotient
         x = (x / x.new_tensor(255.0) - 0.5) / 0.5
     elif family == "layoutlmv2":
-        x = x.flip(-1)  # RGB→BGR, raw 0-255 (the tower normalizes itself)
+        x = x.flip(-1)  # RGB→BGR, raw 0-255 (the model normalizes it)
     else:
         raise ValueError(f"backbone family {family} takes no image input")
     return x.permute(0, 3, 1, 2)  # NHWC→NCHW

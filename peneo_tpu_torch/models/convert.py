@@ -1,5 +1,5 @@
 """Weight bridge between the JAX package's PEneoModel param tree and the
-port's ``state_dict`` (LiLT and LayoutLMv3 families).
+port's ``state_dict`` (LiLT, LayoutLMv3 and LayoutLMv2/LayoutXLM).
 
 The port's parameter names are the reference's torch keys, the same ones
 ``peneo_tpu/models/convert.py:49-127`` reads, so a ``pytorch_model.bin``
@@ -14,6 +14,17 @@ inverse of that converter):
 - LayoutLMv3: flax Conv ``kernel`` (kh, kw, C, H) ↔ Conv2d ``weight``
   (H, C, kh, kw); the bucket tables (bins, heads) ↔ bias-free Linear
   ``weight`` (heads, bins); ``cls_token`` / ``pos_embed`` as they are.
+- LayoutLMv2: ``qkv_linear`` has a kernel only, ``q_bias`` / ``v_bias``
+  are (1, 1, H) as they are; a detectron2 conv with its frozen norm
+  (``<conv>.weight``, ``<conv>.norm.{weight,bias,running_mean,
+  running_var}``) ↔ the flax ``conv`` of a ``ConvNoBN``: toward JAX the
+  norm is folded into kernel and bias in float64
+  (:func:`fold_conv_frozen_bn`, the JAX converter's arithmetic), toward the
+  port the norm is written as the identity (weight 1, mean 0, var
+  ``1 − 1e-5``: ``s`` is exactly 1 in fp32) with the flax bias as its
+  ``bias``. The FPN's lateral and output convs are biased convs; a
+  reference state dict may give them a frozen norm instead, which is folded
+  the same way.
 
 Both functions work on numpy arrays (``jax_params_to_state_dict`` returns
 torch tensors); neither imports JAX.
@@ -29,8 +40,9 @@ import torch
 from ..config import PEneoConfig
 from .decoder import HEAD_NAMES
 
-# (torch key prefix, flax path, kind); kind ∈ linear | ln | emb | conv |
-# table (full key ↔ transposed leaf) | raw (full key ↔ leaf)
+# (torch key prefix, flax path, kind); kind ∈ linear | kernel (a Linear
+# without bias) | ln | emb | conv | frozen_conv (a conv and its frozen
+# norm) | table (full key ↔ transposed leaf) | raw (full key ↔ leaf)
 Entry = Tuple[str, Tuple[str, ...], str]
 
 
@@ -69,21 +81,21 @@ def _lilt_entries(n_layers: int) -> List[Entry]:
     return [("backbone." + k, ("backbone",) + p, kind) for k, p, kind in e]
 
 
-def _layoutlmv3_entries(n_layers: int, bc) -> List[Entry]:
+def _embedding_entries() -> List[Entry]:
+    """The word / position / token-type / spatial tables and their LayerNorm
+    of the rel-bias families."""
+    e: List[Entry] = [(f"embeddings.{n}", ("embeddings", n), "emb") for n in (
+        "word_embeddings", "token_type_embeddings", "position_embeddings",
+        "x_position_embeddings", "y_position_embeddings",
+        "h_position_embeddings", "w_position_embeddings")]
+    e.append(("embeddings.LayerNorm", ("embeddings", "LayerNorm"), "ln"))
+    return e
+
+
+def _rel_bias_encoder_entries(n_layers: int, bc, projections) -> List[Entry]:
+    """The bucket tables and the layers of a rel-bias encoder (LayoutLMv3,
+    LayoutLMv2); ``projections(src, dst)`` gives a layer's q/k/v entries."""
     e: List[Entry] = []
-    emb = "embeddings"
-    for n in ("word_embeddings", "token_type_embeddings",
-              "position_embeddings", "x_position_embeddings",
-              "y_position_embeddings", "h_position_embeddings",
-              "w_position_embeddings"):
-        e.append((f"{emb}.{n}", (emb, n), "emb"))
-    e.append((f"{emb}.LayerNorm", (emb, "LayerNorm"), "ln"))
-    if bc.visual_embed:
-        e.append(("patch_embed.proj", ("patch_proj",), "conv"))
-        e.append(("cls_token", ("cls_token",), "raw"))
-        e.append(("pos_embed", ("pos_embed",), "raw"))
-        e.append(("norm", ("visual_norm",), "ln"))
-        e.append(("LayerNorm", ("post_concat_LayerNorm",), "ln"))
     if bc.has_relative_attention_bias:
         e.append(("encoder.rel_pos_bias.weight", ("rel_pos_bias",), "table"))
     if bc.has_spatial_attention_bias:
@@ -91,8 +103,7 @@ def _layoutlmv3_entries(n_layers: int, bc) -> List[Entry]:
             e.append((f"encoder.{n}.weight", (n,), "table"))
     for i in range(n_layers):
         src, dst = f"encoder.layer.{i}.", (f"layer_{i}",)
-        for n in ("query", "key", "value"):
-            e.append((src + f"attention.self.{n}", dst + (n,), "linear"))
+        e += projections(src + "attention.self.", dst)
         e.append((src + "attention.output.dense",
                   dst + ("attention_output_dense",), "linear"))
         e.append((src + "attention.output.LayerNorm",
@@ -101,6 +112,59 @@ def _layoutlmv3_entries(n_layers: int, bc) -> List[Entry]:
                   "linear"))
         e.append((src + "output.dense", dst + ("output_dense",), "linear"))
         e.append((src + "output.LayerNorm", dst + ("output_LayerNorm",), "ln"))
+    return e
+
+
+def _qkv_entries(src, dst) -> List[Entry]:
+    return [(src + n, dst + (n,), "linear") for n in ("query", "key", "value")]
+
+
+def _layoutlmv3_entries(n_layers: int, bc) -> List[Entry]:
+    e = _embedding_entries()
+    if bc.visual_embed:
+        e.append(("patch_embed.proj", ("patch_proj",), "conv"))
+        e.append(("cls_token", ("cls_token",), "raw"))
+        e.append(("pos_embed", ("pos_embed",), "raw"))
+        e.append(("norm", ("visual_norm",), "ln"))
+        e.append(("LayerNorm", ("post_concat_LayerNorm",), "ln"))
+    e += _rel_bias_encoder_entries(n_layers, bc, _qkv_entries)
+    return [("backbone." + k, ("backbone",) + p, kind) for k, p, kind in e]
+
+
+def _tower_entries(depths) -> List[Entry]:
+    """detectron2's ResNeXt-FPN keys ↔ the flax ``ResNeXtFPN`` tree."""
+    src, dst = "visual.backbone.", ("visual_backbone",)
+    e: List[Entry] = [(src + "bottom_up.stem.conv1", dst + ("stem", "conv"),
+                       "frozen_conv")]
+    for stage, depth in enumerate(depths):
+        for blk in range(depth):
+            s = f"{src}bottom_up.res{stage + 2}.{blk}."
+            d = dst + (f"res{stage + 2}_{blk}",)
+            # a stage's first block changes the width (res2) or the stride
+            convs = ("conv1", "conv2", "conv3") + (
+                ("shortcut",) if blk == 0 else ())
+            e += [(s + c, d + (c, "conv"), "frozen_conv") for c in convs]
+    for i in range(len(depths)):
+        e.append((src + f"fpn_lateral{i + 2}",
+                   dst + (f"fpn_lateral{i + 2}", "conv"), "conv"))
+    e.append((src + "fpn_output2", dst + ("fpn_output2", "conv"), "conv"))
+    return e
+
+
+def _layoutlmv2_entries(n_layers: int, bc) -> List[Entry]:
+    e = _embedding_entries()
+    e.append(("visual_proj", ("visual_proj",), "linear"))
+    e.append(("visual_LayerNorm", ("visual_LayerNorm",), "ln"))
+
+    def projections(src, dst):
+        if not bc.fast_qkv:
+            return _qkv_entries(src, dst)
+        return [(src + "qkv_linear", dst + ("qkv_linear",), "kernel"),
+                (src + "q_bias", dst + ("q_bias",), "raw"),
+                (src + "v_bias", dst + ("v_bias",), "raw")]
+
+    e += _rel_bias_encoder_entries(n_layers, bc, projections)
+    e += _tower_entries(bc.visual_depths)
     return [("backbone." + k, ("backbone",) + p, kind) for k, p, kind in e]
 
 
@@ -129,12 +193,25 @@ def _entries(cfg: PEneoConfig) -> List[Entry]:
     elif fam == "layoutlmv3":
         backbone = _layoutlmv3_entries(bc.num_hidden_layers, bc)
     else:
-        raise NotImplementedError(
-            f"the weight bridge does not cover the {fam!r} family yet")
+        backbone = _layoutlmv2_entries(bc.num_hidden_layers, bc)
     return backbone + _decoder_entries(cfg)
 
 
 _COMBINE = "peneo_decoder.handshaking_kernel.combine_fc"
+BN_EPS = 1e-5  # detectron2's FrozenBatchNorm2d
+
+
+def fold_conv_frozen_bn(conv_w, bn_w, bn_b, bn_mean, bn_var,
+                        eps: float = BN_EPS):
+    """``y = FrozenBN(conv(x))`` as one biased conv: the flax (kh, kw, C,
+    O) kernel and the bias, in float32, from float64 arithmetic (the JAX
+    package's ``convert_layoutlmv2.fold_conv_frozen_bn``)."""
+    conv_w = np.asarray(conv_w, dtype=np.float64)
+    s = np.asarray(bn_w, np.float64) / np.sqrt(
+        np.asarray(bn_var, np.float64) + eps)
+    kernel = (conv_w * s[:, None, None, None]).transpose(2, 3, 1, 0)
+    bias = np.asarray(bn_b, np.float64) - np.asarray(bn_mean, np.float64) * s
+    return kernel.astype(np.float32), bias.astype(np.float32)
 
 
 def _get(tree: Dict, path) -> np.ndarray:
@@ -162,13 +239,22 @@ def jax_params_to_state_dict(params: Dict, cfg: PEneoConfig) -> Dict[str, torch.
             sd[key] = _get(params, path).T
         elif kind == "raw":
             sd[key] = _get(params, path)
-        elif kind == "conv":
+        elif kind in ("conv", "frozen_conv"):
             sd[key + ".weight"] = _get(params, path + ("kernel",)).transpose(
                 3, 2, 0, 1)
-            sd[key + ".bias"] = _get(params, path + ("bias",))
+            bias = _get(params, path + ("bias",))
+            if kind == "conv":
+                sd[key + ".bias"] = bias
+                continue
+            n = key + ".norm."
+            sd[n + "weight"] = np.ones_like(bias)
+            sd[n + "bias"] = bias
+            sd[n + "running_mean"] = np.zeros_like(bias)
+            sd[n + "running_var"] = np.full_like(bias, 1.0 - BN_EPS)
         else:
             sd[key + ".weight"] = _get(params, path + ("kernel",)).T
-            sd[key + ".bias"] = _get(params, path + ("bias",))
+            if kind == "linear":
+                sd[key + ".bias"] = _get(params, path + ("bias",))
     dec = ("peneo_decoder",)
     sd[_COMBINE + ".weight"] = np.concatenate(
         [_get(params, dec + ("comb_a", "kernel")).T,
@@ -198,13 +284,24 @@ def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig) -> Dict:
             _set(params, path, arr(key).T.copy())
         elif kind == "raw":
             _set(params, path, arr(key))
+        elif kind == "frozen_conv" or (kind == "conv"
+                                       and key + ".norm.weight" in sd):
+            n = key + ".norm."
+            kernel, bias = fold_conv_frozen_bn(
+                arr(key + ".weight"), arr(n + "weight"), arr(n + "bias"),
+                arr(n + "running_mean"), arr(n + "running_var"))
+            _set(params, path + ("kernel",), kernel)
+            _set(params, path + ("bias",), bias)
         elif kind == "conv":
-            _set(params, path + ("kernel",),
-                 arr(key + ".weight").transpose(2, 3, 1, 0).copy())
-            _set(params, path + ("bias",), arr(key + ".bias"))
+            w = arr(key + ".weight")
+            _set(params, path + ("kernel",), w.transpose(2, 3, 1, 0).copy())
+            _set(params, path + ("bias",),
+                 arr(key + ".bias") if key + ".bias" in sd
+                 else np.zeros(w.shape[0], np.float32))
         else:
             _set(params, path + ("kernel",), arr(key + ".weight").T.copy())
-            _set(params, path + ("bias",), arr(key + ".bias"))
+            if kind == "linear":
+                _set(params, path + ("bias",), arr(key + ".bias"))
     w = arr(_COMBINE + ".weight")
     h = w.shape[0]
     dec = ("peneo_decoder",)

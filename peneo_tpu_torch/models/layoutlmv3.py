@@ -40,6 +40,10 @@ first, its buckets being batch-independent.
 
 The embedding sum and its LayerNorm run in fp32 and only the output is cast
 to the compute dtype (:meth:`LayoutLMv3Model.cast`).
+
+:class:`RelBiasSelfAttention` (the attention) and :class:`RelBiasBackbone`
+(the bias build, the layer loop, the shape-only tensor cache) are shared
+with LayoutLMv2 (``models/layoutlmv2.py``), whose bias is not divided by √d.
 """
 
 from __future__ import annotations
@@ -238,28 +242,29 @@ class PatchEmbed(nn.Module):
         return self.proj(image).flatten(2).transpose(1, 2)  # (B, grid², H)
 
 
-class LayoutLMv3SelfAttention(nn.Module):
-    def __init__(self, cfg: LayoutLMv3Config):
+class RelBiasSelfAttention(nn.Module):
+    """Self-attention on a precomputed relative bias, shared by the
+    LayoutLMv3 and LayoutLMv2 layers: ``softmax(q·kᵀ/√d + rel_bias +
+    key_mask)·v`` through the rel-bias kernels. A subclass makes q, k and v
+    (:meth:`project`, each (B, L, H))."""
+
+    def __init__(self, cfg):
         super().__init__()
-        h = cfg.hidden_size
         self.nh = cfg.num_attention_heads
-        self.dh = h // self.nh
+        self.dh = cfg.hidden_size // self.nh
         self.attention_impl = "kernel"
         self.dropout = cfg.attention_probs_dropout_prob
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+
+    def project(self, x):
+        raise NotImplementedError
 
     def forward(self, x, mask, rel_bias, seed: int = 0):
         """``seed`` keys the attention-dropout mask of a training step."""
         B, L, _ = x.shape
-
-        def heads(lin):
-            # (B, L, nh, d) projection viewed as (B, nh, L, d): no copy, the
-            # kernels read it through strides
-            return lin(x).view(B, L, self.nh, self.dh).transpose(1, 2)
-
-        qkv = (heads(self.query), heads(self.key), heads(self.value))
+        # (B, L, nh, d) projections viewed as (B, nh, L, d): no copy, the
+        # kernels read them through strides
+        qkv = [t.view(B, L, self.nh, self.dh).transpose(1, 2)
+               for t in self.project(x)]
         scale = 1.0 / math.sqrt(self.dh)
         plain = self.attention_impl == "plain"
         if not self.training:
@@ -276,10 +281,22 @@ class LayoutLMv3SelfAttention(nn.Module):
         return ctx.transpose(1, 2).reshape(B, L, self.nh * self.dh)
 
 
-class LayoutLMv3Attention(nn.Module):
+class LayoutLMv3SelfAttention(RelBiasSelfAttention):
     def __init__(self, cfg: LayoutLMv3Config):
+        super().__init__(cfg)
+        h = cfg.hidden_size
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+
+    def project(self, x):
+        return self.query(x), self.key(x), self.value(x)
+
+
+class LayoutLMv3Attention(nn.Module):
+    def __init__(self, cfg, self_attention=LayoutLMv3SelfAttention):
         super().__init__()
-        self.self = LayoutLMv3SelfAttention(cfg)
+        self.self = self_attention(cfg)
         self.output = ResidualOutput(cfg.hidden_size, cfg.hidden_size,
                                      cfg.layer_norm_eps,
                                      cfg.hidden_dropout_prob)
@@ -291,9 +308,9 @@ class LayoutLMv3Attention(nn.Module):
 class LayoutLMv3Layer(nn.Module):
     """Transformer layer on a precomputed bias (attention + MLP, post-LN)."""
 
-    def __init__(self, cfg: LayoutLMv3Config):
+    def __init__(self, cfg, self_attention=LayoutLMv3SelfAttention):
         super().__init__()
-        self.attention = LayoutLMv3Attention(cfg)
+        self.attention = LayoutLMv3Attention(cfg, self_attention)
         self.intermediate = Intermediate(cfg.hidden_size,
                                          cfg.intermediate_size, cfg.hidden_act)
         self.output = ResidualOutput(cfg.intermediate_size, cfg.hidden_size,
@@ -310,9 +327,9 @@ class LayoutLMv3Encoder(nn.Module):
     (heads, bins) as in the reference (which multiplies one-hot buckets by
     them; :class:`RelBias` gathers instead)."""
 
-    def __init__(self, cfg: LayoutLMv3Config):
+    def __init__(self, cfg, self_attention=LayoutLMv3SelfAttention):
         super().__init__()
-        self.layer = nn.ModuleList(LayoutLMv3Layer(cfg)
+        self.layer = nn.ModuleList(LayoutLMv3Layer(cfg, self_attention)
                                    for _ in range(cfg.num_hidden_layers))
         nh = cfg.num_attention_heads
         if cfg.has_relative_attention_bias:
@@ -324,37 +341,29 @@ class LayoutLMv3Encoder(nn.Module):
                                             bias=False)
 
 
-class LayoutLMv3Model(nn.Module):
-    """Full LayoutLMv3 encoder. ``forward`` returns a dict with
-    ``last_hidden_state`` (B, L', H) over the text positions and, with an
-    image, the 1 + (S/16)² visual tokens after them."""
+class RelBiasBackbone(nn.Module):
+    """What the rel-bias backbones (LayoutLMv3, and LayoutLMv2 in
+    ``models/layoutlmv2.py``) share: an ``encoder`` of layers on one
+    relative bias per forward with the three bucket tables, the bias build
+    (:meth:`rel_bias`, divided by ``bias_div``), the layer loop with the
+    per-layer dropout seeds and checkpointing (:meth:`run_layers`), and a
+    cache of device tensors that depend on shapes only. Subclasses set
+    ``cfg``, ``encoder`` and ``bias_div``."""
 
-    def __init__(self, cfg: LayoutLMv3Config):
+    bias_div = 1.0
+
+    def __init__(self):
         super().__init__()
-        self.cfg = cfg
-        self.embeddings = LayoutLMv3Embeddings(cfg)
-        if cfg.visual_embed:
-            self.grid = cfg.input_size // cfg.patch_size
-            n_vis = self.grid * self.grid + 1
-            self.patch_embed = PatchEmbed(cfg)
-            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
-            self.pos_embed = nn.Parameter(
-                torch.zeros(1, n_vis, cfg.hidden_size))
-            self.norm = nn.LayerNorm(cfg.hidden_size, eps=1e-6)
-            self.LayerNorm = nn.LayerNorm(cfg.hidden_size,
-                                          eps=cfg.layer_norm_eps)
-        self.encoder = LayoutLMv3Encoder(cfg)
         # per-layer recompute in the backward (PEneoConfig's switch)
         self.gradient_checkpointing = False
-        # device tensors that depend on shapes only: the 1D bucket matrix
-        # per (L, n_vis, device), the visual boxes and the 2D bucket table
-        # per device
+        # device tensors that depend on shapes only (bucket matrices, box
+        # grids, the 2D bucket table), per device
         self._static = {}
 
     @property
     def dtype(self) -> torch.dtype:
         """Compute dtype: that of the encoder weights."""
-        return self.encoder.layer[0].attention.self.query.weight.dtype
+        return self.encoder.layer[0].output.dense.weight.dtype
 
     def set_attention_impl(self, attention_impl: str) -> None:
         """``"kernel"`` (the default) or ``"plain"``: the plain twin on any
@@ -364,33 +373,10 @@ class LayoutLMv3Model(nn.Module):
         for layer in self.encoder.layer:
             layer.attention.self.attention_impl = attention_impl
 
-    def cast(self, dtype: torch.dtype) -> "LayoutLMv3Model":
-        """Cast to the compute dtype, keeping the embeddings (tables and
-        their LayerNorm) and the three bucket tables in fp32: the embedding
-        sum and the relative bias are fp32 whatever the compute dtype."""
-        self.to(dtype)
-        self.embeddings.float()
+    def _keep_tables_fp32(self) -> None:
         for name in ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias"):
             if hasattr(self.encoder, name):
                 getattr(self.encoder, name).float()
-        return self
-
-    def init_weights(self, generator: torch.Generator, std: float) -> None:
-        """normal(std) weights (the patch conv too), zero biases, unit
-        LayerNorms, zero ``cls_token`` / ``pos_embed``, zeroed padding rows
-        (reference _init_weights, model/modeling_peneo.py:25-28)."""
-        init_module_weights(self, generator, std)
-        pad = self.cfg.pad_token_id
-        with torch.no_grad():
-            for emb in (self.embeddings.word_embeddings,
-                        self.embeddings.position_embeddings):
-                emb.weight[pad].zero_()
-            if self.cfg.visual_embed:
-                self.patch_embed.proj.weight.normal_(0.0, std,
-                                                     generator=generator)
-                self.patch_embed.proj.bias.zero_()
-                self.cls_token.zero_()
-                self.pos_embed.zero_()
 
     def _static_tensor(self, key, make, device):
         key = key + (str(device),)
@@ -403,7 +389,7 @@ class LayoutLMv3Model(nn.Module):
 
     def rel_bias(self, bbox, seq_len: int, n_vis: int):
         """The fp32 (B, nh, L', L') relative-position bias of boxes ``bbox``
-        (B, L', 4), already divided by √d (rows 16-byte aligned, see
+        (B, L', 4), divided by ``bias_div`` (rows 16-byte aligned, see
         :class:`RelBias`), or zeros where the config has neither table."""
         cfg, enc = self.cfg, self.encoder
         B, Lp = bbox.shape[:2]
@@ -432,8 +418,74 @@ class LayoutLMv3Model(nn.Module):
                 keys_x[:, None, :] - cx[:, :, None], bins, far, lut)
             by = relative_position_bucket(
                 keys_y[:, None, :] - cy[:, :, None], bins, far, lut)
-        dh = cfg.hidden_size // cfg.num_attention_heads
-        return RelBias.apply(w1, wx, wy, b1, bx, by, B, math.sqrt(dh))
+        return RelBias.apply(w1, wx, wy, b1, bx, by, B, self.bias_div)
+
+    def run_layers(self, x, mask, rel_bias,
+                   generator: Optional[torch.Generator] = None):
+        """The encoder's layers over ``x`` (B, L', H) with the key mask and
+        the bias shared by all of them."""
+        draw = self.training and self.cfg.attention_probs_dropout_prob > 0
+        for layer in self.encoder.layer:
+            # the seed is drawn outside the checkpointed region: the
+            # recompute replays the same mask
+            seed = (int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+                    if draw else 0)
+            if self.gradient_checkpointing and self.training:
+                x = checkpoint(layer, x, mask, rel_bias, seed,
+                               use_reentrant=False)
+            else:
+                x = layer(x, mask, rel_bias, seed)
+        return x
+
+
+class LayoutLMv3Model(RelBiasBackbone):
+    """Full LayoutLMv3 encoder. ``forward`` returns a dict with
+    ``last_hidden_state`` (B, L', H) over the text positions and, with an
+    image, the 1 + (S/16)² visual tokens after them. The bias is divided by
+    √d."""
+
+    def __init__(self, cfg: LayoutLMv3Config):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = LayoutLMv3Embeddings(cfg)
+        if cfg.visual_embed:
+            self.grid = cfg.input_size // cfg.patch_size
+            n_vis = self.grid * self.grid + 1
+            self.patch_embed = PatchEmbed(cfg)
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, n_vis, cfg.hidden_size))
+            self.norm = nn.LayerNorm(cfg.hidden_size, eps=1e-6)
+            self.LayerNorm = nn.LayerNorm(cfg.hidden_size,
+                                          eps=cfg.layer_norm_eps)
+        self.encoder = LayoutLMv3Encoder(cfg)
+        self.bias_div = math.sqrt(cfg.hidden_size // cfg.num_attention_heads)
+
+    def cast(self, dtype: torch.dtype) -> "LayoutLMv3Model":
+        """Cast to the compute dtype, keeping the embeddings (tables and
+        their LayerNorm) and the three bucket tables in fp32: the embedding
+        sum and the relative bias are fp32 whatever the compute dtype."""
+        self.to(dtype)
+        self.embeddings.float()
+        self._keep_tables_fp32()
+        return self
+
+    def init_weights(self, generator: torch.Generator, std: float) -> None:
+        """normal(std) weights (the patch conv too), zero biases, unit
+        LayerNorms, zero ``cls_token`` / ``pos_embed``, zeroed padding rows
+        (reference _init_weights, model/modeling_peneo.py:25-28)."""
+        init_module_weights(self, generator, std)
+        pad = self.cfg.pad_token_id
+        with torch.no_grad():
+            for emb in (self.embeddings.word_embeddings,
+                        self.embeddings.position_embeddings):
+                emb.weight[pad].zero_()
+            if self.cfg.visual_embed:
+                self.patch_embed.proj.weight.normal_(0.0, std,
+                                                     generator=generator)
+                self.patch_embed.proj.bias.zero_()
+                self.cls_token.zero_()
+                self.pos_embed.zero_()
 
     def forward(self, input_ids, bbox,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -468,16 +520,5 @@ class LayoutLMv3Model(nn.Module):
                 ("visual_bbox",), lambda: visual_bbox(self.grid), bbox.device)
             bbox = torch.cat([bbox, vis_box[None].expand(B, -1, -1)], dim=1)
         mask = key_mask_bias(attention_mask)
-        rel_bias = self.rel_bias(bbox, L, n_vis)
-        draw = self.training and cfg.attention_probs_dropout_prob > 0
-        for layer in self.encoder.layer:
-            # the seed is drawn outside the checkpointed region: the
-            # recompute replays the same mask
-            seed = (int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-                    if draw else 0)
-            if self.gradient_checkpointing and self.training:
-                x = checkpoint(layer, x, mask, rel_bias, seed,
-                               use_reentrant=False)
-            else:
-                x = layer(x, mask, rel_bias, seed)
+        x = self.run_layers(x, mask, self.rel_bias(bbox, L, n_vis), generator)
         return {"last_hidden_state": x}

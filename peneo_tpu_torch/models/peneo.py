@@ -1,4 +1,5 @@
-"""PEneoModel: switchable backbone (LiLT, LayoutLMv3) + PEneo decoder.
+"""PEneoModel: a switchable backbone (LiLT, LayoutLMv3 or LayoutLMv2 /
+LayoutXLM) and the PEneo decoder.
 
 Counterpart of ``peneo_tpu/models/peneo.py:28-131`` (reference:
 model/modeling_peneo.py:41-175). The wrapper runs the backbone, strips the
@@ -7,7 +8,9 @@ visual tokens and the CLS position per the family flags
 the decoder. Inputs are padded to a static L; the decoder works on
 Ld = L - 1 positions, and labels are (B, Ld, Ld) dense matrices or (B, S, 3)
 spot arrays. A visual backbone's image tokens come after the text tokens
-and are dropped before the decoder.
+and are dropped before the decoder. The int8 switches of the config
+(``quantize_pair_head``, ``quantize_backbone``) are not ported: a config
+that sets either is refused rather than served in bf16.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .lilt import LiltModel, init_module_weights
 FAMILY_FLAGS = {
     "lilt": dict(add_cls_token=True, has_visual_embeds=False),
     "layoutlmv3": dict(add_cls_token=True, has_visual_embeds=True),
+    "layoutlmv2": dict(add_cls_token=True, has_visual_embeds=True),
 }
 
 
@@ -37,15 +41,22 @@ def build_backbone(cfg: PEneoConfig) -> nn.Module:
         from .layoutlmv3 import LayoutLMv3Model
 
         return LayoutLMv3Model(cfg.backbone())
-    raise NotImplementedError(
-        f"backbone family {fam!r} is not ported yet (ported: "
-        f"{sorted(FAMILY_FLAGS)})")
+    if fam == "layoutlmv2":
+        from .layoutlmv2 import LayoutLMv2Model
+
+        return LayoutLMv2Model(cfg.backbone())
+    raise NotImplementedError(f"backbone family {fam!r} is not ported")
 
 
 class PEneoModel(nn.Module):
     def __init__(self, cfg: PEneoConfig):
         super().__init__()
-        self.backbone = build_backbone(cfg)  # raises for an unported family
+        for switch in ("quantize_pair_head", "quantize_backbone"):
+            if getattr(cfg, switch) == "int8":
+                raise NotImplementedError(
+                    f"{switch}='int8' is not ported yet: the int8 matmuls "
+                    "of the JAX package have no counterpart here")
+        self.backbone = build_backbone(cfg)
         self.cfg = cfg
         self.flags = FAMILY_FLAGS[cfg.backbone_family()]
         self.backbone.gradient_checkpointing = cfg.gradient_checkpointing
@@ -55,8 +66,8 @@ class PEneoModel(nn.Module):
         self.backbone.set_attention_impl(attention_impl)
 
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
-        """Cast to the compute dtype (the backbone keeps its embeddings, and
-        LayoutLMv3 its bucket tables, in fp32)."""
+        """Cast to the compute dtype (the backbone keeps its embeddings, the
+        rel-bias families their bucket tables, in fp32)."""
         self.to(dtype)
         self.backbone.cast(dtype)
         return self

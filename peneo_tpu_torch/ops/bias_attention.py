@@ -1,7 +1,7 @@
-"""Fused rel-bias attention of LayoutLMv3: the CUDA kernels and their plain
-twins — the inference forward (kernel #4) and the training pair (kernels #5
-and #6, forward with attention dropout and its backward with the bias
-gradient).
+"""Fused rel-bias attention of LayoutLMv3 and LayoutLMv2: the CUDA kernels
+and their plain twins — the inference forward (kernel #4) and the training
+pair (kernels #5 and #6, forward with attention dropout and its backward
+with the bias gradient).
 
 Counterpart of ``peneo_tpu/ops/bias_attention.py`` (the Pallas TPU kernels
 ``bias_attention`` and ``bias_attention_train``). Per (batch, head):
@@ -13,10 +13,11 @@ Counterpart of ``peneo_tpu/ops/bias_attention.py`` (the Pallas TPU kernels
 Public layout is the JAX package's: q/k/v ``(B, nh, L, d)`` (any strides
 with a contiguous last dim — the layer passes transposed views of its
 ``(B, L, nh, d)`` projections), ``bias`` ``(B, nh, L, L)`` fp32 (the
-relative-position bias, already divided by √d; any batch/head/row strides
-with a contiguous last dim: rows 16-byte aligned, as the model's ``RelBias``
-lays them out, move in 16-byte requests, others in 4-byte ones), ``mask``
-``(B, L)`` fp32 additive key mask.
+relative-position bias, divided by √d for LayoutLMv3, unscaled for
+LayoutLMv2; any batch/head/row strides with a contiguous last dim: rows
+16-byte aligned, as the model's ``RelBias`` lays them out, move in 16-byte
+requests, others in 4-byte ones), ``mask`` ``(B, L)`` fp32 additive key
+mask.
 
 - :func:`bias_attention` is the inference entry point. On a CUDA tensor it
   launches the hand-written kernel (``csrc/bias_attention.cu``, built with

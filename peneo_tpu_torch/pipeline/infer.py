@@ -1,11 +1,12 @@
 """Serving: page image + line-level OCR JSON → key/value pairs.
 
 Counterpart of ``peneo_tpu/pipeline/infer.py:39-589`` for one device and the
-LiLT and LayoutLMv3 families (reference: deploy/inference.py:110-464).
+LiLT, LayoutLMv3 and LayoutLMv2/LayoutXLM families (reference:
+deploy/inference.py:110-464).
 Pages are preprocessed on a thread pool, stacked ``batch_size`` at a time,
 and run through :class:`~peneo_tpu_torch.models.peneo.PEneoModel`, whose
 attention is a CUDA kernel on the card (BiACM for LiLT, rel-bias for
-LayoutLMv3). PyTorch launches asynchronously, so keeping ``inflight_depth``
+LayoutLMv3 and LayoutLMv2). PyTorch launches asynchronously, so keeping ``inflight_depth``
 batches dispatched before fetching the oldest one (``.cpu()`` of two packed
 int32 tensors) overlaps host preprocessing, host decode (a separate thread
 pool) and device work. A visual backbone's page images travel as resized
@@ -64,8 +65,8 @@ def load_weights(model: PEneoModel, path: str) -> None:
 
 
 class InferenceService:
-    """Load a trained PEneo model (LiLT or LayoutLMv3 backbone) and run
-    page → kv-pair extraction."""
+    """Load a trained PEneo model (LiLT, LayoutLMv3 or LayoutLMv2 backbone)
+    and run page → kv-pair extraction."""
 
     def __init__(
         self,

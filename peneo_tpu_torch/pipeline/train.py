@@ -50,8 +50,11 @@ def linear_schedule(lr: float, total_steps: int, warmup_ratio: float = 0.1,
 
 def is_no_decay(name: str) -> bool:
     """Biases and LayerNorm weights take no weight decay (reference:
-    pipeline/trainer.py:277-282)."""
-    return name.endswith("bias") or ".LayerNorm." in name
+    pipeline/trainer.py:277-282), by the JAX package's rule: a bias is a
+    parameter named ``bias`` (LayoutLMv2's ``q_bias`` / ``v_bias`` decay), a
+    LayerNorm one whose module's name ends in ``LayerNorm`` (LayoutLMv2's
+    ``visual_LayerNorm`` too)."""
+    return name.rsplit(".", 1)[-1] == "bias" or "LayerNorm." in name
 
 
 def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,

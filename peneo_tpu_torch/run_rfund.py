@@ -1,4 +1,5 @@
-"""Fine-tune / evaluate PEneo (LiLT or LayoutLMv3) on RFUND with the port.
+"""Fine-tune / evaluate PEneo (LiLT, LayoutLMv3 or LayoutLMv2/LayoutXLM) on
+RFUND with the port.
 
 The single-device flag surface of ``start/run_rfund.py`` (reference:
 start/run_rfund.py:23-81), plus ``--device``:
@@ -13,9 +14,11 @@ start/run_rfund.py:23-81), plus ``--device``:
 ``--synthetic_data`` writes a synthetic RFUND corpus (64 train, 16 dev
 pages, rendered to PNGs for a visual backbone) and uses the toy tokenizer
 with a seeded random model of the ``--synthetic_model`` geometry (LayoutLMv3
-presets take a 64 px image), or with ``--model_name_or_path`` the saved
-model's own config: no downloads. ``--backbone_name layoutlmv3-base[-chinese]``
-selects the LayoutLMv3 family; LayoutLMv2/LayoutXLM are not ported yet. Runs
+presets take a 64 px image; LayoutLMv2 presets a 56 px one and a ResNeXt
+tower of one block per stage, ``base`` the full ResNeXt-101 at 224 px), or
+with ``--model_name_or_path`` the saved model's own config: no downloads.
+``--backbone_name layoutlmv3-base[-chinese]`` selects the LayoutLMv3 family,
+``layoutxlm-base`` / ``layoutlmv2-base-uncased`` the LayoutLMv2 one. Runs
 on ``cuda`` (the CUDA attention kernels, bf16) unless ``--device cpu`` is
 given; without a GPU and without ``--device`` it raises. Left out (single
 device, one attention path): the mesh, distributed, platform, quantization
@@ -97,10 +100,11 @@ def setup(args, dataset_cls_name: str = "rfund"):
     eval_ds, collator, tokenizer)."""
     import torch
 
-    from .config import LayoutLMv3Config, LiltConfig, PEneoConfig
+    from .config import (LayoutLMv2Config, LayoutLMv3Config, LiltConfig,
+                         PEneoConfig)
     from .data.collator import PEneoCollator
     from .data.datasets import RFUNDDataset, SIBRDataset
-    from .models.peneo import FAMILY_FLAGS, PEneoModel
+    from .models.peneo import PEneoModel
     from .pipeline.infer import load_weights
     from .registry import get_backbone_info, load_tokenizer
 
@@ -135,6 +139,16 @@ def setup(args, dataset_cls_name: str = "rfund"):
                     vocab_size=vocab, pad_token_id=0, coordinate_size=coord,
                     shape_size=(preset["hidden_size"] - 4 * coord) // 2,
                     input_size=64, **preset).to_dict()
+            elif info.family == "layoutlmv2":
+                h = preset["hidden_size"]
+                coord = h // 6
+                full = args.synthetic_model == "base"
+                backbone_config = LayoutLMv2Config(
+                    vocab_size=vocab, pad_token_id=0, coordinate_size=coord,
+                    shape_size=(h - 4 * coord) // 2,
+                    visual_depths=[3, 4, 23, 3] if full else [1, 1, 1, 1],
+                    # the stride-4 p2 map must tile the 7x7 pool: 56 -> 14
+                    input_size=224 if full else 56, **preset).to_dict()
             else:
                 backbone_config = LiltConfig(vocab_size=vocab, pad_token_id=0,
                                              **preset).to_dict()
@@ -153,10 +167,6 @@ def setup(args, dataset_cls_name: str = "rfund"):
     cfg.max_seq_len = args.max_seq_len
     cfg.dtype = args.dtype
     info = get_backbone_info(cfg.backbone_name or args.backbone_name)
-    if info.family not in FAMILY_FLAGS:
-        raise NotImplementedError(
-            f"backbone family {info.family!r} is not ported yet (ported: "
-            f"{sorted(FAMILY_FLAGS)})")
     if tokenizer is None:
         tokenizer = load_tokenizer(info, args.model_name_or_path)
         fetcher = info.tokenizer_fetcher

@@ -241,13 +241,14 @@ def _with_stride(bias, stride):
     return out
 
 
-def _bias_inputs(L, seed, spread=None, text_masked=False, stride="natural"):
+def _bias_inputs(L, seed, spread=None, text_masked=0, stride="natural"):
     """q/k/v (B, nh, L, 64) views of (B, L, nh, 64), an fp32 (B, nh, L, L)
     bias (at the row stride ``stride`` names, see _with_stride), a key mask
-    and an output gradient. ``text_masked``: every key of batch row 0 but
-    the last 197 (the visual tokens) is masked with finfo(f32).min itself,
-    under a bias made negative there (mask + bias would overflow without
-    the kernel's clamp)."""
+    and an output gradient. ``text_masked`` = n: every key of batch row 0
+    but the last n (the visual tokens: 197 for LayoutLMv3, 49 for
+    LayoutLMv2) is masked with finfo(f32).min itself, under a bias made
+    negative there (mask + bias would overflow without the kernel's
+    clamp)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     B, nh = 2, 12
 
@@ -262,15 +263,20 @@ def _bias_inputs(L, seed, spread=None, text_masked=False, stride="natural"):
     bias = torch.randn((B, nh, L, L), generator=gen, device="cuda")
     mask = torch.zeros((B, L), device="cuda")
     if text_masked:
-        mask[0, : L - 197] = torch.finfo(torch.float32).min
-        bias[0, :, :, : L - 197] = -bias[0, :, :, : L - 197].abs() - 1.0
+        n = L - text_masked
+        mask[0, :n] = torch.finfo(torch.float32).min
+        bias[0, :, :, :n] = -bias[0, :, :, :n].abs() - 1.0
     else:
         mask[0, : L // 2] = NEG
     mask[1, L - L // 3:] = NEG
     return qkv, _with_stride(bias, stride), mask, heads()
 
 
-BIAS_CASES = [1, 63, 128, 200, 709, "709-collinear", "709-textmasked"]
+# 709: LayoutLMv3 (512 text + 197 visual tokens); 561: LayoutLMv2 (512 +
+# 49), whose last key tile is ragged (561 = 8·64 + 49) and whose natural
+# bias rows (561 floats) are not 16-byte aligned
+BIAS_CASES = [1, 63, 128, 200, 709, "709-collinear", "709-textmasked", 561,
+              "561-textmasked"]
 STRIDES = ["natural", "padded"]
 
 
@@ -278,7 +284,9 @@ def _bias_case(L):
     if L == "709-collinear":
         return 709, dict(spread=0.1)
     if L == "709-textmasked":
-        return 709, dict(text_masked=True)
+        return 709, dict(text_masked=197)
+    if L == "561-textmasked":
+        return 561, dict(text_masked=49)
     return L, {}
 
 
@@ -312,7 +320,7 @@ def test_bias_kernel_matches_plain_twin_on_card(L, stride):
             rb.bias_attention(q, k, v, bias.transpose(2, 3), mask, 0.125)
 
 
-@pytest.mark.parametrize("L", [1, 63, 128, 200, 709])
+@pytest.mark.parametrize("L", [1, 63, 128, 200, 709, 561])
 def test_bias_packed_keep_flags_on_card(L):
     """Kernel #5's packed keep flags equal pack_keep_mask of
     ``element_dropout_bits < threshold`` word for word, with the in-kernel

@@ -5,7 +5,10 @@ same kv pairs and lines; the port's results do not depend on batch size or
 pipeline depth; and an entry point with no device on a machine without CUDA
 raises instead of running on the CPU. The same parity for a LayoutLMv3
 model (page images, CLS and SEP), whose raw uint8 pages normalized by
-``device_image_normalize`` equal the host-normalized floats bit for bit."""
+``device_image_normalize`` equal the host-normalized floats bit for bit, and
+for a LayoutLMv2 model (BGR 0-255 pages through a one-block-per-stage
+ResNeXt tower). A model directory whose config sets an int8 switch is
+refused, not served in bf16."""
 
 import json
 import os
@@ -17,7 +20,8 @@ import torch
 
 import jax
 
-from peneo_tpu.config import LayoutLMv3Config, LiltConfig, PEneoConfig
+from peneo_tpu.config import (LayoutLMv2Config, LayoutLMv3Config,
+                              LiltConfig, PEneoConfig)
 from peneo_tpu.models.peneo import PEneoModel
 from peneo_tpu.pipeline.infer import InferenceService as JaxService
 from peneo_tpu_torch.config import PEneoConfig as PortConfig
@@ -158,6 +162,100 @@ def test_v3_raw_and_host_normalized_images_are_bit_identical(v3_setup):
     prep = pickle.loads(pickle.dumps(svc.page_preprocessor()))
     again = prep(f"{img_dir}/p0.png", f"{ocr_dir}/p0.json")[0]
     np.testing.assert_array_equal(again["image"], raw)
+
+
+@pytest.fixture(scope="module")
+def v2_setup(serving_setup, tmp_path_factory):
+    """A LayoutLMv2 model directory (56 px image, ResNeXt depths 1-1-1-1)
+    beside the pages of ``serving_setup``: ``pytorch_model.bin`` for the
+    port and the same weights as ``params.msgpack`` for the JAX service,
+    whose torch-checkpoint converter reads only the full-depth tower."""
+    from peneo_tpu.pipeline.checkpoint import save_params_msgpack
+
+    _, img_dir, ocr_dir, tok = serving_setup
+    wdir = str(tmp_path_factory.mktemp("serve_v2") / "weights")
+    cfg = PEneoConfig(
+        backbone_name="layoutxlm-base",
+        backbone_config=LayoutLMv2Config(
+            vocab_size=tok.vocab_size, hidden_size=48, num_hidden_layers=1,
+            num_attention_heads=4, intermediate_size=96, pad_token_id=0,
+            max_position_embeddings=L + 8, coordinate_size=8, shape_size=8,
+            visual_depths=[1, 1, 1, 1], input_size=56).to_dict(),
+        pair_block_size=16, max_seq_len=L, max_spots_per_head=L * L,
+        initializer_range=0.15)
+    cfg.save_pretrained(wdir)
+    tok.save_pretrained(wdir)
+    ids = np.ones((1, L), np.int32)
+    params = jax.device_get(jax.jit(
+        lambda i, b, img: PEneoModel(cfg).init(
+            jax.random.PRNGKey(13), i, b, i, image=img))(
+        ids, np.zeros((1, L, 4), np.int32),
+        np.zeros((1, 3, 56, 56), np.float32))["params"])
+    save_params_msgpack(params, os.path.join(wdir, "params.msgpack"))
+    torch.save(jax_params_to_state_dict(
+        params, PortConfig.from_dict(cfg.to_dict())),
+        os.path.join(wdir, "pytorch_model.bin"))
+    return wdir, img_dir, ocr_dir, tok
+
+
+def test_v2_port_matches_jax_service(v2_setup):
+    wdir, img_dir, ocr_dir, tok = v2_setup
+    svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    assert svc.info.family == "layoutlmv2" and svc.max_token_len == L - 1
+    got = svc.run(img_dir, ocr_dir)
+    want = JaxService(wdir, tokenizer=tok, dtype="float32",
+                      batch_size=2).run(img_dir, ocr_dir)
+    assert set(got) == set(want) and len(want) == 5
+    assert sum(len(v["lines"]) for v in want.values()) > 0
+    assert sum(len(v["kv_pairs"]) for v in want.values()) > 0
+    assert _kv_and_lines(got) == _kv_and_lines(want)
+
+
+def test_v2_raw_and_host_normalized_images_are_bit_identical(v2_setup):
+    """The served uint8 RGB page, flipped to BGR on the device, equals the
+    host loader's BGR 0-255 floats (the port's and the JAX package's)."""
+    from peneo_tpu.data.image_processing import layoutlmv2_preprocess
+    from peneo_tpu_torch.data.image_processing import (
+        device_image_normalize, make_image_loader)
+
+    wdir, img_dir, ocr_dir, tok = v2_setup
+    svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    raw = svc.preprocess_page(f"{img_dir}/p1.png", f"{ocr_dir}/p1.json")[0][
+        "image"]
+    assert raw.dtype == np.uint8 and raw.shape == (56, 56, 3)
+    on_device = device_image_normalize(torch.from_numpy(raw.copy())[None],
+                                       "layoutlmv2")
+    host = make_image_loader(svc.cfg)(f"{img_dir}/p1.png")
+    assert on_device.dtype == torch.float32 and host.dtype == np.float32
+    np.testing.assert_array_equal(on_device[0].numpy(), host)
+    np.testing.assert_array_equal(
+        host, layoutlmv2_preprocess(f"{img_dir}/p1.png", 56))
+    np.testing.assert_array_equal(host[0], raw[..., 2])  # B of RGB first
+    assert len(np.unique(raw)) > 1  # the page is not blank
+
+
+@pytest.mark.parametrize("switch", ["quantize_pair_head",
+                                    "quantize_backbone"])
+def test_int8_switches_are_refused(serving_setup, tmp_path, switch):
+    """The JAX package serves such a directory with int8 matmuls; the port
+    has none, so the model and the service raise at construction."""
+    import shutil
+
+    wdir, _, _, tok = serving_setup
+    int8_dir = str(tmp_path / "int8")
+    shutil.copytree(wdir, int8_dir)
+    cfg = PortConfig.from_pretrained(int8_dir)
+    setattr(cfg, switch, "int8")
+    cfg.save_pretrained(int8_dir)
+    from peneo_tpu_torch.models.peneo import PEneoModel as PortModel
+
+    with pytest.raises(NotImplementedError, match=switch):
+        PortModel(cfg)
+    with pytest.raises(NotImplementedError, match=switch):
+        InferenceService(int8_dir, tokenizer=tok, dtype="float32",
+                         device="cpu")
 
 
 def _kv_and_lines(results):

@@ -10,7 +10,8 @@ every batch, where the three relative-position bucket tables after the 4
 steps are compared too: they hold the table gradients (``RelBias``'s one-hot
 products against XLA's scatter-add) and the weight-decay groups (the
 tables, ``norm.weight``, ``cls_token`` and ``pos_embed`` are decayed,
-``LayerNorm.weight`` is not)."""
+``LayerNorm.weight`` is not), and LayoutLMv2's decay groups against the
+JAX package's decay mask, name by name."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from peneo_tpu.config import LayoutLMv3Config, LiltConfig, PEneoConfig
+from peneo_tpu.config import (LayoutLMv2Config, LayoutLMv3Config,
+                              LiltConfig, PEneoConfig)
 from peneo_tpu.models.peneo import PEneoModel
 from peneo_tpu.pipeline.train import create_train_state, jit_train_step, \
     linear_schedule as jax_schedule, make_optimizer as jax_optimizer
@@ -233,6 +235,53 @@ def test_v3_parameter_groups():
                  "embeddings.LayerNorm.weight",
                  "encoder.layer.1.output.LayerNorm.weight"):
         assert "backbone." + name in no_decay, name
+
+
+def test_v2_parameter_groups_match_jax_decay_mask():
+    """Each LayoutLMv2 parameter decays iff the JAX optimizer's mask decays
+    its leaf (``q_bias`` / ``v_bias`` do, ``visual_LayerNorm`` and the
+    frozen norms' bias do not)."""
+    from jax.tree_util import DictKey
+
+    from peneo_tpu.pipeline.train import _is_no_decay
+
+    cfg = PEneoConfig(
+        backbone_name="layoutxlm-base",
+        backbone_config=LayoutLMv2Config(
+            vocab_size=120, hidden_size=48, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64, coordinate_size=8,
+            shape_size=8, visual_depths=[1, 1, 1, 1]).to_dict(),
+        max_seq_len=L)
+    port = PortModel(PortConfig.from_dict(cfg.to_dict()))
+    optimizer, _ = T.make_optimizer(port, lr=1e-3, total_steps=10)
+    no_decay = set().union(*(set(g["names"]) for g in optimizer.param_groups
+                             if g["weight_decay"] == 0))
+    names = {n for n, _ in port.named_parameters()}
+    tower = "backbone.visual.backbone."
+    self_attn = "backbone.encoder.layer.0.attention.self."
+    pairs = {
+        self_attn + "q_bias": ("layer_0", "q_bias"),
+        self_attn + "v_bias": ("layer_0", "v_bias"),
+        self_attn + "qkv_linear.weight": ("layer_0", "qkv_linear", "kernel"),
+        "backbone.visual_LayerNorm.weight": ("visual_LayerNorm", "scale"),
+        "backbone.visual_LayerNorm.bias": ("visual_LayerNorm", "bias"),
+        "backbone.visual_proj.weight": ("visual_proj", "kernel"),
+        "backbone.embeddings.LayerNorm.weight":
+            ("embeddings", "LayerNorm", "scale"),
+        "backbone.encoder.rel_pos_x_bias.weight": ("rel_pos_x_bias",),
+        "backbone.encoder.layer.0.output.LayerNorm.weight":
+            ("layer_0", "output_LayerNorm", "scale"),
+        tower + "bottom_up.stem.conv1.weight":
+            ("visual_backbone", "stem", "conv", "kernel"),
+        tower + "bottom_up.res3.0.conv2.norm.bias":
+            ("visual_backbone", "res3_0", "conv2", "conv", "bias"),
+        tower + "fpn_output2.bias":
+            ("visual_backbone", "fpn_output2", "conv", "bias"),
+    }
+    for name, path in pairs.items():
+        assert name in names, name
+        want = _is_no_decay(tuple(DictKey(k) for k in ("backbone",) + path))
+        assert (name in no_decay) == want, name
 
 
 def test_parameter_groups():

@@ -6,7 +6,10 @@ feed position of the last checkpoint; ``evaluate()`` on the saved weights
 gives the JAX ``PEneoTrainer.evaluate``'s KVPE metrics and losses (fp32,
 losses rtol 1e-5; batches of 6 with a ragged, edge-padded last one against
 JAX's 8); the saved ``pytorch_model.bin`` loads through the JAX
-``load_params`` into arrays equal to the port's."""
+``load_params`` into arrays equal to the port's. The same entry point
+trains, evaluates and saves LayoutLMv3 and LayoutXLM models (rendered page
+images), whose saved directories serve a page, and whose evaluation equals
+the JAX trainer's."""
 
 import json
 import os
@@ -247,7 +250,105 @@ def test_v3_evaluate_matches_jax_trainer(trained_v3, tmp_path):
             assert ours[key] == value, key
 
 
-def test_layoutlmv2_family_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="layoutlmv2"):
-        run_rfund.main([*CLI, "--backbone_name", "layoutxlm-base",
-                        "--max_steps", "1", "--output_dir", str(tmp_path)])
+# ------------------------------------------------------------- LayoutLMv2
+V2_CLI = [*CLI, "--backbone_name", "layoutxlm-base"]
+
+
+@pytest.fixture(scope="module")
+def trained_v2(tmp_path_factory):
+    """The LayoutXLM family through the same entry point, in process: the
+    synthetic corpus with rendered pages, the tiny preset with a 56 px
+    image through one block per ResNeXt stage (49 visual tokens)."""
+    out = str(tmp_path_factory.mktemp("run_v2"))
+    metrics = run_rfund.main([*V2_CLI, "--max_steps", "2", "--do_eval",
+                              "--dtype", "float32", "--output_dir", out])
+    return out, metrics
+
+
+def test_v2_cli_trains_evaluates_saves_and_the_directory_serves(trained_v2):
+    from peneo_tpu_torch.data.synthetic import ToyTokenizer
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    out, metrics = trained_v2
+    recs = _records(out)
+    steps = [r for r in recs if "loss/total" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss/total"]) for r in steps)
+    assert steps[-1]["nonfinite_loss_steps"] == 0
+    assert [r["step"] for r in recs if "eval/f1" in r] == [2]
+    assert metrics["num_sample_processed"] == 16
+    assert np.isfinite(metrics["loss_total"])
+    with open(os.path.join(out, "config.json")) as f:
+        bc = json.load(f)["backbone_config"]
+    assert bc["visual_depths"] == [1, 1, 1, 1] and bc["input_size"] == 56
+    sd = torch.load(os.path.join(out, "pytorch_model.bin"), weights_only=True)
+    tower = "backbone.visual.backbone.bottom_up."
+    assert "backbone.encoder.layer.1.attention.self.qkv_linear.weight" in sd
+    assert tower + "res5.0.conv3.norm.running_var" in sd
+    # the frozen norms' statistics stay as they were; their bias trained
+    assert torch.equal(sd[tower + "stem.conv1.norm.running_mean"],
+                       torch.zeros(64))
+    assert sd[tower + "stem.conv1.norm.bias"].abs().max() > 0
+
+    data = os.path.join(out, "synthetic_data")
+    with open(os.path.join(data, "en.val.json")) as f:
+        doc = json.load(f)["documents"][0]
+    ocr = os.path.join(out, "page.json")
+    with open(ocr, "w") as f:
+        json.dump([{"text": ln["text"], "bbox": ln["bbox"]}
+                   for e in doc["entities"] for ln in e["lines"]], f)
+    svc = InferenceService(out, tokenizer=ToyTokenizer(), dtype="float32",
+                           batch_size=1, max_seq_len=L, device="cpu")
+    res = svc.run(os.path.join(data, "images", "en", doc["img"]["fname"]),
+                  ocr)
+    [record] = res.values()
+    assert isinstance(record["kv_pairs"], list)
+    assert isinstance(record["lines"], list)
+
+
+def test_v2_evaluate_matches_jax_trainer(trained_v2, tmp_path):
+    """KVPE metrics equal and losses rtol 1e-5 (fp32) on the 16 dev pages
+    with their images, the JAX trainer on the port's saved weights (its
+    torch-checkpoint converter reads only the full-depth tower, so the
+    port's ``state_dict_to_jax_params`` carries them)."""
+    from peneo_tpu.data.image_processing import make_image_loader
+    from peneo_tpu_torch.config import PEneoConfig
+
+    trained = trained_v2[0]
+    args = run_rfund.build_argparser().parse_args(
+        [*V2_CLI, "--model_name_or_path", trained, "--output_dir",
+         str(tmp_path / "port"), "--dtype", "float32"])
+    cfg, model, _, eval_ds, collator, _ = run_rfund.setup(args)
+    ours = PEneoTrainer(
+        cfg, model, TrainingArguments(
+            output_dir=str(tmp_path / "port"), per_device_eval_batch_size=6,
+            detail_eval=True, device="cpu"),
+        eval_dataset=eval_ds, collator=collator).evaluate()
+
+    jcfg = JaxConfig.from_pretrained(trained)
+    jcfg.max_seq_len = L
+    data = os.path.join(trained, "synthetic_data")
+    jds = JaxRFUND(data, "dev", "en", tokenizer=JaxToy(),
+                   tokenizer_fetcher=jax_fetch, max_token_len=L - 1,
+                   add_cls_token=True)
+    params = state_dict_to_jax_params(
+        torch.load(os.path.join(trained, "pytorch_model.bin"),
+                   weights_only=True), PEneoConfig.from_pretrained(trained))
+    theirs = JaxTrainer(
+        jcfg, JaxModel(jcfg), JaxArgs(
+            output_dir=str(tmp_path / "jax"), per_device_eval_batch_size=1,
+            detail_eval=True),
+        eval_dataset=jds,
+        collator=JaxCollator(max_seq_len=L, labels_as_spots=True,
+                             image_loader=make_image_loader(jcfg)),
+        params=params).evaluate()
+
+    assert ours["num_sample_processed"] == theirs["num_sample_processed"] == 16
+    for key, value in theirs.items():
+        if key == "eval_samples_per_second":
+            continue
+        if key.startswith("loss_"):
+            np.testing.assert_allclose(ours[key], value, rtol=1e-5,
+                                       err_msg=key)
+        else:
+            assert ours[key] == value, key
