@@ -136,9 +136,37 @@ gain, so that p2 stays of order 1):
    gradient error is reported.
 24. train_breakdown_v2 — as 18, plus the tower's forward and forward +
    backward device time.
-25. the ``kernels`` line (all six; ``launches`` sums every path's serving
-   and training runs, the phase lines give each path's), then the final
-   ``{"ok": true, ...}``.
+``steps_per_call``: K = 4 fine-tuning steps as one CUDA graph replay, for
+the three families at full width (the counts reset in each phase):
+
+25. kernel_seed — kernels #2 (L = 512) and #5 (L' = 709 and 561) at B=8,
+   rate 0.1 with the seed in device memory: the packed keep flags equal
+   those of the same seed by value, bit for bit; in a CUDA graph that
+   advances the seed before the launch, two replays give different flags,
+   each equal to the by-value flags of the seed it read. And
+   ``torch.utils.checkpoint`` in a graph: a checkpointed dropout's
+   recompute sees the forward's mask (its gradient is mask·2·wᵀ), on two
+   replays with different masks.
+26. train_graph_parity — per family, dropout 0, the same state and 4
+   batches: 4 of the trainer's K = 1 steps, then one replay: losses within
+   1e-4 relative, learning rates equal, every fp32 master parameter within
+   1e-5 (bit-identical expected).
+27-29. train_graph, train_graph_v3, train_graph_v2 — ``run_rfund`` with
+   ``--steps_per_call 4`` on the K = 1 phase's arguments, 96 steps logged
+   every 16, dropout 0.1, eval and save at the end: the logged steps,
+   finite losses, no non-finite step, the wrappers of #2/#3 (or #5/#6)
+   called 12 times per step of the first call (its eager warm-up and its
+   capture), #1 (or #4) 12 times per eval forward, the saved directory
+   serves a page; ms/step over steps 49-96 beside the K = 1 phase's, peak
+   memory, and one profiled replay of the saved model's graph: its trace
+   holds 12 launches per step of each of the family's mask, forward, dq
+   and dk/dv kernels and none of the others; device busy ms per step and
+   the idle share; the feed thread's host ms per step (collate with the
+   page images' decode, stack, pin).
+30. the ``kernels`` line (all six; ``launches`` sums every path's serving
+   and training runs: the wrappers' counts, and for the graph runs also
+   the profiled replay's launches read from its trace; the phase lines
+   give each path's), then the final ``{"ok": true, ...}``.
 
 Every phase also prints its seconds.
 """
@@ -147,6 +175,7 @@ import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -273,8 +302,6 @@ def kernel_resources(log, occupancy):
     bytes from the ptxas report ``log`` (``-Xptxas=-v``: an "entry
     function" line with the mangled name, then "bytes stack frame, … spill
     stores, … spill loads", then "Used N registers, … bytes smem")."""
-    import re
-
     found = {}
     entry = None
     for line in log.splitlines():
@@ -1050,7 +1077,7 @@ def phase_train(ba, tmp):
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {ba.biacm_attention_cuda.launches} "
                            "launches of kernel #1")
-    emit({"phase": "train", "steps": TRAIN_STEPS, "batch_size": TRAIN_B,
+    record = {"phase": "train", "steps": TRAIN_STEPS, "batch_size": TRAIN_B,
           "L": L, "dropout": DROP, "launches": launches,
           "ms_per_step": ms_step, "samples_per_s": TRAIN_B / (ms_step / 1e3),
           "ms_per_step_window": [LOG_EVERY + 1, TRAIN_STEPS],
@@ -1062,8 +1089,9 @@ def phase_train(ba, tmp):
           "grad_norms": [r["loss/grad_norm"] for r in steps],
           "eval": {k[len("eval/"):]: v for k, v in evals[0].items()
                    if k.startswith("eval/")},
-          "wall_seconds": wall, "served_pages": len(served)})
-    return launches, out
+          "wall_seconds": wall, "served_pages": len(served), "argv": argv}
+    emit(record)
+    return launches, out, record
 
 
 def train_batch(out):
@@ -1930,7 +1958,7 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {rb.bias_attention_cuda.launches} "
                            "launches of kernel #4")
-    emit({"phase": f"train_{tag}", "steps": TRAIN_STEPS,
+    record = {"phase": f"train_{tag}", "steps": TRAIN_STEPS,
           "batch_size": TRAIN_B, "L": L,
           "attention_length": LV2 if v2 else LV, "dropout": DROP,
           "launches": launches, "ms_per_step": ms_step,
@@ -1944,14 +1972,16 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
           "grad_norms": [r["loss/grad_norm"] for r in steps],
           "eval": {k[len("eval/"):]: v for k, v in evals[0].items()
                    if k.startswith("eval/")},
-          "wall_seconds": wall, "served_pages": len(served)})
-    return launches, out
+          "wall_seconds": wall, "served_pages": len(served), "argv": argv}
+    emit(record)
+    return launches, out, record
 
 
 def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
     """A rel-bias family's main path at full width and depth (``tag`` "v3":
     LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown, then train,
-    train_parity and train_breakdown. Returns its launch counts."""
+    train_parity and train_breakdown. Returns its launch counts, the train
+    phase's line and its output directory."""
     import torch
 
     v2 = tag == "v2"
@@ -1962,7 +1992,7 @@ def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
           profile_dir, tag)
     del svc
     torch.cuda.empty_cache()
-    train_launches, train_out = timed(
+    train_launches, train_out, train_record = timed(
         f"train_{tag}", phase_train_rel, rb, ba, tmp, wdir, v2)
     model, batch = train_batch(train_out)
     timed(f"train_parity_{tag}", phase_train_parity, rb, model, batch, tag)
@@ -1970,7 +2000,424 @@ def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
           profile_dir, tag)
     del model, batch
     torch.cuda.empty_cache()
-    return {"serve": serve_launches, "train": train_launches}
+    return {"serve": serve_launches, "train": train_launches,
+            "train_record": train_record, "train_out": train_out,
+            "wdir": wdir}
+
+
+# ------------------------------------------------------------------------
+# steps_per_call: K fine-tuning steps as one CUDA graph replay
+# ------------------------------------------------------------------------
+
+GRAPH_K = 4
+# the graph phases: six logs (every 16 steps), eval and save at 96; ms/step
+# over steps 49-96: the feed thread holds at most three groups (12 steps)
+# ready, so by step 48 a feed slower than the replays has spent them
+GRAPH_STEPS, GRAPH_LOG, GRAPH_FROM = 96, 16, 48
+# the trainer's K = 1 steps against one replay of the K-step graph from the
+# same state and batches, dropout 0: the same kernels in the same order, so
+# the expectation is bit-identical; the gates leave room for a library
+# choosing another algorithm under capture
+GRAPH_LOSS_RTOL = 1e-4
+GRAPH_PARAM_ATOL = 1e-5
+
+
+def phase_kernel_seed(ba, rb):
+    """Kernels #2 and #5 with the seed in device memory (a 0-d int64 CUDA
+    tensor), at the main path's shapes and rate 0.1: the packed keep flags
+    equal those of the same seed by value, bit for bit; in a CUDA graph that
+    advances the seed before the launch, two replays give different flags,
+    each equal to the host seed's for the value it read. Also the CUDA
+    graph with ``torch.utils.checkpoint``: a checkpointed dropout captured
+    in a graph, whose recompute in the backward must see the forward's
+    mask, on two replays."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = {}
+    for name, length in (("biacm_attention_train_fwd", L),
+                         ("bias_attention_train_fwd", LV),
+                         ("bias_attention_train_fwd", LV2)):
+        if name.startswith("biacm"):
+            qkv, bias = attention_inputs(TRAIN_B, length, [], gen)
+
+            def keep(rng, qkv=qkv, bias=bias):
+                return ba.biacm_attention_train_fwd_cuda(
+                    *qkv, bias, rng, 0.125, 0.25, DROP)[3]
+        else:
+            qkv, bias, mask = bias_inputs(TRAIN_B, length, [], gen)
+            bias = relbias_layout(bias)
+
+            def keep(rng, qkv=qkv, bias=bias, mask=mask):
+                return rb.bias_attention_train_fwd_cuda(
+                    *qkv, bias, mask, rng, 0.125, DROP)[2]
+        seed = 1_000_003 * length + (1 << 40)
+        by_value = keep(seed)
+        on_card = torch.tensor(seed, dtype=torch.int64, device="cuda")
+        equal = torch.equal(by_value, keep(on_card))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            on_card.add_(1)
+            flags = keep(on_card)
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            replays.append(flags.clone())
+        torch.cuda.synchronize()
+        per_replay = [torch.equal(r, keep(seed + i + 1))
+                      for i, r in enumerate(replays)]
+        fresh = not torch.equal(replays[0], replays[1])
+        cases[f"{name}@{length}"] = {
+            "device_seed_equal": equal, "replays_equal_host": per_replay,
+            "replays_differ": fresh,
+            "kept_share": unpack_share(ba, replays[0], length)}
+        if not (equal and all(per_replay) and fresh):
+            raise RuntimeError(f"{name} at L = {length}: device seed "
+                               f"{cases[f'{name}@{length}']}")
+        del graph, flags, replays
+
+    # checkpoint's saved RNG state under capture: the recompute's dropout
+    # mask must be the forward's (the gradient is mask / (1 - p) · wᵀ)
+    x = torch.randn((64, 256), device="cuda", generator=gen,
+                    requires_grad=True)
+    w = torch.randn((256, 256), device="cuda", generator=gen) / 16
+
+    def drop(a):
+        return F.dropout(a @ w, 0.5, True)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        checkpoint(drop, x, use_reentrant=False).sum().backward()
+    torch.cuda.current_stream().wait_stream(side)
+    x.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = checkpoint(drop, x, use_reentrant=False)
+        y.sum().backward()
+    ckpt = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ((y != 0).float() * 2.0) @ w.t()
+        ckpt.append({"grad_max_abs_err": (x.grad - want).abs().max().item(),
+                     "mask": (y != 0).clone()})
+    ckpt_fresh = not torch.equal(ckpt[0]["mask"], ckpt[1]["mask"])
+    errs = [c["grad_max_abs_err"] for c in ckpt]
+    emit({"phase": "kernel_seed", "rate": DROP, "batch_size": TRAIN_B,
+          "cases": cases, "checkpoint_in_graph": {
+              "grad_max_abs_err": errs, "masks_differ": ckpt_fresh}})
+    if max(errs) > 1e-4 or not ckpt_fresh:
+        raise RuntimeError("a checkpointed dropout in a CUDA graph: the "
+                           f"recompute's mask differs (errors {errs}) or "
+                           f"replays repeat it ({not ckpt_fresh})")
+
+
+def unpack_share(ba, flags, length):
+    """The kept share of packed keep flags."""
+    return ba.unpack_keep_mask(flags, length).float().mean().item()
+
+
+def graph_model_dir(model_dir, dst, dropout):
+    """``model_dir``'s weights and tokenizer under a config whose hidden and
+    attention dropout is ``dropout`` (files linked, config rewritten)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(model_dir):
+        src = os.path.join(model_dir, name)
+        if name != "config.json" and os.path.isfile(src):
+            os.symlink(src, os.path.join(dst, name))
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["backbone_config"]["hidden_dropout_prob"] = dropout
+    cfg["backbone_config"]["attention_probs_dropout_prob"] = dropout
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return dst
+
+
+def graph_setup(data_dir, model_dir):
+    """The model of ``model_dir`` on the card, its optimizer, a group of
+    GRAPH_K training batches (leading axis K) from the synthetic corpus
+    under ``data_dir`` on the card, and the host milliseconds per step of
+    the trainer's feed thread for that group once its items are parsed (the
+    feed caches them): collate (page images decoded and resized there),
+    stack, copy to pinned memory."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import stack_batches, \
+        to_host_tensors, tree_map
+
+    args = run_rfund.build_argparser().parse_args(
+        ["--synthetic_data", "--model_name_or_path", model_dir,
+         "--output_dir", data_dir, "--max_seq_len", str(L)])
+    _, model, train_ds, _, collator, _ = run_rfund.setup(args)
+    model.cuda()
+    items = [[train_ds[j * TRAIN_B + i] for i in range(TRAIN_B)]
+             for j in range(GRAPH_K)]
+    t0 = time.perf_counter()
+    host = to_host_tensors(stack_batches([collator(x) for x in items]),
+                           pin=True)
+    feed_ms = (time.perf_counter() - t0) / GRAPH_K * 1e3
+    group = tree_map(lambda t: t.cuda(), host)
+    # 8 steps with 2 of warmup: the first four rates are 0, 2.5e-5, 5e-5
+    # and 4.2e-5, so that every step moves the parameters
+    optimizer, scheduler = T.make_optimizer(
+        model, 5e-5, 8, warmup_ratio=0.25, downstream_speedup_ratio=30.0)
+    return model, group, optimizer, scheduler, feed_ms
+
+
+def phase_train_graph_parity(families, tmp):
+    """For each family (LiLT, LayoutLMv3, LayoutXLM at full width, B=8,
+    every dropout 0): from one state and the same GRAPH_K batches, GRAPH_K
+    of the trainer's K = 1 steps (``train_step``), then one replay of the
+    K-step graph from that state again: the per-step losses within
+    GRAPH_LOSS_RTOL, the learning rates equal, every fp32 master parameter
+    within GRAPH_PARAM_ATOL."""
+    import torch
+
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import tree_map
+
+    names3 = ("total", "learning_rate", "grad_norm")
+    out = {}
+    for tag, (data_dir, model_dir) in families.items():
+        free = graph_model_dir(model_dir, os.path.join(tmp, f"free_{tag}"),
+                               0.0)
+        model, group, optimizer, scheduler, _ = graph_setup(data_dir, free)
+        names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                              if p.requires_grad])
+        start = [p.detach().clone() for p in params]
+        gen = torch.Generator().manual_seed(SEED)
+
+        def reset():  # in place: the graph keeps these tensors
+            with torch.no_grad():
+                for p, s in zip(params, start):
+                    p.copy_(s)
+            for state in optimizer.state.values():
+                for v in state.values():
+                    v.zero_()
+            scheduler.count.zero_()
+
+        def eager():
+            reset()
+            rows = [T.train_step(model, optimizer, scheduler,
+                                 tree_map(lambda t, k=k: t[k], group),
+                                 1.0, gen, torch.bfloat16)
+                    for k in range(GRAPH_K)]
+            return ({k: [float(m[k]) for m in rows] for k in names3},
+                    [p.detach().clone() for p in params])
+
+        def compare(a, b, pa, pb):
+            diffs = sorted(((x - y).abs().max().item(), n)
+                           for n, x, y in zip(names, pa, pb))
+            return {"loss_max_rel_diff": max(
+                        abs(x - y) / abs(y)
+                        for x, y in zip(a["total"], b["total"])),
+                    "learning_rates_equal":
+                        a["learning_rate"] == b["learning_rate"],
+                    "param_max_abs_diff": diffs[-1][0],
+                    "bit_identical": diffs[-1][0] == 0.0 and a == b,
+                    "differing_params": [[n, d] for d, n in diffs[-5:]
+                                         if d > 0]}
+
+        steps, reference = eager()
+        step_fn = T.MultiTrainStep(model, optimizer, scheduler, GRAPH_K, 1.0,
+                                   gen, torch.bfloat16, SEED)
+        reset()
+        step_fn(group)  # the warm-up's eager steps, then the capture
+        reset()
+        t0 = time.perf_counter()
+        step_fn(group)  # one replay
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        graph = {k: step_fn.per_step[k].tolist() for k in names3}
+        graph_params = [p.detach().clone() for p in params]
+        gate = compare(graph, steps, graph_params, reference)
+        out[tag] = {"eager": steps, "graph": graph, **gate,
+                    "replay_seconds": replay_s}
+        if gate["loss_max_rel_diff"] > GRAPH_LOSS_RTOL \
+                or not gate["learning_rates_equal"] \
+                or gate["param_max_abs_diff"] > GRAPH_PARAM_ATOL:
+            raise RuntimeError(f"{tag}: the K-step graph differs from K "
+                               f"eager steps: {out[tag]}")
+        del model, group, optimizer, scheduler, step_fn, start, reference, \
+            graph_params
+        torch.cuda.empty_cache()
+    emit({"phase": "train_graph_parity", "steps_per_call": GRAPH_K,
+          "batch_size": TRAIN_B, "dropout": 0.0, "families": out})
+
+
+# the kernels of each family's training step (``<<<...>>>`` in
+# csrc/*_train.cu: the mask kernel and the forward per call of the forward
+# wrapper, dq and dk/dv per call of the backward wrapper), and the serving
+# forwards' kernels, as a trace names them
+STEP_KERNELS = {
+    "": ("biacm_keep_mask_kernel", "biacm_train_fwd_kernel",
+         "biacm_train_dq_kernel", "biacm_train_dkdv_kernel"),
+    "rel": ("bias_keep_mask_kernel", "bias_train_fwd_kernel",
+            "bias_train_dq_kernel", "bias_train_dkdv_kernel")}
+EVAL_KERNELS = ("biacm_fwd_kernel", "bias_fwd_kernel")
+
+
+def trace_launches(rows):
+    """Launches of each of the port's kernels in a trace's device rows."""
+    names = [*STEP_KERNELS[""], *STEP_KERNELS["rel"], *EVAL_KERNELS]
+    return {name: sum(n for key, _, n in rows
+                      if re.search(rf"\b{name}\b", key))
+            for name in names}
+
+
+def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
+    """``run_rfund.main`` with ``--steps_per_call GRAPH_K``: the arguments
+    ``argv`` of the family's K = 1 train phase (``eager``: its line) with
+    GRAPH_STEPS steps, logged every GRAPH_LOG, eval and save at the end.
+    Gates: the logged steps, finite losses, no non-finite step, the
+    training wrappers #2/#3 (LiLT) or #5/#6 called 12 times per step of the
+    first call (its K eager warm-up steps, then the K steps it captures)
+    and no other training wrapper, #1 / #4 12 times per eval forward, and
+    the saved directory serves one page. Then one replay of the K-step
+    graph of the saved model, profiled: its trace must hold 12 launches per
+    step of each of the family's four kernels (mask, forward, dq, dk/dv)
+    and none of the other family's or of the serving forwards; device busy
+    ms per step and the idle share; and the feed thread's host ms per step
+    (for the visual families it decodes the page images: a floor under
+    ms/step that no graph removes). Returns the launches for the
+    ``kernels`` line: the wrappers' counts of the run, plus the profiled
+    replay's from its trace (the run's other replays are not traced)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    name = f"train_graph_{tag}" if tag else "train_graph"
+    out = os.path.join(tmp, name)
+    argv = list(argv) + ["--output_dir", out, "--max_steps", str(GRAPH_STEPS),
+                         "--logging_steps", str(GRAPH_LOG),
+                         "--eval_steps", str(GRAPH_STEPS),
+                         "--save_steps", str(GRAPH_STEPS),
+                         "--steps_per_call", str(GRAPH_K)]
+    wrappers = {"fwd": ba.biacm_attention_train_fwd_cuda,
+                "bwd": ba.biacm_attention_train_bwd_cuda,
+                "eval": ba.biacm_attention_cuda,
+                "rel_fwd": rb.bias_attention_train_fwd_cuda,
+                "rel_bwd": rb.bias_attention_train_bwd_cuda,
+                "rel_eval": rb.bias_attention_cuda}
+    own = ("rel_fwd", "rel_bwd", "rel_eval") if tag else ("fwd", "bwd",
+                                                         "eval")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run_rfund.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    launches = dict(zip(("fwd", "bwd", "eval"), (counts[k] for k in own)))
+    others = sum(counts.values()) - sum(launches.values())
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss/total" in r]
+    evals = [r for r in records if "eval/f1" in r]
+    losses = [r["loss/total"] for r in steps]
+    logged = list(range(GRAPH_LOG, GRAPH_STEPS + 1, GRAPH_LOG))
+    if [r["step"] for r in steps] != logged \
+            or not all(map(math.isfinite, losses)) \
+            or steps[-1]["nonfinite_loss_steps"] != 0:
+        raise RuntimeError(f"logged steps {[r['step'] for r in steps]} (want "
+                           f"{logged}), losses {losses}, non-finite steps "
+                           f"{[r['nonfinite_loss_steps'] for r in steps]}")
+    layers, n_dev = 12, 16
+    eval_forwards = math.ceil(n_dev / TRAIN_B)
+    # the first call's K warm-up steps and the K steps it captures
+    want = {"fwd": layers * 2 * GRAPH_K, "bwd": layers * 2 * GRAPH_K,
+            "eval": layers * eval_forwards}
+    if launches != want or others:
+        raise RuntimeError(f"wrappers called {launches} (+{others} of other "
+                           f"wrappers) over the first call's warm-up and "
+                           f"capture and {eval_forwards} eval forwards, "
+                           f"expected {want}")
+    if len(evals) != 1 or evals[0]["eval/num_sample_processed"] != n_dev:
+        raise RuntimeError(f"eval records {evals}: expected one over "
+                           f"{n_dev} dev pages")
+    times = {r["step"]: r["time"] for r in steps}
+    ms_step = ((times[GRAPH_STEPS] - times[GRAPH_FROM])
+               / (GRAPH_STEPS - GRAPH_FROM) * 1e3)
+    intervals = [(b["time"] - a["time"]) / GRAPH_LOG * 1e3
+                 for a, b in zip(steps, steps[1:])]
+
+    img_dir = os.path.join(tmp, f"one_img_{name}")
+    ocr_dir = os.path.join(tmp, f"one_ocr_{name}")
+    write_pages(img_dir, ocr_dir, n_pages=1)
+    svc = InferenceService(out, batch_size=1, dtype="bfloat16")
+    serve_fn = wrappers[own[2]]
+    serve_fn.launches = 0
+    served = svc.run(img_dir, ocr_dir)
+    torch.cuda.synchronize()
+    if serve_fn.launches != layers or len(served) != 1:
+        raise RuntimeError(f"the trained model served {len(served)} pages "
+                           f"with {serve_fn.launches} launches")
+    del svc
+
+    # one replay of the saved model's K-step graph, profiled (the same
+    # dropout as the run): what the card launched, read from the trace
+    model, group, optimizer, scheduler, feed_ms = graph_setup(out, out)
+    step_fn = T.MultiTrainStep(model, optimizer, scheduler, GRAPH_K, 1.0,
+                               None, torch.bfloat16, SEED)
+    step_fn(group)  # warm-up and capture
+    step_fn(group)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(group)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy_ms = device_rows(prof, replay_ms, profile_dir, name)
+    traced = trace_launches(rows)
+    family = STEP_KERNELS["rel" if tag else ""]
+    want_traced = {k: (layers * GRAPH_K if k in family else 0)
+                   for k in traced}
+    if traced != want_traced:
+        raise RuntimeError(f"the profiled replay launched {traced}, "
+                           f"expected {want_traced}")
+    del model, group, optimizer, scheduler, step_fn
+    torch.cuda.empty_cache()
+    emit({"phase": name, "steps": GRAPH_STEPS, "steps_per_call": GRAPH_K,
+          "batch_size": TRAIN_B, "L": L, "dropout": DROP,
+          "wrapper_calls": launches, "replay_trace_launches": traced,
+          "ms_per_step": ms_step,
+          "samples_per_s": TRAIN_B / (ms_step / 1e3),
+          "ms_per_step_window": [GRAPH_FROM + 1, GRAPH_STEPS],
+          "ms_per_step_intervals": intervals,
+          "eager_ms_per_step": eager["ms_per_step"],
+          "eager_ms_per_step_intervals": eager["ms_per_step_intervals"],
+          "profiled_replay_ms_per_step": replay_ms / GRAPH_K,
+          "device_busy_ms_per_step": busy_ms / GRAPH_K,
+          "device_idle_share": 1 - busy_ms / replay_ms,
+          "feed_thread_ms_per_step": feed_ms,
+          "max_memory_allocated": peak,
+          "max_memory_reserved": peak_reserved,
+          "eager_max_memory_allocated": eager["max_memory_allocated"],
+          "logged_steps": logged, "losses": losses,
+          "nonfinite_loss_steps": steps[-1]["nonfinite_loss_steps"],
+          "learning_rates": [r["loss/learning_rate"] for r in steps],
+          "eval": {k[len("eval/"):]: v for k, v in evals[0].items()
+                   if k.startswith("eval/")},
+          "wall_seconds": wall, "served_pages": len(served),
+          "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:8]]})
+    return {"fwd": launches["fwd"] + traced[family[1]],
+            "bwd": launches["bwd"] + traced[family[2]],
+            "eval": launches["eval"], "ms_per_step": ms_step}
 
 
 def timed(name, fn, *a, **kw):
@@ -2063,7 +2510,8 @@ def main(argv=None):
         timed("breakdown", phase_breakdown, svc, img_dir, ocr_dir,
               args.profile)
         del svc
-        train_launches, train_out = timed("train", phase_train, ba, tmp)
+        train_launches, train_out, train_record = timed(
+            "train", phase_train, ba, tmp)
         model, batch = train_batch(train_out)
         timed("train_parity", phase_train_parity, ba, model, batch)
         timed("train_breakdown", phase_train_breakdown, model, batch,
@@ -2075,13 +2523,33 @@ def main(argv=None):
                                    args.profile, "v3")
         launches_v2 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v2")
+
+        # steps_per_call: K fine-tuning steps as one CUDA graph replay
+        timed("kernel_seed", phase_kernel_seed, ba, rb)
+        timed("train_graph_parity", phase_train_graph_parity,
+              {"lilt": (train_out, train_out),
+               "v3": (launches_v3["train_out"],) * 2,
+               "v2": (launches_v2["train_out"],) * 2}, tmp)
+        graph = {"": timed("train_graph", phase_train_graph, rb, ba, tmp,
+                           train_record["argv"], train_record, "",
+                           args.profile)}
+        for tag, path in (("v3", launches_v3), ("v2", launches_v2)):
+            graph[tag] = timed(
+                f"train_graph_{tag}", phase_train_graph, rb, ba, tmp,
+                path["train_record"]["argv"], path["train_record"], tag,
+                args.profile)
     # launches on every path: serving, and the training runs (with their
-    # eval forwards)
-    launches += train_launches["biacm_attention"]
+    # eval forwards); for the K-step graph runs, the wrappers' calls (the
+    # warm-up and the capture) and one profiled replay's from its trace
+    launches += train_launches["biacm_attention"] + graph[""]["eval"]
+    for k in ("fwd", "bwd"):
+        train_launches[k] += graph[""][k]
     bias_launches = sum(p["serve"] + p["train"]["bias_attention"]
-                        for p in (launches_v3, launches_v2))
+                        for p in (launches_v3, launches_v2)) \
+        + graph["v3"]["eval"] + graph["v2"]["eval"]
     bias_train_launches = {k: sum(p["train"][k] for p in (launches_v3,
                                                           launches_v2))
+                           + graph["v3"][k] + graph["v2"][k]
                            for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,

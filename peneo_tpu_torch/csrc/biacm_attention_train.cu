@@ -186,9 +186,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* o,
 // The dropout masks of one training forward, bit-packed (biacm_common.cuh,
 // "dropout bits"): one thread per (query i, 32-key word) of a head draws
 // the word's 16 key pairs (or compares the explicit bits) and writes the
-// word of both streams. Grid (ceil(L·words / kThreads), nh, B).
+// word of both streams; a device key is read once per CTA. Grid
+// (ceil(L·words / kThreads), nh, B).
 __global__ void __launch_bounds__(kThreads)
 biacm_keep_mask_kernel(const biacm::FwdParams p) {
+  const biacm::Dropout drop = biacm::resolve_seed(p.drop);
   const int L = p.L, words = (L + 31) / 32;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= L * words) return;
@@ -197,7 +199,7 @@ biacm_keep_mask_kernel(const biacm::FwdParams p) {
 #pragma unroll 4
   for (int m = 0; m < 16; ++m) {
     bool f[4];
-    biacm::keep_flags_pair(p.drop, p.nh, L, b, h, i, w * 32 + 2 * m, f);
+    biacm::keep_flags_pair(drop, p.nh, L, b, h, i, w * 32 + 2 * m, f);
     k1 |= (uint32_t(f[0]) | uint32_t(f[2]) << 1) << (2 * m);
     k2 |= (uint32_t(f[1]) | uint32_t(f[3]) << 1) << (2 * m);
   }
@@ -670,6 +672,7 @@ biacm::FwdParams make_params(const uint64_t* ptrs, const int64_t* strides,
   p.bias_stride = strides[18];
   p.drop.bits[0] = reinterpret_cast<const uint32_t*>(ptrs[7]);
   p.drop.bits[1] = reinterpret_cast<const uint32_t*>(ptrs[8]);
+  p.drop.seed = reinterpret_cast<const unsigned long long*>(ptrs[7]);
   p.stats = reinterpret_cast<float2*>(ptrs[9]);
   p.keep = reinterpret_cast<uint32_t*>(ptrs[10]);
   p.nh = nh;
@@ -720,12 +723,14 @@ extern "C" {
 // device, which the caller sets. Shared layout of `ptrs` (device pointers
 // as uint64): [0..5] q_t, k_t, v_t, q_l, k_l, v_l (bf16), [6] bias (fp32
 // (B, L)), [7..8] explicit bits (uint32 (B, nh, L, L) contiguous, or 0;
-// the forward only), [9] the row statistics (fp32 (B, nh, L, 2)), [10] the
+// the forward only; in mode 3 [7] is the int64 key), [9] the row statistics (fp32 (B, nh, L, 2)), [10] the
 // packed keep flags (uint32 (2, B, nh, L, ceil(L / 32)), or 0 without
 // dropout). `strides` (int64 elements): [0..17] (batch, head, seq) of the
 // six inputs, [18] the batch stride of bias. `mode`: 0 no dropout, 1
-// Philox bits from (seed_lo, seed_hi), 2 the explicit bits; the backward
-// reads only whether it is 0. Each returns the first nonzero cudaError_t
+// Philox bits from (seed_lo, seed_hi), 2 the explicit bits, 3 Philox bits
+// from the int64 key at ptrs[7] (read on the card at launch time: a CUDA
+// graph replays it with the key's current value); the backward reads only
+// whether it is 0. Each returns the first nonzero cudaError_t
 // of its calls (0 = launched).
 
 // Forward: ptrs[11..12] = ct (B, L, nh, 64), cl (B, L, nh, 16), written

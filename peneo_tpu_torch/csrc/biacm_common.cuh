@@ -304,14 +304,38 @@ __device__ __forceinline__ void load_key_bias_async(float* dst,
 // (L, L) elements costs more than the forward's products, the attention
 // kernels would make four, and inside them the generator's registers and
 // integer rounds compete with the products.
-enum BitsMode { kNoDropout = 0, kPhilox = 1, kExplicit = 2 };
+//
+// The key comes by value (kPhilox) or, for a launch inside a CUDA graph,
+// from device memory (kPhiloxDevice): an int64 (lo word seed_lo, hi word
+// seed_hi) that the graph itself rewrites before each replay, so every
+// replay draws fresh masks. The mask kernels read it once per CTA
+// (resolve_seed) and then draw exactly as for the same key by value.
+enum BitsMode { kNoDropout = 0, kPhilox = 1, kExplicit = 2,
+                kPhiloxDevice = 3 };
 
 struct Dropout {
   const uint32_t* bits[2];               // explicit (B, nh, L, L) bits
+  const unsigned long long* seed;        // the key in device memory
   uint32_t seed_lo, seed_hi, thr;
   float inv_keep;                        // 1 / (1 − rate)
   int mode;                              // BitsMode
 };
+
+// The dropout parameters with a device key read: one 8-byte load by thread
+// 0 of the CTA, shared through shared memory. Every thread of the CTA must
+// call it (it holds a barrier when the mode is kPhiloxDevice).
+__device__ __forceinline__ Dropout resolve_seed(const Dropout& in) {
+  Dropout d = in;
+  if (d.mode == kPhiloxDevice) {
+    __shared__ unsigned long long key;
+    if (threadIdx.x == 0) key = *d.seed;
+    __syncthreads();
+    d.seed_lo = static_cast<uint32_t>(key);
+    d.seed_hi = static_cast<uint32_t>(key >> 32);
+    d.mode = kPhilox;
+  }
+  return d;
+}
 
 // Philox4x32-10 (Random123's philox4x32round / bumpkey): 10 rounds, the
 // key bumped by the Weyl constants between rounds.

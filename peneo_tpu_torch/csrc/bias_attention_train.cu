@@ -174,26 +174,27 @@ __device__ __forceinline__ void store_grad(__nv_bfloat16* o,
 // ------------------------------------------------------------- keep flags
 // The dropout mask of one training forward, bit-packed: one thread per
 // (query i, 32-key word) of a head makes the word's 8 draws (or compares
-// the explicit bits) and writes the word. Grid (ceil(L·words / kThreads),
-// nh, B).
+// the explicit bits) and writes the word; a device key is read once per
+// CTA. Grid (ceil(L·words / kThreads), nh, B).
 __global__ void __launch_bounds__(kThreads)
 bias_keep_mask_kernel(const relbias::FwdParams p) {
+  const biacm::Dropout drop = biacm::resolve_seed(p.drop);
   const int L = p.L, words = (L + 31) / 32;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= L * words) return;
   const int i = e / words, w = e % words, h = blockIdx.y, b = blockIdx.z;
-  const uint32_t thr = p.drop.thr;
+  const uint32_t thr = drop.thr;
   uint32_t k = 0u;
 #pragma unroll 2
   for (int m = 0; m < 8; ++m) {
     const int j = w * 32 + 4 * m;  // keys j .. j + 3: one draw
     if (j >= L) break;
     uint4 r;
-    if (p.drop.mode == biacm::kPhilox) {
-      r = biacm::philox4x32_10(make_uint4(j >> 2, i, h, b), p.drop.seed_lo,
-                               p.drop.seed_hi);
+    if (drop.mode == biacm::kPhilox) {
+      r = biacm::philox4x32_10(make_uint4(j >> 2, i, h, b), drop.seed_lo,
+                               drop.seed_hi);
     } else {
-      const uint32_t* row = p.drop.bits[0]
+      const uint32_t* row = drop.bits[0]
           + ((static_cast<int64_t>(b) * p.nh + h) * L + i) * L;
       r = make_uint4(row[j], j + 1 < L ? row[j + 1] : ~0u,
                      j + 2 < L ? row[j + 2] : ~0u,

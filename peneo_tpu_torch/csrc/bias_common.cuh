@@ -426,7 +426,8 @@ __device__ __forceinline__ void forward_tile(const FwdParams& p) {
 // L, ceil(L / 32)), or 0). `strides` (int64 elements): [0..8] (batch,
 // head, seq) of q, k, v; [9..11] (batch, head, row) of bias; [12] the batch
 // stride of mask. `mode`: 0 no dropout, 1 Philox bits from (seed_lo,
-// seed_hi), 2 the explicit bits.
+// seed_hi), 2 the explicit bits, 3 Philox bits from the int64 key at
+// ptrs[5] (read on the card when the mask kernel runs).
 inline FwdParams make_params(const uint64_t* ptrs, const int64_t* strides,
                              int nh, int L, float scale, int mode,
                              uint32_t seed_lo, uint32_t seed_hi, uint32_t thr,
@@ -443,6 +444,7 @@ inline FwdParams make_params(const uint64_t* ptrs, const int64_t* strides,
   p.mask = reinterpret_cast<const float*>(ptrs[4]);
   p.mask_stride = strides[12];
   p.drop.bits[0] = reinterpret_cast<const uint32_t*>(ptrs[5]);
+  p.drop.seed = reinterpret_cast<const unsigned long long*>(ptrs[5]);
   p.stats = reinterpret_cast<float2*>(ptrs[6]);
   p.out = reinterpret_cast<__nv_bfloat16*>(ptrs[7]);
   p.keep = reinterpret_cast<uint32_t*>(ptrs[8]);

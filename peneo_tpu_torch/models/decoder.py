@@ -129,6 +129,14 @@ class PEneoDecoder(nn.Module):
         else:
             self.shrink_projection = nn.Identity()
         dec_h = cfg.decoder_hidden_size()
+        # the CE class weights live on the model's device, built once: a
+        # host-to-device copy inside the step could not be captured in a
+        # CUDA graph (not persistent: the state-dict keys stay the
+        # reference's)
+        weights = cfg.peneo_category_weights
+        self.register_buffer("category_weights", None if weights is None
+                             else torch.tensor(weights, dtype=torch.float32),
+                             persistent=False)
         self.handshaking_kernel = HandshakingKernel(dec_h)
         for name in HEAD_NAMES:
             setattr(self, f"{name}_fc", pair_classifier(
@@ -220,8 +228,9 @@ class PEneoDecoder(nn.Module):
                 or cfg.peneo_ohem_num_negative != -1:
             raise NotImplementedError("OHEM losses are not ported yet")
         dev = a.device
-        weights = torch.tensor(cfg.peneo_category_weights,
-                               dtype=torch.float32, device=dev)
+        if self.category_weights is None:
+            raise ValueError("the losses need peneo_category_weights")
+        weights = self.category_weights.float()
         lbl = {}
         for name in HEAD_NAMES:
             m = labels[name]

@@ -63,6 +63,7 @@ from ..ops.biacm_attention import element_dropout_bits
 from ..ops.bias_attention import (bias_attention, bias_attention_reference,
                                   bias_attention_train,
                                   bias_attention_train_reference)
+from .dropout_seeds import layer_seed
 from .lilt import (ATTENTION_IMPLS, Intermediate, ResidualOutput,
                    init_module_weights, key_mask_bias, make_position_ids)
 
@@ -425,11 +426,10 @@ class RelBiasBackbone(nn.Module):
         """The encoder's layers over ``x`` (B, L', H) with the key mask and
         the bias shared by all of them."""
         draw = self.training and self.cfg.attention_probs_dropout_prob > 0
-        for layer in self.encoder.layer:
+        for i, layer in enumerate(self.encoder.layer):
             # the seed is drawn outside the checkpointed region: the
             # recompute replays the same mask
-            seed = (int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-                    if draw else 0)
+            seed = layer_seed(generator, i) if draw else 0
             if self.gradient_checkpointing and self.training:
                 x = checkpoint(layer, x, mask, rel_bias, seed,
                                use_reentrant=False)

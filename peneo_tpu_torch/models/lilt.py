@@ -41,6 +41,7 @@ from ..ops.biacm_attention import (attention_dropout_bits, biacm_attention,
                                    biacm_attention_reference,
                                    biacm_attention_train,
                                    biacm_attention_train_reference)
+from .dropout_seeds import layer_seed
 
 ACT = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -286,7 +287,9 @@ class LiltModel(nn.Module):
     def forward(self, input_ids, bbox, attention_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """``generator`` (CPU) draws each layer's attention-dropout seed in
-        training mode (the default generator when None)."""
+        training mode (the default generator when None); a
+        :class:`~peneo_tpu_torch.models.dropout_seeds.StepSeeds` gives them
+        as device tensors instead (a CUDA graph of the step)."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         input_ids = input_ids.long()
@@ -296,11 +299,10 @@ class LiltModel(nn.Module):
         text = self.embeddings(input_ids, position_ids, self.dtype)
         layout = self.layout_embeddings(bbox, position_ids)
         draw = self.training and self.cfg.attention_probs_dropout_prob > 0
-        for layer in self.encoder.layer:
+        for i, layer in enumerate(self.encoder.layer):
             # the seed is drawn outside the checkpointed region: the
             # recompute replays the same masks
-            seed = (int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-                    if draw else 0)
+            seed = layer_seed(generator, i) if draw else 0
             if self.gradient_checkpointing and self.training:
                 text, layout = checkpoint(layer, text, layout, bias, seed,
                                           use_reentrant=False)

@@ -204,7 +204,7 @@ def biacm_attention(q_t, k_t, v_t, q_l, k_l, v_l, bias,
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _U32 = 0xFFFFFFFF
-_MODES = {"none": 0, "philox": 1, "bits": 2}
+_MODES = {"none": 0, "philox": 1, "bits": 2, "device": 3}
 
 
 def keep_threshold(rate: float) -> int:
@@ -402,12 +402,29 @@ def kernel_occupancy(device=None) -> dict:
     return out
 
 
+def device_seed(rng, dev) -> bool:
+    """Whether ``rng`` is a seed held on the card: a 0-d int64 tensor on
+    ``dev``, whose value the mask kernel reads when it runs (so a CUDA
+    graph's replay draws with the value the graph wrote there). Raises for
+    a 0-d tensor of another type or device."""
+    if not (isinstance(rng, torch.Tensor) and rng.dim() == 0):
+        return False
+    if rng.dtype != torch.int64 or rng.device != dev:
+        raise ValueError(f"seed: expected a 0-d int64 tensor on {dev}, got "
+                         f"{rng.dtype} on {rng.device}")
+    return True
+
+
 def _rng_args(rng, rate: float, shape, dev):
     """(mode, seed_lo, seed_hi, bits1, bits2): ``rng`` is an int seed (the
-    in-kernel generator) or explicit ``(bits1, bits2)`` (B, nh, L, L)
-    int64 or int32 bit patterns, passed to the kernel as uint32."""
+    in-kernel generator), a 0-d int64 tensor on the card holding the seed
+    (its address goes where ``bits1``'s would), or explicit ``(bits1,
+    bits2)`` (B, nh, L, L) int64 or int32 bit patterns, passed to the
+    kernel as uint32."""
     if rate <= 0.0:
         return _MODES["none"], 0, 0, None, None
+    if device_seed(rng, dev):
+        return _MODES["device"], 0, 0, rng, None
     if isinstance(rng, (tuple, list)):
         bits = []
         for name, x in zip(("bits1", "bits2"), rng):
@@ -545,7 +562,7 @@ def _cpu_bits(rng, rate, q_t):
         return None
     if isinstance(rng, (tuple, list)):
         return tuple(rng)
-    B, nh, L, _ = q_t.shape
+    B, nh, L, _ = q_t.shape  # an int seed, or a 0-d tensor holding one
     return attention_dropout_bits(int(rng), B, nh, L, device=q_t.device)
 
 
@@ -599,8 +616,11 @@ def biacm_attention_train(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
     """Differentiable BiACM attention with attention dropout at ``rate``
     (two independent masks, one per stream). Layout of the JAX function:
     q/k/v ``(B, nh, L, d)``, ``bias (B, L)`` fp32; ``rng`` an int seed (the
-    mask kernel's Philox bits, :func:`attention_dropout_bits` on the CPU) or
-    explicit ``(bits1, bits2)`` (B, nh, L, L). Returns ``(ctx_t, ctx_l)``."""
+    mask kernel's Philox bits, :func:`attention_dropout_bits` on the CPU),
+    a 0-d int64 tensor holding the seed (on the card: read by the mask
+    kernel when it runs, the same bits as the int; inside a CUDA graph each
+    replay draws with the value the graph wrote there) or explicit
+    ``(bits1, bits2)`` (B, nh, L, L). Returns ``(ctx_t, ctx_l)``."""
     return BiacmAttentionTrain.apply(q_t, k_t, v_t, q_l, k_l, v_l, bias, rng,
                                      float(scale_t), float(scale_l),
                                      float(rate))

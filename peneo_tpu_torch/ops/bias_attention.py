@@ -54,8 +54,8 @@ import threading
 import torch
 
 from .biacm_attention import (_MODES, _U32, _aligned, _check, _u32,
-                              element_dropout_bits, keep_threshold,
-                              unpack_keep_mask)
+                              device_seed, element_dropout_bits,
+                              keep_threshold, unpack_keep_mask)
 
 SOURCE = "bias_attention.cu"
 TRAIN_SOURCE = "bias_attention_train.cu"
@@ -265,10 +265,13 @@ def bias_attention(q, k, v, bias, mask, scale: float):
 
 def _rng_args(rng, rate: float, shape, dev):
     """(mode, seed_lo, seed_hi, bits): ``rng`` is an int seed (the in-kernel
-    generator) or explicit bits (B, nh, L, L), int64 or int32 bit patterns,
-    passed to the kernel as uint32."""
+    generator), a 0-d int64 tensor on the card holding the seed (its
+    address goes where the bits' would) or explicit bits (B, nh, L, L),
+    int64 or int32 bit patterns, passed to the kernel as uint32."""
     if rate <= 0.0:
         return _MODES["none"], 0, 0, None
+    if device_seed(rng, dev):
+        return _MODES["device"], 0, 0, rng
     if isinstance(rng, torch.Tensor):
         if tuple(rng.shape) != tuple(shape) or rng.device != dev:
             raise ValueError(f"bits: expected {tuple(shape)} on {dev}, got "
@@ -392,9 +395,9 @@ def keep_flag_bits(keep: torch.Tensor, L: int) -> torch.Tensor:
 def _cpu_bits(rng, rate, q):
     if rate <= 0.0:
         return None
-    if isinstance(rng, torch.Tensor):
+    if isinstance(rng, torch.Tensor) and rng.dim() > 0:
         return rng
-    B, nh, L, _ = q.shape
+    B, nh, L, _ = q.shape  # an int seed, or a 0-d tensor holding one
     return element_dropout_bits(int(rng), B, nh, L, device=q.device)
 
 
@@ -446,7 +449,9 @@ def bias_attention_train(q, k, v, bias, mask, rng, scale: float,
     (one mask over the probabilities). Layout of the JAX function: q/k/v
     ``(B, nh, L, d)``, ``bias (B, nh, L, L)`` fp32 (trained), ``mask
     (B, L)`` fp32; ``rng`` an int seed (the mask kernel's Philox bits,
-    ``element_dropout_bits(...)`` on the CPU) or explicit bits
-    ``(B, nh, L, L)``. Returns ``ctx (B, nh, L, d)``."""
+    ``element_dropout_bits(...)`` on the CPU), a 0-d int64 tensor holding
+    the seed (on the card: read by the mask kernel when it runs, so a CUDA
+    graph's replays draw fresh masks) or explicit bits ``(B, nh, L, L)``.
+    Returns ``ctx (B, nh, L, d)``."""
     return BiasAttentionTrain.apply(q, k, v, bias, mask, rng, float(scale),
                                     float(rate))

@@ -137,6 +137,45 @@ def batch_arrays(batch):
     return arrays
 
 
+def stack_batches(batches) -> dict:
+    """K collator Batches → one host numpy dict whose every array has a
+    leading axis of K (the layout of a ``steps_per_call`` group)."""
+    arrays = [batch_arrays(b) for b in batches]
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([x[k] for x in items]) for k in items[0]}
+        return np.stack(items)
+
+    return stack(arrays)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a (nested) dict of a batch."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) dict of a batch, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def to_host_tensors(arrays, pin: bool) -> dict:
+    """A dict of numpy arrays → CPU tensors, in pinned memory with ``pin``
+    (for an asynchronous copy to the card later)."""
+    import torch
+
+    def tensor(value):
+        t = torch.from_numpy(np.ascontiguousarray(value))
+        return t.pin_memory() if pin else t
+
+    return tree_map(tensor, arrays)
+
+
 def batch_to_device(batch, device) -> dict:
     """Collator Batch (or a dict of numpy arrays) → dict of tensors on
     ``device``; CUDA copies go through pinned memory, asynchronously."""
@@ -144,15 +183,5 @@ def batch_to_device(batch, device) -> dict:
 
     arrays = batch_arrays(batch) if not isinstance(batch, dict) else batch
     device = torch.device(device)
-    out = {}
-    for key, value in arrays.items():
-        if isinstance(value, dict):
-            out[key] = batch_to_device(value, device)
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[key] = t
-    return out
+    return tree_map(lambda t: t.to(device, non_blocking=True),
+                    to_host_tensors(arrays, pin=device.type == "cuda"))

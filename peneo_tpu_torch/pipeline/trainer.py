@@ -5,12 +5,20 @@ Counterpart of ``peneo_tpu/pipeline/trainer.py:36-80,248-427,464-663``
 
 train: a background thread collates batches and copies them to the device
 (pinned memory, non-blocking), double-buffered, while the main thread runs
-:func:`~peneo_tpu_torch.pipeline.train.train_step`; logs every
-``logging_steps`` to ``log.jsonl`` (the step's losses, and the count of
-steps so far whose loss was not finite, kept on the device so that
-unlogged steps never wait for the host); evaluates and saves at their
-intervals (eval gated by ``start_eval_epoch``); resumes onto the next
-unconsumed batch; loads the best checkpoint at the end. eval: one batch in
+:func:`~peneo_tpu_torch.pipeline.train.train_step`; with ``steps_per_call``
+K > 1 it collates and stacks K batches into pinned memory instead, and the
+main thread runs K steps per call
+(:class:`~peneo_tpu_torch.pipeline.train.MultiTrainStep`: one replay
+of a CUDA graph of the K steps on the card, its static inputs filled on the
+stream it replays on), counting K steps a call, so that ``max_steps``
+rounds up to a multiple of K and logging, eval and saving follow the JAX
+trainer's ``crossed`` rule; logs every ``logging_steps`` to ``log.jsonl``
+(the call's mean losses, and the count of steps so far whose loss was not
+finite, kept on the device so that unlogged steps never wait for the host)
+and, with ``logging_dir``, the same scalars to TensorBoard; evaluates (eagerly,
+between calls) and saves at their intervals (eval gated by
+``start_eval_epoch``); resumes onto the next unconsumed batch, at any K;
+loads the best checkpoint at the end. eval: one batch in
 flight (the next forward is launched before the previous one's outputs are
 fetched), host decode on two threads, the ragged last batch edge-padded with a
 ``row_mask`` that keeps the padding out of the losses, KVPE metrics
@@ -19,7 +27,7 @@ fetched), host decode on two threads, the ragged last batch edge-padded with a
 reference's torch keys) and the tokenizer.
 
 Not ported here (single device): the mesh, fsdp and sequence-parallel
-arguments, multi-process runs, ``steps_per_call`` and TensorBoard logging.
+arguments and multi-process runs.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ from . import evaluation as ev
 from . import train as T
 from .checkpoint import CheckpointManager
 from .infer import DTYPES, resolve_device
-from .loader import DataFeed, batch_arrays, batch_to_device
+from .loader import (DataFeed, batch_arrays, batch_to_device, stack_batches,
+                     to_host_tensors)
 
 
 @dataclass
@@ -63,6 +72,7 @@ class TrainingArguments:
     weight_decay: float = 0.01
     max_grad_norm: float = 1.0
     logging_steps: int = 100
+    logging_dir: Optional[str] = None  # TensorBoard event files
     eval_steps: int = 1000
     save_steps: int = 1000
     save_total_limit: Optional[int] = 1
@@ -73,6 +83,9 @@ class TrainingArguments:
     save_eval_detail: bool = False
     resume: bool = True
     device: Optional[str] = None
+    # K optimizer steps per call (one CUDA graph replay of the K steps on
+    # the card); max_steps rounds up to a multiple of K
+    steps_per_call: int = 1
 
 
 class PEneoTrainer:
@@ -97,8 +110,17 @@ class PEneoTrainer:
         self.source_dir = source_dir
         os.makedirs(args.output_dir, exist_ok=True)
         self._log_file = open(os.path.join(args.output_dir, "log.jsonl"), "a")
+        self._tb = None
+        if args.logging_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(args.logging_dir)
+            except Exception as e:  # TB is best-effort, as in JAX
+                print(f"[peneo] tensorboard disabled: {e}")
         # hidden dropout draws from the device's default generator; each
-        # layer's attention-dropout seed from this one
+        # layer's attention-dropout seed from this one in an eager step (a
+        # CUDA graph of K steps computes them on the card: StepSeeds)
         torch.manual_seed(args.seed)
         self.generator = torch.Generator().manual_seed(args.seed)
         self.optimizer, self.scheduler = T.make_optimizer(
@@ -118,6 +140,11 @@ class PEneoTrainer:
         record["time"] = time.time()
         self._log_file.write(json.dumps(record) + "\n")
         self._log_file.flush()
+        if self._tb is not None and "step" in record:
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k not in ("step", "time"):
+                    self._tb.add_scalar(k, v, record["step"])
+            self._tb.flush()
         brief = {k: (round(v, 5) if isinstance(v, float) else v)
                  for k, v in record.items() if k != "time"}
         print(f"[peneo] {brief}", flush=True)
@@ -134,7 +161,7 @@ class PEneoTrainer:
 
     def _load_state(self, state: Dict[str, Any]) -> None:
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        T.load_optimizer_state(self.optimizer, state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         torch.set_rng_state(state["cpu_rng"])
@@ -177,8 +204,16 @@ class PEneoTrainer:
             raise RuntimeError(
                 "empty train feed (dataset smaller than the batch size?)")
 
-        # collate + host→device copy in a background thread, double
-        # buffered; each item carries the feed position AFTER its batch
+        # collate (+ for K > 1 stack K batches) and copy to the device (K >
+        # 1: into pinned host memory) in a background thread, double
+        # buffered; each item carries the feed position AFTER its batches
+        k = max(1, args.steps_per_call)
+        cuda = self.device.type == "cuda"
+        step_fn = None
+        if k > 1:
+            step_fn = T.MultiTrainStep(
+                self.model, self.optimizer, self.scheduler, k,
+                args.max_grad_norm, self.generator, self.dtype, args.seed)
         it = None
         items: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
@@ -186,9 +221,11 @@ class PEneoTrainer:
         def produce():
             try:
                 while not stop.is_set():
-                    batch = next_raw()
-                    item = (batch_to_device(batch, self.device),
-                            batch.input_ids.shape[0],
+                    batches = [next_raw() for _ in range(k)]
+                    group = (batch_to_device(batches[0], self.device)
+                             if k == 1 else
+                             to_host_tensors(stack_batches(batches), cuda))
+                    item = (group, sum(b.input_ids.shape[0] for b in batches),
                             (pos["epoch"], pos["batch"]))
                     while not stop.is_set():
                         try:
@@ -210,23 +247,29 @@ class PEneoTrainer:
                 item = items.get()
                 if isinstance(item, BaseException):
                     raise item
-                dev_batch, n, feed_pos = item
-                metrics = T.train_step(
-                    self.model, self.optimizer, self.scheduler, dev_batch,
-                    args.max_grad_norm, self.generator, self.dtype)
-                nonfinite += ~torch.isfinite(metrics["total"])
+                group, n, feed_pos = item
+                if k == 1:
+                    metrics = T.train_step(
+                        self.model, self.optimizer, self.scheduler, group,
+                        args.max_grad_norm, self.generator, self.dtype)
+                    nonfinite += ~torch.isfinite(metrics["total"])
+                else:
+                    metrics = step_fn(group)
+                    nonfinite += (~torch.isfinite(
+                        step_fn.per_step["total"])).sum()
                 prev = self.step
-                self.step += 1
+                self.step += k
                 seen += n
 
                 def crossed(every):
                     return every and (self.step // every) > (prev // every)
 
                 if crossed(args.logging_steps):
-                    values = {k: float(v) for k, v in metrics.items()}
+                    values = {name: float(v) for name, v in metrics.items()}
                     dt = time.time() - t_last
                     self.log({"step": self.step,
-                              **{f"loss/{k}": v for k, v in values.items()},
+                              **{f"loss/{name}": v
+                                 for name, v in values.items()},
                               "nonfinite_loss_steps": int(nonfinite),
                               "throughput_samples_per_s": seen / dt})
                     t_last, seen = time.time(), 0
@@ -238,8 +281,8 @@ class PEneoTrainer:
                         and eval_allowed:
                     eval_metrics = self.evaluate()
                     self.log({"step": self.step,
-                              **{f"eval/{k}": v
-                                 for k, v in eval_metrics.items()}})
+                              **{f"eval/{name}": v
+                                 for name, v in eval_metrics.items()}})
                     if crossed(args.save_steps):
                         self.ckpt.save(self.step, self._state(),
                                        metrics=eval_metrics,

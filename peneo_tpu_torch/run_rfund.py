@@ -20,9 +20,13 @@ with ``--model_name_or_path`` the saved model's own config: no downloads.
 ``--backbone_name layoutlmv3-base[-chinese]`` selects the LayoutLMv3 family,
 ``layoutxlm-base`` / ``layoutlmv2-base-uncased`` the LayoutLMv2 one. Runs
 on ``cuda`` (the CUDA attention kernels, bf16) unless ``--device cpu`` is
-given; without a GPU and without ``--device`` it raises. Left out (single
-device, one attention path): the mesh, distributed, platform, quantization
-and ``--fused_*`` flags, and ``--steps_per_call``.
+given; without a GPU and without ``--device`` it raises.
+``--steps_per_call K`` runs K optimizer steps per call over a group of K
+batches: on the card one replay of a CUDA graph of the K steps (a capture
+that fails raises), on the CPU the K steps in a loop; ``max_steps`` rounds
+up to a multiple of K. ``--logging_dir D`` also writes the logged scalars
+as TensorBoard events into D. Left out (single device, one attention path):
+the mesh, distributed, platform, quantization and ``--fused_*`` flags.
 """
 
 from __future__ import annotations
@@ -69,12 +73,19 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--per_device_eval_batch_size", type=int, default=16)
     p.add_argument("--logging_steps", type=int, default=100)
+    p.add_argument("--logging_dir", type=str, default=None,
+                   help="also write the logged scalars as TensorBoard "
+                        "events here")
     p.add_argument("--eval_steps", type=int, default=1000)
     p.add_argument("--save_steps", type=int, default=1000)
     p.add_argument("--save_total_limit", type=int, default=1)
     p.add_argument("--metric_for_best_model", type=str, default="f1")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_resume", action="store_true")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="K optimizer steps per call (one CUDA graph replay "
+                        "of the K steps on the card); max_steps rounds up "
+                        "to a multiple of K")
     # port extensions
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (raises without a GPU)")
@@ -221,12 +232,13 @@ def main(argv=None, dataset_cls_name: str = "rfund"):
         per_device_train_batch_size=args.per_device_train_batch_size,
         per_device_eval_batch_size=args.per_device_eval_batch_size,
         weight_decay=args.weight_decay, logging_steps=args.logging_steps,
+        logging_dir=args.logging_dir,
         eval_steps=args.eval_steps, save_steps=args.save_steps,
         save_total_limit=args.save_total_limit,
         metric_for_best_model=args.metric_for_best_model, seed=args.seed,
         detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
         start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
-        device=args.device)
+        device=args.device, steps_per_call=args.steps_per_call)
     trainer = PEneoTrainer(cfg, model, targs, train_ds, eval_ds, collator,
                            tokenizer=tokenizer,
                            source_dir=args.model_name_or_path)

@@ -398,3 +398,117 @@ def test_bias_train_kernels_match_plain_twin_on_card(L, rate, stride):
         outs[name] = (got, *grads)
     for a, b in zip(outs["philox"], outs["bits"]):
         assert torch.equal(a, b)
+
+
+def _seed_graph_check(keep_of, seed):
+    """``keep_of(rng)`` → packed keep flags. The flags of a seed held on the
+    card (a 0-d int64 tensor) equal those of the same seed by value, bit
+    for bit; in a CUDA graph that adds 1 to the seed before the launch, two
+    replays give different flags, each equal to the by-value flags of the
+    seed it read."""
+    by_value = keep_of(seed)
+    on_card = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    assert torch.equal(keep_of(on_card), by_value)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        on_card.add_(1)
+        flags = keep_of(on_card)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(flags.clone())
+    torch.cuda.synchronize()
+    assert int(on_card) == seed + 2
+    for i, got in enumerate(replays):
+        assert torch.equal(got, keep_of(seed + i + 1))
+    assert not torch.equal(replays[0], replays[1])
+
+
+@pytest.mark.parametrize("L", [1, 65, 512])
+def test_device_seed_keep_flags_on_card(L):
+    """Kernel #2 with its seed in device memory (what a CUDA graph of the
+    training step passes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    qkv, bias, _ = _train_inputs(L, seed=L + 5)
+    # (2, 8) at L = 1: both streams' one flag, so that replays can differ
+    rate = 0.5 if L == 1 else 0.1
+    _seed_graph_check(lambda rng: ba.biacm_attention_train_fwd_cuda(
+        *qkv, bias, rng, 0.125, 0.25, rate)[3], (3 << 32) + 77 * L)
+
+
+@pytest.mark.parametrize("L", [561, 709])
+def test_bias_device_seed_keep_flags_on_card(L):
+    """Kernel #5 with its seed in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L + 5, stride="padded")
+    _seed_graph_check(lambda rng: rb.bias_attention_train_fwd_cuda(
+        q, k, v, bias, mask, rng, 0.125, 0.1)[2], (3 << 32) + 77 * L)
+
+
+@pytest.mark.parametrize("written_on", ["cuda", "cpu"])
+def test_capturable_optimizer_checkpoint_round_trip_on_card(tmp_path,
+                                                            written_on):
+    """The trainer's AdamW on the card is ``capturable``: its per-parameter
+    step counts are device tensors. A checkpoint written through
+    ``CheckpointManager`` (by the card's capturable AdamW, or on the CPU by
+    a non-capturable one) and read back on the CPU restores them onto the
+    parameters' device with their values, a capturable AdamW that steps
+    inside a CUDA graph, and the schedule's device counter in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.checkpoint import CheckpointManager
+
+    def build(device):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(8, 8),
+                                    torch.nn.Linear(8, 2)).to(device)
+        return (model, *T.make_optimizer(model, lr=1e-3, total_steps=10))
+
+    def step(model, optimizer, scheduler, x):
+        optimizer.zero_grad(set_to_none=False)
+        model(x).square().sum().backward()
+        scheduler.apply()
+        optimizer.step()
+        scheduler.step()
+
+    model, optimizer, scheduler = build(written_on)
+    assert all(g["capturable"] == (written_on == "cuda")
+               for g in optimizer.param_groups)
+    x = torch.randn(4, 8, device=written_on)
+    for _ in range(3):
+        step(model, optimizer, scheduler, x)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(3, {"optimizer": optimizer.state_dict(),
+                  "scheduler": scheduler.state_dict()})
+    state = ckpt.restore(map_location="cpu")
+    fresh_model, fresh, schedule = build("cuda")
+    counter = schedule.count
+    T.load_optimizer_state(fresh, state["optimizer"])
+    schedule.load_state_dict(state["scheduler"])
+    assert schedule.count is counter and int(counter) == 3
+    for group in fresh.param_groups:
+        assert group["capturable"] and group["lr"].is_cuda
+    for old, new in zip(optimizer.state.values(), fresh.state.values()):
+        assert new["step"].is_cuda and float(new["step"]) == 3.0
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert new[key].is_cuda and torch.equal(new[key].cpu(),
+                                                    old[key].cpu())
+    # the restored optimizer steps inside a graph: two replays, two steps
+    x = x.cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(fresh_model, fresh, schedule, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(fresh_model, fresh, schedule, x)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(schedule.count) == 6
+    assert all(float(s["step"]) == 6.0 for s in fresh.state.values())
