@@ -163,6 +163,38 @@ the three families at full width (the counts reset in each phase):
    and dk/dv kernels and none of the others; device busy ms per step and
    the idle share; the feed thread's host ms per step (collate with the
    page images' decode, stack, pin).
+Checkpoints, int8 and the single-device serving surface of
+deploy/inference.py (each phase resets every kernel count just before it
+and prints what they read just after; the first three run after phase 8,
+the last two after phase 18):
+
+- checkpoints — the LiLT-base serving model written as
+   ``params.msgpack`` (``write_flax_msgpack`` of the JAX param tree) and
+   ``model.safetensors`` beside its ``pytorch_model.bin``: each loads the
+   same weights bit for bit and serves the 96 pages to the same records
+   (kernel #1 12 times a forward); ``generate_peneo_weights`` on an
+   HF-style copy of its backbone, then 4 ``run_rfund`` steps from the
+   output: the backbone before step 1 is the model's bit for bit, the
+   decoder keeps its seeded init, finite losses, #2/#3 12 times a step.
+- serve_int8 — ``torch._int_mm`` against its integer twin, bit for bit,
+   at the pair head's first row block and an intermediate layer's shape,
+   timed beside a bf16 product and its bound (int8 tensor-core peak); the
+   96 pages through bf16, ``int8_pair_head`` and ``int8_pair_head +
+   int8_backbone`` services: pages/s, one batch's forward wall time, peak
+   memory, a profiled forward's device busy ms, the int8 launches the
+   module structure gives, and one batch's logits against bf16's over the
+   upper triangle of the real tokens (err/span < 0.05 and argmax agreement
+   > 0.98; with the backbone 0.15 and 0.95).
+- serve_api — ``run_page`` on 8 pages equals ``run`` over those pages
+   at batch 1, ``run_batch`` on one batch equals the batch-32 run,
+   ``run(visualize_dir=...)`` writes one image per page.
+- serve_v3_procs — LayoutLMv3-base over 384 pages (the 96 under 4
+   names): 4 threads, then min(8, cpu_count) spawned preprocessing
+   processes; whole-run pages/s, the pool's start time, the same records.
+- serve_int8_v3 — one LayoutLMv3-base forward with both int8 switches:
+   kernel #4 12 times behind the int8 projections, the int8 launches, the
+   logits against bf16's within the backbone gate.
+
 30. the ``kernels`` line (all six; ``launches`` sums every path's serving
    and training runs: the wrappers' counts, and for the graph runs also
    the profiled replay's launches read from its trace; the phase lines
@@ -176,7 +208,9 @@ import math
 import os
 import random
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -598,7 +632,8 @@ def phase_decode(svc, img_dir, ocr_dir, docs):
     fetched = svc._fetch(pack_spots(out))
     t0 = time.perf_counter()
     records = [dec.decode_page_record(texts, fetched, i, seq_len, 0.0,
-                                      svc.score_thresh, orig_bbox)
+                                      score_thresh=svc.score_thresh,
+                                      bbox=orig_bbox)
                for i, (_, texts, orig_bbox, seq_len) in enumerate(pages)]
     decode_ms = (time.perf_counter() - t0) / B * 1e3
     for i, (rec, (_, kv, lines)) in enumerate(zip(records, truths)):
@@ -2006,6 +2041,529 @@ def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
 
 
 # ------------------------------------------------------------------------
+# checkpoints, int8 and the single-device serving surface of
+# deploy/inference.py; every phase resets all kernel counts just before it
+# and returns what they read just after
+# ------------------------------------------------------------------------
+# int8 logits against the bf16 service's on one batch (the gates of
+# tests/test_int8_pair_head.py:63-66 and :173-175): max error over the
+# largest |bf16 logit|, and the argmax agreement, over the upper triangle of
+# the pages' real tokens
+INT8_PAIR_GATE = (0.05, 0.98)
+INT8_BACKBONE_GATE = (0.15, 0.95)
+# dense int8 tensor-core rate (ops/s) of the two parts (NVIDIA data sheets)
+INT8_PEAKS = {"H100 PCIe": 1513e12, "H100 SXM": 1979e12}
+API_PAGES = 8  # run_page's pages
+LONG_REPEATS = 4  # serve_v3_procs: the 96 pages under this many names
+
+
+def kernel_counters(ba, rb):
+    from peneo_tpu_torch.ops import quant
+
+    return {"biacm_attention": ba.biacm_attention_cuda,
+            "fwd": ba.biacm_attention_train_fwd_cuda,
+            "bwd": ba.biacm_attention_train_bwd_cuda,
+            "bias_attention": rb.bias_attention_cuda,
+            "bias_fwd": rb.bias_attention_train_fwd_cuda,
+            "bias_bwd": rb.bias_attention_train_bwd_cuda,
+            "int8": quant.int8_matmul_cuda}
+
+
+def reset_counts(ba, rb):
+    for fn in kernel_counters(ba, rb).values():
+        fn.launches = 0
+
+
+def read_counts(ba, rb):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in kernel_counters(ba, rb).items()}
+
+
+def expect_counts(counts, want, what):
+    """Raise unless ``counts`` is ``want`` (absent keys: 0)."""
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise RuntimeError(f"{what}: launches {counts}, expected {full}")
+
+
+def records_of(results):
+    return {k: (v["kv_pairs"], v["lines"]) for k, v in results.items()}
+
+
+def as_record(kv_pairs, lines):
+    """``run_page`` / ``run_batch``'s (kv_pairs, lines) as ``run``'s record
+    lists."""
+    return ([{"key": k, "value": v, "key_box": [float(x) for x in kb],
+              "value_box": [float(x) for x in vb]}
+             for k, v, kb, vb in kv_pairs],
+            [{"text": t, "box": [float(x) for x in b]} for t, b in lines])
+
+
+def write_safetensors(tensors, path):
+    """fp32 tensors as a ``.safetensors`` file: the 8-byte little-endian
+    length of a JSON header (dtype, shape, data offsets per tensor), the
+    header, then the data."""
+    import numpy as np
+    import torch
+
+    header, arrays, offset = {}, [], 0
+    for name, t in tensors.items():
+        a = t.detach().to("cpu", torch.float32).contiguous().numpy()
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        arrays.append(a)
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for a in arrays:
+            f.write(a.reshape(-1).view(np.uint8).data)
+
+
+def phase_checkpoints(ba, rb, tmp, img_dir, ocr_dir):
+    """The LiLT-base serving model written three ways without JAX —
+    ``params.msgpack`` (``write_flax_msgpack`` of the JAX param tree),
+    ``model.safetensors`` and the serve phase's ``pytorch_model.bin`` —
+    each loads the same weights bit for bit and serves the 96 pages to the
+    same records. Then ``generate_peneo_weights`` on an HF-style backbone
+    directory of the same model and 4 ``run_rfund`` steps from its output:
+    the backbone before step 1 is the model's bit for bit, the losses are
+    finite, kernels #2/#3 run 12 times a step."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.config import PEneoConfig
+    from peneo_tpu_torch.generate_peneo_weights import main as generate
+    from peneo_tpu_torch.models.convert import state_dict_to_jax_params
+    from peneo_tpu_torch.models.peneo import PEneoModel
+    from peneo_tpu_torch.pipeline.infer import InferenceService, load_weights
+    from peneo_tpu_torch.pipeline.weights_io import write_flax_msgpack
+
+    src = os.path.join(tmp, "model")
+    cfg = PEneoConfig.from_pretrained(src)
+    sd = torch.load(os.path.join(src, "pytorch_model.bin"),
+                    map_location="cpu", weights_only=True)
+    dirs, seconds = {"pytorch_model.bin": src}, {}
+    for name, write in (
+            ("params.msgpack", lambda p: write_flax_msgpack(
+                state_dict_to_jax_params(sd, cfg), p)),
+            ("model.safetensors", lambda p: write_safetensors(sd, p))):
+        d = os.path.join(tmp, "ckpt_" + name.split(".")[1])
+        os.makedirs(d)
+        for f in ("config.json", "toy_tokenizer.json"):
+            shutil.copy(os.path.join(src, f), d)
+        t0 = time.perf_counter()
+        write(os.path.join(d, name))
+        seconds[f"write {name}"] = time.perf_counter() - t0
+        dirs[name] = d
+    sizes = {n: os.path.getsize(os.path.join(d, n)) for n, d in dirs.items()}
+    for name, d in dirs.items():
+        model = PEneoModel(cfg)
+        t0 = time.perf_counter()
+        load_weights(model, d)
+        seconds[f"load {name}"] = time.perf_counter() - t0
+        got = model.state_dict()
+        bad = [k for k in sd if not torch.equal(got[k], sd[k])]
+        if bad:
+            raise RuntimeError(f"{name}: {len(bad)} tensors differ from the "
+                               f"model's, e.g. {bad[:3]}")
+        del model, got
+
+    records = {}
+    reset_counts(ba, rb)
+    for name, d in dirs.items():
+        svc = InferenceService(d, batch_size=B, dtype="bfloat16")
+        records[name] = records_of(svc.run(img_dir, ocr_dir))
+        del svc
+    counts = read_counts(ba, rb)
+    n_forwards = math.ceil(N_PAGES / B)
+    expect_counts(counts, {"biacm_attention": 12 * n_forwards * len(dirs)},
+                  "serving the three files")
+    ref = records["pytorch_model.bin"]
+    if len(ref) != N_PAGES or any(r != ref for r in records.values()):
+        raise RuntimeError("the three checkpoint files served different "
+                           "records: " + str({n: sum(
+                               a != ref.get(k) for k, a in r.items())
+                               for n, r in records.items()}))
+
+    # the weight generator on an HF-style backbone directory of the model
+    hf = os.path.join(tmp, "hf", "lilt-infoxlm-base")
+    os.makedirs(hf)
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump(cfg.backbone_config, f)
+    shutil.copy(os.path.join(src, "toy_tokenizer.json"), hf)
+    backbone = {k[len("backbone."):]: v for k, v in sd.items()
+                if k.startswith("backbone.")}
+    write_safetensors({"lilt." + k: v for k, v in backbone.items()},
+                      os.path.join(hf, "model.safetensors"))
+    gen = os.path.join(tmp, "generated")
+    t0 = time.perf_counter()
+    generate(["--backbone_name_or_path", hf, "--output_dir", gen])
+    seconds["generate_peneo_weights"] = time.perf_counter() - t0
+
+    out = os.path.join(tmp, "train_generated")
+    steps = 4
+    argv = ["--synthetic_data", "--model_name_or_path", gen,
+            "--output_dir", out, "--max_steps", str(steps),
+            "--max_seq_len", str(L),
+            "--per_device_train_batch_size", str(TRAIN_B),
+            "--logging_steps", "1", "--eval_steps", "1000",
+            "--save_steps", "1000", "--seed", str(SEED)]
+    model = run_rfund.setup(run_rfund.build_argparser().parse_args(argv))[1]
+    got = model.state_dict()
+    bad = [k for k, v in backbone.items()
+           if not torch.equal(got["backbone." + k], v)]
+    kept = [k for k in got if not k.startswith("backbone.")]
+    if bad or not kept:
+        raise RuntimeError(f"fine-tuning's start: {len(bad)} backbone "
+                           f"tensors differ from the model's, e.g. {bad[:3]}")
+    del model, got
+    reset_counts(ba, rb)
+    run_rfund.main(argv + ["--do_train"])
+    train_counts = read_counts(ba, rb)
+    expect_counts(train_counts, {"fwd": 12 * steps, "bwd": 12 * steps},
+                  f"{steps} steps from the generated directory")
+    with open(os.path.join(out, "log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["loss/total"] for r in logged if "loss/total" in r]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"losses {losses} over {steps} steps")
+    emit({"phase": "checkpoints", "files": list(dirs), "bytes": sizes,
+          "seconds": seconds,
+          "read_gb_per_s": {n: sizes[n] / seconds[f"load {n}"] / 1e9
+                            for n in dirs},
+          "pages": N_PAGES, "records_equal": True,
+          "backbone_tensors": len(backbone),
+          "decoder_tensors_at_init": len(kept), "losses": losses,
+          "launches": {"serve": counts, "train": train_counts}})
+    return {k: counts[k] + train_counts[k] for k in counts}
+
+
+def triu_valid(attn):
+    """(B, Ld, Ld) bool: the decoder positions' upper triangle over the
+    pages' real tokens (CLS stripped)."""
+    import torch
+
+    valid = attn[:, 1:].bool()
+    ld = valid.shape[1]
+    triu = torch.ones((ld, ld), dtype=torch.bool, device=attn.device).triu()
+    return triu[None] & valid[:, :, None] & valid[:, None, :]
+
+
+def int8_logit_gate(ref, got, mask, gate, what):
+    """Per head: max |int8 − bf16| over max |bf16| and the argmax agreement
+    on ``mask``; raise outside ``gate``."""
+    from peneo_tpu_torch.models.decoder import HEAD_NAMES
+
+    out = {}
+    for name in HEAD_NAMES:
+        a = ref[name]["logits"][mask].float()
+        b = got[name]["logits"][mask].float()
+        err = ((a - b).abs().max() / a.abs().max()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        out[name] = {"err_over_span": err, "argmax_agreement": agree}
+        if not (err < gate[0] and agree > gate[1]):
+            raise RuntimeError(f"{what} {name}: err/span {err:.4f} (< "
+                               f"{gate[0]}), argmax agreement {agree:.4f} "
+                               f"(> {gate[1]})")
+    return out
+
+
+def batch_tensors(svc, pages):
+    import numpy as np
+    import torch
+
+    ids, bbox, attn = (torch.from_numpy(np.stack([p[0][k] for p in pages]))
+                       .cuda() for k in ("input_ids", "bbox",
+                                         "attention_mask"))
+    kw = {"image": batch_images(svc, pages)} if "image" in pages[0][0] \
+        else {}
+    return ids, bbox, attn, kw
+
+
+def phase_serve_int8(ba, rb, tmp, img_dir, ocr_dir, peaks, profile_dir):
+    """int8 on the LiLT-base serving path. The library GEMM
+    (``torch._int_mm``) against its integer twin, bit for bit, at the pair
+    head's first row block (B·128·512 rows, 384→384) and LiLT's
+    intermediate layer (B·L rows, 768→3072), with its time beside a bf16
+    product of the same shapes; then the 96 pages through three services —
+    bf16, ``int8_pair_head``, ``int8_pair_head + int8_backbone`` — each
+    with its warm and whole-run pages/s, peak memory, one profiled
+    forward's device busy ms, the int8 launches of a run against the number
+    the module structure gives, and one batch's logits against the bf16
+    service's within the int8 gates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from peneo_tpu_torch.ops import quant
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    int8_peak = INT8_PEAKS[peaks[0]]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gemm = {}
+    for what, (n, k, f) in (("pair_head", (B * 128 * L, 384, 384)),
+                            ("intermediate", (B * L, 768, 3072))):
+        xq = torch.randint(-127, 128, (n, k), device="cuda",
+                           dtype=torch.int8, generator=gen)
+        wq = torch.randint(-127, 128, (f, k), device="cuda",
+                           dtype=torch.int8, generator=gen)
+        if not torch.equal(quant.int8_matmul_cuda(xq, wq),
+                           quant.int8_matmul_reference(xq, wq)):
+            raise RuntimeError(f"int8 GEMM at {what} ({n}x{k}x{f}) differs "
+                               "from its integer twin")
+        xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+        t_bytes = (n * k + f * k + 4 * n * f) / peaks[2] * 1e3
+        t_ops = 2 * n * k * f / int8_peak * 1e3
+        gemm[what] = {
+            "shape": [n, k, f], "equal_to_twin": True,
+            "ms": time_ms(lambda: quant.int8_matmul_cuda(xq, wq), n=10),
+            "plain_ms": time_ms(lambda: quant.int8_matmul_reference(xq, wq),
+                                n=3, warmup=1),
+            "bf16_ms": time_ms(lambda: xb @ wb.t(), n=10),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del xq, wq, xb, wb
+    torch.cuda.empty_cache()
+
+    wdir = os.path.join(tmp, "model")
+    modes = (("bf16", {}), ("int8_pair_head", {"int8_pair_head": True}),
+             ("int8_pair_head+backbone", {"int8_pair_head": True,
+                                          "int8_backbone": True}))
+    n_forwards = math.ceil(N_PAGES / B)
+    rows = {}
+    total = {}
+    ref = mask = None
+    for mode, kw in modes:
+        svc = InferenceService(wdir, batch_size=B, dtype="bfloat16", **kw)
+        pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+                 for i in range(B)]
+        ids, bbox, attn, _ = batch_tensors(svc, pages)
+        reset_counts(ba, rb)
+        svc.run(img_dir, ocr_dir)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        svc.run(img_dir, ocr_dir)
+        torch.cuda.synchronize()
+        run = dict(svc.last_run)
+        peak = torch.cuda.max_memory_allocated()
+        svc.run(img_dir, ocr_dir)
+        warm = [run["warm_pages"] / run["warm_seconds"],
+                svc.last_run["warm_pages"] / svc.last_run["warm_seconds"]]
+        blocks = math.ceil((L - 1) / svc.cfg.pair_block_size)
+        per_forward = (5 * blocks if "int8_pair_head" in kw else 0) + (
+            12 * 12 if kw.get("int8_backbone") else 0)
+        expect_counts(read_counts(ba, rb),
+                      {"biacm_attention": 12 * 3 * n_forwards,
+                       "int8": per_forward * 3 * n_forwards},
+                      f"serve_int8 {mode}, three runs")
+        # one batch's forward and fetch on the host clock, then profiled
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc._fetch(svc.dispatch_batch(pages))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc._fetch(svc.dispatch_batch(pages))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels, busy = device_rows(prof, wall_ms, profile_dir,
+                                    "serve_int8_" + mode.replace("+", "_"))
+        with torch.inference_mode():
+            out = svc.model(ids, bbox, attn, return_logits=True)
+        for k, v in read_counts(ba, rb).items():
+            total[k] = total.get(k, 0) + v
+        if ref is None:
+            ref, mask = out, triu_valid(attn)
+            gates = None
+        else:
+            gate = INT8_BACKBONE_GATE if kw.get("int8_backbone") \
+                else INT8_PAIR_GATE
+            gates = int8_logit_gate(ref, out, mask, gate, mode)
+        rows[mode] = {
+            "pages_per_s": run["pages"] / run["seconds"],
+            "warm_pages_per_s": statistics.median(warm),
+            "warm_pages_per_s_runs": warm,
+            "max_memory_allocated": peak,
+            "forward_wall_ms": statistics.median(walls),
+            "forward_wall_ms_runs": walls,
+            "batch_pages_per_s": B / (statistics.median(walls) / 1e3),
+            "profiled_forward_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms,
+            "int8_launches_per_forward": per_forward,
+            "logits_vs_bf16": gates,
+            "top_kernels": [[k[:90], round(ms, 3), c]
+                            for k, ms, c in kernels[:8]]}
+        del svc, out
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_int8", "batch_size": B, "L": L, "pages": N_PAGES,
+          "gemm": gemm, "modes": rows, "gates": {
+              "pair_head": INT8_PAIR_GATE, "backbone": INT8_BACKBONE_GATE},
+          "launches": total})
+    return total
+
+
+def phase_serve_int8_v3(ba, rb, tmp, img_dir, ocr_dir):
+    """One LayoutLMv3-base forward (B=32, the 224 px image) with
+    ``int8_pair_head + int8_backbone``: kernel #4 12 times behind the int8
+    projections, the int8 launches the module structure gives, the logits
+    against the bf16 service's within the backbone gate."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    wdir = os.path.join(tmp, "model_v3")
+    outs = {}
+    reset_counts(ba, rb)
+    for mode, kw in (("bf16", {}), ("int8", {"int8_pair_head": True,
+                                             "int8_backbone": True})):
+        svc = InferenceService(wdir, batch_size=B, dtype="bfloat16", **kw)
+        pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+                 for i in range(B)]
+        ids, bbox, attn, image = batch_tensors(svc, pages)
+        before = read_counts(ba, rb)
+        with torch.inference_mode():
+            outs[mode] = svc.model(ids, bbox, attn, return_logits=True,
+                                   **image)
+        after = read_counts(ba, rb)
+        blocks = math.ceil((L - 1) / svc.cfg.pair_block_size)
+        expect_counts({k: after[k] - before[k] for k in after},
+                      {"bias_attention": 12,
+                       "int8": (5 * blocks + 12 * 6) if kw else 0},
+                      f"one v3 {mode} forward")
+        del svc
+    gates = int8_logit_gate(outs["bf16"], outs["int8"], triu_valid(attn),
+                            INT8_BACKBONE_GATE, "v3 int8")
+    counts = read_counts(ba, rb)
+    del outs
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_int8_v3", "batch_size": B, "L": L,
+          "attention_length": LV, "logits_vs_bf16": gates,
+          "gate": INT8_BACKBONE_GATE, "launches": counts})
+    return counts
+
+
+def link_pages(src_img, src_ocr, dst_img, dst_ocr, indices, repeats=1):
+    """Symlinks to the serve phase's pages: each page under ``repeats``
+    names."""
+    os.makedirs(dst_img)
+    os.makedirs(dst_ocr)
+    for r in range(repeats):
+        for i in indices:
+            img, ocr = page_paths(src_img, src_ocr, i)
+            os.symlink(img, os.path.join(dst_img, f"page_{i:03d}_{r}.png"))
+            os.symlink(ocr, os.path.join(dst_ocr, f"page_{i:03d}_{r}.json"))
+
+
+def phase_serve_api(ba, rb, svc, tmp, img_dir, ocr_dir):
+    """The single-page API on LiLT-base: ``run_page`` on 8 pages gives the
+    records of ``run`` over a directory of those pages at batch 1 (the same
+    forward shape), ``run_batch`` on one batch those of the batch-32 run;
+    ``run(visualize_dir=…)`` writes one image per page."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    sub_img, sub_ocr = (os.path.join(tmp, "api_images"),
+                        os.path.join(tmp, "api_ocr"))
+    link_pages(img_dir, ocr_dir, sub_img, sub_ocr, range(API_PAGES))
+    reset_counts(ba, rb)
+    one = InferenceService(os.path.join(tmp, "model"), batch_size=1,
+                           dtype="bfloat16")
+    by_run = records_of(one.run(sub_img, sub_ocr))
+    t0 = time.perf_counter()
+    by_page = {name: as_record(*one.run_page(
+        os.path.join(sub_img, name),
+        os.path.join(sub_ocr, name[:-4] + ".json"))) for name in sorted(by_run)}
+    torch.cuda.synchronize()
+    page_ms = (time.perf_counter() - t0) / API_PAGES * 1e3
+    del one
+    if by_page != by_run:
+        raise RuntimeError("run_page differs from run at batch 1 on "
+                           f"{sum(by_page[k] != by_run[k] for k in by_run)} "
+                           f"of {API_PAGES} pages")
+    viz = os.path.join(tmp, "visualize")
+    full = svc.run(img_dir, ocr_dir, visualize_dir=viz)
+    pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+             for i in range(B)]
+    t0 = time.perf_counter()
+    batch = svc.run_batch(pages)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(ba, rb)
+    n_forwards = 2 * API_PAGES + math.ceil(N_PAGES / B) + 1
+    expect_counts(counts, {"biacm_attention": 12 * n_forwards},
+                  "serve_api")
+    want = records_of(full)
+    for i, res in enumerate(batch):
+        if as_record(*res) != want[f"page_{i:03d}.png"]:
+            raise RuntimeError(f"run_batch differs from run on page {i}")
+    written = sorted(os.listdir(viz))
+    if written != sorted(full):
+        raise RuntimeError(f"visualize_dir holds {len(written)} images for "
+                           f"{len(full)} pages")
+    same_as_b32 = sum(by_page[f"page_{i:03d}_0.png"] == want[
+        f"page_{i:03d}.png"] for i in range(API_PAGES))
+    emit({"phase": "serve_api", "run_page_pages": API_PAGES,
+          "run_page_ms_per_page": page_ms, "run_batch_ms": batch_ms,
+          "run_page_equal_to_batch1_run": True,
+          "run_page_equal_to_batch32_run": same_as_b32,
+          "run_batch_equal_to_run": True, "visualized": len(written),
+          "launches": counts})
+    return counts
+
+
+def phase_serve_v3_procs(ba, rb, tmp, img_dir, ocr_dir):
+    """LayoutLMv3-base serving over 384 pages (the 96 under 4 names each),
+    first on 4 preprocessing threads, then in min(8, cpu_count) spawned
+    worker processes: whole-run pages/s of each (the host image path
+    bounds v3 on a long directory), the same records."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    long_img, long_ocr = (os.path.join(tmp, "long_images"),
+                          os.path.join(tmp, "long_ocr"))
+    link_pages(img_dir, ocr_dir, long_img, long_ocr, range(N_PAGES),
+               LONG_REPEATS)
+    n = N_PAGES * LONG_REPEATS
+    svc = InferenceService(os.path.join(tmp, "model_v3"), batch_size=B,
+                           dtype="bfloat16")
+    svc.run_batch([svc.preprocess_page(*page_paths(img_dir, ocr_dir, 0))])
+    procs = min(8, os.cpu_count() or 1)
+    reset_counts(ba, rb)
+    runs = {}
+    for what, kw in (("threads_4", {"workers": 4}),
+                     (f"procs_{procs}", {"preprocess_procs": procs})):
+        res = svc.run(long_img, long_ocr, **kw)
+        torch.cuda.synchronize()
+        run = dict(svc.last_run)
+        runs[what] = {"records": records_of(res), "seconds": run["seconds"],
+                      "pages_per_s": run["pages"] / run["seconds"],
+                      "pool_start_seconds": run["pool_start_seconds"],
+                      "pages_per_s_after_pool_start": run["pages"] / (
+                          run["seconds"] - run["pool_start_seconds"]),
+                      "warm_pages_per_s": run["warm_pages"]
+                      / run["warm_seconds"]}
+    counts = read_counts(ba, rb)
+    expect_counts(counts, {"bias_attention": 12 * 2 * math.ceil(n / B)},
+                  "serve_v3_procs")
+    a, b = (r.pop("records") for r in runs.values())
+    if len(a) != n or a != b:
+        raise RuntimeError("preprocess_procs served other records than the "
+                           "threads")
+    del svc
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_v3_procs", "pages": n, "batch_size": B,
+          "cpu_count": os.cpu_count(), "runs": runs, "records_equal": True,
+          "launches": counts})
+    return counts
+
+
+# ------------------------------------------------------------------------
 # steps_per_call: K fine-tuning steps as one CUDA graph replay
 # ------------------------------------------------------------------------
 
@@ -2509,6 +3067,14 @@ def main(argv=None):
         timed("decode", phase_decode, svc, img_dir, ocr_dir, docs)
         timed("breakdown", phase_breakdown, svc, img_dir, ocr_dir,
               args.profile)
+        # checkpoints, int8 and the serving surface: each phase's launches
+        surface = [
+            timed("checkpoints", phase_checkpoints, ba, rb, tmp, img_dir,
+                  ocr_dir),
+            timed("serve_int8", phase_serve_int8, ba, rb, tmp, img_dir,
+                  ocr_dir, peaks, args.profile),
+            timed("serve_api", phase_serve_api, ba, rb, svc, tmp, img_dir,
+                  ocr_dir)]
         del svc
         train_launches, train_out, train_record = timed(
             "train", phase_train, ba, tmp)
@@ -2521,6 +3087,10 @@ def main(argv=None):
 
         launches_v3 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v3")
+        surface.append(timed("serve_v3_procs", phase_serve_v3_procs, ba, rb,
+                             tmp, img_dir, ocr_dir))
+        surface.append(timed("serve_int8_v3", phase_serve_int8_v3, ba, rb,
+                             tmp, img_dir, ocr_dir))
         launches_v2 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v2")
 
@@ -2551,6 +3121,13 @@ def main(argv=None):
                                                           launches_v2))
                            + graph["v3"][k] + graph["v2"][k]
                            for k in ("fwd", "bwd")}
+    # and the checkpoint, int8 and serving-surface phases'
+    for counts in surface:
+        launches += counts["biacm_attention"]
+        bias_launches += counts["bias_attention"]
+        for k in ("fwd", "bwd"):
+            train_launches[k] += counts[k]
+            bias_train_launches[k] += counts["bias_" + k]
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
               library_ms, device, max_rel_err=None):

@@ -7,8 +7,7 @@ nested ``backbone_config`` dict). Every field of the JAX package's config is
 kept, so one ``config.json`` is read and written identically by both
 packages; fields the port does not act on yet (the TPU kernel switches,
 ``spot_streaming``, ``spot_topk`` — the port's top-k is always exact)
-round-trip unchanged; ``PEneoModel`` refuses a config that sets either int8
-switch.
+round-trip unchanged.
 """
 
 from __future__ import annotations
@@ -189,7 +188,9 @@ class PEneoConfig:
     # "approx" | "exact"; the port's top-k (torch.topk) is always exact
     spot_topk: str = "approx"
     spot_streaming: bool = False
-    # None | "int8"; "int8" is not ported yet and PEneoModel raises on it
+    # None | "int8": the pair head's hidden layers / the backbone's
+    # projections and MLPs as s8×s8→s32 products outside training
+    # (ops/quant.py)
     quantize_pair_head: Optional[str] = None
     quantize_backbone: Optional[str] = None
     model_type: str = "peneo"

@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
-import torch
 
 
 def load_rgb(path: str, size: int) -> np.ndarray:
@@ -70,7 +69,10 @@ def device_image_normalize(image: torch.Tensor, family: str) -> torch.Tensor:
     normalized (B, 3, H, W) float32 tensor the models take. The same IEEE
     fp32 operations as the host loaders (:func:`layoutlmv3_preprocess`,
     :func:`layoutlmv2_preprocess`), so raw and host-normalized serving give
-    bit-identical inputs."""
+    bit-identical inputs. (torch is imported here, not with the module: the
+    host half runs in preprocessing workers that import no torch.)"""
+    import torch
+
     x = image.to(torch.float32)
     if family == "layoutlmv3":
         # a device tensor as the divisor: by a Python scalar, CUDA

@@ -226,47 +226,79 @@ def _set(tree: Dict, path, value) -> None:
     tree[path[-1]] = np.asarray(value)
 
 
-def jax_params_to_state_dict(params: Dict, cfg: PEneoConfig) -> Dict[str, torch.Tensor]:
-    """JAX PEneoModel param tree (numpy leaves) → the port's state_dict."""
+def _has(tree: Dict, path) -> bool:
+    for p in path:
+        if not isinstance(tree, dict) or p not in tree:
+            return False
+        tree = tree[p]
+    return True
+
+
+def jax_params_to_state_dict(params: Dict, cfg: PEneoConfig,
+                             partial: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX PEneoModel param tree (numpy leaves) → the port's state_dict.
+
+    A leaf missing from ``params`` raises ``KeyError``; with ``partial``
+    (a backbone-only tree, ``merge_params``'s overlay) its keys are left
+    out instead, so that they keep the model's own values. ``combine_fc``'s
+    weight needs both ``comb_a`` and ``comb_b`` kernels."""
     sd: Dict[str, np.ndarray] = {}
+
+    def put(key, path, fn=lambda a: a):
+        if partial and not _has(params, path):
+            return False
+        try:
+            sd[key] = fn(_get(params, path))
+        except KeyError as e:
+            raise KeyError(f"the param tree lacks {'/'.join(path)}") from e
+        return True
+
     for key, path, kind in _entries(cfg):
         if kind == "emb":
-            sd[key + ".weight"] = _get(params, path + ("embedding",))
+            put(key + ".weight", path + ("embedding",))
         elif kind == "ln":
-            sd[key + ".weight"] = _get(params, path + ("scale",))
-            sd[key + ".bias"] = _get(params, path + ("bias",))
+            put(key + ".weight", path + ("scale",))
+            put(key + ".bias", path + ("bias",))
         elif kind == "table":
-            sd[key] = _get(params, path).T
+            put(key, path, lambda a: a.T)
         elif kind == "raw":
-            sd[key] = _get(params, path)
+            put(key, path)
         elif kind in ("conv", "frozen_conv"):
-            sd[key + ".weight"] = _get(params, path + ("kernel",)).transpose(
-                3, 2, 0, 1)
-            bias = _get(params, path + ("bias",))
+            put(key + ".weight", path + ("kernel",),
+                lambda a: a.transpose(3, 2, 0, 1))
             if kind == "conv":
-                sd[key + ".bias"] = bias
+                put(key + ".bias", path + ("bias",))
                 continue
             n = key + ".norm."
-            sd[n + "weight"] = np.ones_like(bias)
-            sd[n + "bias"] = bias
-            sd[n + "running_mean"] = np.zeros_like(bias)
-            sd[n + "running_var"] = np.full_like(bias, 1.0 - BN_EPS)
+            if put(n + "bias", path + ("bias",)):
+                bias = sd[n + "bias"]
+                sd[n + "weight"] = np.ones_like(bias)
+                sd[n + "running_mean"] = np.zeros_like(bias)
+                sd[n + "running_var"] = np.full_like(bias, 1.0 - BN_EPS)
         else:
-            sd[key + ".weight"] = _get(params, path + ("kernel",)).T
+            put(key + ".weight", path + ("kernel",), lambda a: a.T)
             if kind == "linear":
-                sd[key + ".bias"] = _get(params, path + ("bias",))
+                put(key + ".bias", path + ("bias",))
     dec = ("peneo_decoder",)
-    sd[_COMBINE + ".weight"] = np.concatenate(
-        [_get(params, dec + ("comb_a", "kernel")).T,
-         _get(params, dec + ("comb_b", "kernel")).T], axis=1)
-    sd[_COMBINE + ".bias"] = _get(params, dec + ("comb_a", "bias"))
+    halves = [dec + (c, "kernel") for c in ("comb_a", "comb_b")]
+    present = [_has(params, h) for h in halves]
+    if not partial or any(present):
+        if partial and not all(present):
+            raise KeyError("the param tree holds one of comb_a/comb_b only: "
+                           "combine_fc's weight needs both")
+        sd[_COMBINE + ".weight"] = np.concatenate(
+            [_get(params, h).T for h in halves], axis=1)
+    put(_COMBINE + ".bias", dec + ("comb_a", "bias"))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
 
 
-def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig) -> Dict:
+def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig,
+                             backbone_only: bool = False) -> Dict:
     """The port's state_dict (tensors or numpy) → JAX PEneoModel param tree
-    of float32 numpy arrays."""
+    of float32 numpy arrays; with ``backbone_only``, the ``backbone``
+    subtree alone, from the ``backbone.*`` keys (the weight generator's
+    ``{"backbone": …}``)."""
     def arr(k):
         v = sd[k]
         if isinstance(v, torch.Tensor):
@@ -275,6 +307,8 @@ def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig) -> Dict:
 
     params: Dict = {}
     for key, path, kind in _entries(cfg):
+        if backbone_only and path[0] != "backbone":
+            continue
         if kind == "emb":
             _set(params, path + ("embedding",), arr(key + ".weight"))
         elif kind == "ln":
@@ -302,6 +336,8 @@ def state_dict_to_jax_params(sd: Dict, cfg: PEneoConfig) -> Dict:
             _set(params, path + ("kernel",), arr(key + ".weight").T.copy())
             if kind == "linear":
                 _set(params, path + ("bias",), arr(key + ".bias"))
+    if backbone_only:
+        return params
     w = arr(_COMBINE + ".weight")
     h = w.shape[0]
     dec = ("peneo_decoder",)

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import PEneoConfig
 from ..ops.losses import weighted_cross_entropy
+from ..ops.quant import QuantLinear, quantize_rows, set_int8
 
 HEAD_NAMES = (
     "line_extraction",
@@ -55,12 +56,14 @@ HEAD_CLASSES = {
 def pair_classifier(hidden: int, num_classes: int, num_layers: int,
                     dropout: float) -> nn.Module:
     """Reference build_classifier (model/peneo_decoder.py:231-271): one
-    Linear, or [Linear, SiLU, Dropout] × (n-1) + [Linear]."""
+    Linear, or [Linear, SiLU, Dropout] × (n-1) + [Linear]. The hidden H→H
+    layers can run int8 (``quantize_pair_head``); the H→C output stays
+    float."""
     if num_layers == 1:
         return nn.Linear(hidden, num_classes)
     layers = []
     for _ in range(num_layers - 1):
-        layers += [nn.Linear(hidden, hidden), nn.SiLU(), nn.Dropout(dropout)]
+        layers += [QuantLinear(hidden, hidden), nn.SiLU(), nn.Dropout(dropout)]
     layers.append(nn.Linear(hidden, num_classes))
     return nn.Sequential(*layers)
 
@@ -139,15 +142,31 @@ class PEneoDecoder(nn.Module):
                              persistent=False)
         self.handshaking_kernel = HandshakingKernel(dec_h)
         for name in HEAD_NAMES:
-            setattr(self, f"{name}_fc", pair_classifier(
-                dec_h, HEAD_CLASSES[name], cfg.peneo_classifier_num_layers,
-                drop))
+            head = pair_classifier(dec_h, HEAD_CLASSES[name],
+                                   cfg.peneo_classifier_num_layers, drop)
+            setattr(self, f"{name}_fc", head)
+            set_int8(head, cfg.quantize_pair_head == "int8")
+        # the five heads' first layers read one input: quantize it once
+        self.int8_pair_head = (cfg.quantize_pair_head == "int8"
+                               and cfg.peneo_classifier_num_layers > 1)
 
     def pair_block(self, a_blk, b_cols) -> Dict[str, torch.Tensor]:
         """One row block through the five heads: the pair features are
-        computed once and shared; one classifier chain per head."""
+        computed once and shared (with the int8 head, quantized once too);
+        one classifier chain per head."""
         pair = F.silu(a_blk[:, :, None, :] + b_cols[:, None, :, :])
-        return {name: getattr(self, f"{name}_fc")(pair) for name in HEAD_NAMES}
+        if not (self.int8_pair_head and not self.training):
+            return {name: getattr(self, f"{name}_fc")(pair)
+                    for name in HEAD_NAMES}
+        quantized = quantize_rows(pair)
+        out = {}
+        for name in HEAD_NAMES:
+            first, *rest = getattr(self, f"{name}_fc")
+            x = first(pair, quantized)
+            for layer in rest:
+                x = layer(x)
+            out[name] = x
+        return out
 
     def _pair_logits(self, a_blk, b_cols):
         """The five heads' logits of one row block as a tuple, recomputed in

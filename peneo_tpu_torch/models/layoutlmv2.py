@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LayoutLMv2Config
+from ..ops.quant import QuantLinear
 from .layoutlmv3 import LayoutLMv3Encoder, RelBiasBackbone, \
     RelBiasSelfAttention
 from .lilt import init_module_weights, key_mask_bias
@@ -251,13 +252,13 @@ class LayoutLMv2SelfAttention(RelBiasSelfAttention):
         h = cfg.hidden_size
         self.fast_qkv = cfg.fast_qkv
         if cfg.fast_qkv:
-            self.qkv_linear = nn.Linear(h, 3 * h, bias=False)
+            self.qkv_linear = QuantLinear(h, 3 * h, bias=False)
             self.q_bias = nn.Parameter(torch.zeros(1, 1, h))
             self.v_bias = nn.Parameter(torch.zeros(1, 1, h))
         else:
-            self.query = nn.Linear(h, h)
-            self.key = nn.Linear(h, h)
-            self.value = nn.Linear(h, h)
+            self.query = QuantLinear(h, h)
+            self.key = QuantLinear(h, h)
+            self.value = QuantLinear(h, h)
 
     def project(self, x):
         if not self.fast_qkv:

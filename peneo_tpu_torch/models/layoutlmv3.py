@@ -63,6 +63,7 @@ from ..ops.biacm_attention import element_dropout_bits
 from ..ops.bias_attention import (bias_attention, bias_attention_reference,
                                   bias_attention_train,
                                   bias_attention_train_reference)
+from ..ops.quant import QuantLinear
 from .dropout_seeds import layer_seed
 from .lilt import (ATTENTION_IMPLS, Intermediate, ResidualOutput,
                    init_module_weights, key_mask_bias, make_position_ids)
@@ -286,9 +287,9 @@ class LayoutLMv3SelfAttention(RelBiasSelfAttention):
     def __init__(self, cfg: LayoutLMv3Config):
         super().__init__(cfg)
         h = cfg.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = QuantLinear(h, h)
+        self.key = QuantLinear(h, h)
+        self.value = QuantLinear(h, h)
 
     def project(self, x):
         return self.query(x), self.key(x), self.value(x)
@@ -364,7 +365,7 @@ class RelBiasBackbone(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         """Compute dtype: that of the encoder weights."""
-        return self.encoder.layer[0].output.dense.weight.dtype
+        return self.encoder.layer[0].output.LayerNorm.weight.dtype
 
     def set_attention_impl(self, attention_impl: str) -> None:
         """``"kernel"`` (the default) or ``"plain"``: the plain twin on any

@@ -41,6 +41,7 @@ from ..ops.biacm_attention import (attention_dropout_bits, biacm_attention,
                                    biacm_attention_reference,
                                    biacm_attention_train,
                                    biacm_attention_train_reference)
+from ..ops.quant import QuantLinear
 from .dropout_seeds import layer_seed
 
 ACT = {
@@ -132,12 +133,12 @@ class LiltSelfAttention(nn.Module):
         self.dh_l = self.dh // cfg.channel_shrink_ratio
         self.attention_impl = "kernel"
         self.dropout = cfg.attention_probs_dropout_prob
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.layout_query = nn.Linear(lay_h, lay_h)
-        self.layout_key = nn.Linear(lay_h, lay_h)
-        self.layout_value = nn.Linear(lay_h, lay_h)
+        self.query = QuantLinear(h, h)
+        self.key = QuantLinear(h, h)
+        self.value = QuantLinear(h, h)
+        self.layout_query = QuantLinear(lay_h, lay_h)
+        self.layout_key = QuantLinear(lay_h, lay_h)
+        self.layout_value = QuantLinear(lay_h, lay_h)
 
     def forward(self, text, layout, bias, seed: int = 0):
         """``seed`` keys the attention-dropout masks of a training step."""
@@ -175,7 +176,7 @@ class ResidualOutput(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, eps: float, dropout: float):
         super().__init__()
-        self.dense = nn.Linear(d_in, d_out)
+        self.dense = QuantLinear(d_in, d_out)
         self.LayerNorm = nn.LayerNorm(d_out, eps=eps)
         self.dropout = dropout
 
@@ -189,7 +190,7 @@ class Intermediate(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, act: str):
         super().__init__()
-        self.dense = nn.Linear(d_in, d_out)
+        self.dense = QuantLinear(d_in, d_out)
         self.act = ACT[act]
 
     def forward(self, x):

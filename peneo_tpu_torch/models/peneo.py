@@ -9,8 +9,10 @@ the decoder. Inputs are padded to a static L; the decoder works on
 Ld = L - 1 positions, and labels are (B, Ld, Ld) dense matrices or (B, S, 3)
 spot arrays. A visual backbone's image tokens come after the text tokens
 and are dropped before the decoder. The int8 switches of the config
-(``quantize_pair_head``, ``quantize_backbone``) are not ported: a config
-that sets either is refused rather than served in bf16.
+(``quantize_pair_head``, ``quantize_backbone``) run the pair head's hidden
+layers and the backbone's projections and MLPs as s8×s8→s32 products
+(``ops/quant.py``) on forwards outside training, as the JAX package does on
+deterministic ones; training is unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import PEneoConfig
+from ..ops.quant import keep_int8_weights_fp32, set_int8
 from .decoder import PEneoDecoder
 from .lilt import LiltModel, init_module_weights
 
@@ -51,12 +54,9 @@ def build_backbone(cfg: PEneoConfig) -> nn.Module:
 class PEneoModel(nn.Module):
     def __init__(self, cfg: PEneoConfig):
         super().__init__()
-        for switch in ("quantize_pair_head", "quantize_backbone"):
-            if getattr(cfg, switch) == "int8":
-                raise NotImplementedError(
-                    f"{switch}='int8' is not ported yet: the int8 matmuls "
-                    "of the JAX package have no counterpart here")
         self.backbone = build_backbone(cfg)
+        # the text encoder's projections and MLPs (v2's tower stays float)
+        set_int8(self.backbone, cfg.quantize_backbone == "int8")
         self.cfg = cfg
         self.flags = FAMILY_FLAGS[cfg.backbone_family()]
         self.backbone.gradient_checkpointing = cfg.gradient_checkpointing
@@ -67,9 +67,11 @@ class PEneoModel(nn.Module):
 
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
         """Cast to the compute dtype (the backbone keeps its embeddings, the
-        rel-bias families their bucket tables, in fp32)."""
+        rel-bias families their bucket tables, the int8 layers their weights,
+        in fp32)."""
         self.to(dtype)
         self.backbone.cast(dtype)
+        keep_int8_weights_fp32(self)
         return self
 
     def init_weights(self, generator: torch.Generator) -> "PEneoModel":

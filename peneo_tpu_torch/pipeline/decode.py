@@ -409,16 +409,19 @@ def decode_page_record(
     sample_idx: int,
     seq_len: int,
     dt: float,
+    img_path: Optional[str] = None,
+    visualize_dir: Optional[str] = None,
     score_thresh: float = 0.0,
     bbox: Optional[Sequence[Sequence[float]]] = None,
 ):
     """One serving page's host decode → JSON-ready result record (kv pairs,
-    line records and seconds; reference deploy/inference.py:407-447). Runs on
-    the serving decode thread pool."""
+    line records and seconds; reference deploy/inference.py:407-447), and
+    with ``visualize_dir`` the page drawn with its predictions there under
+    its own basename. Runs on the serving decode thread pool."""
     kv_pairs, lines, *_ = decode_pred_sample(
         texts, head_outputs, sample_idx, seq_len, bbox=bbox,
         score_thresh=score_thresh)
-    return {
+    record = {
         "kv_pairs": [
             {"key": k, "value": v,
              "key_box": [float(x) for x in kb],
@@ -429,6 +432,15 @@ def decode_page_record(
                   for t, b in lines],
         "seconds": dt,
     }
+    if visualize_dir:
+        import os
+
+        from ..utils.visualize import draw_page
+
+        os.makedirs(visualize_dir, exist_ok=True)
+        draw_page(img_path, kv_pairs, lines,
+                  os.path.join(visualize_dir, os.path.basename(img_path)))
+    return record
 
 
 def spots_from_label_matrices(

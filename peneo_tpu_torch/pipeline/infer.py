@@ -1,16 +1,25 @@
-"""Serving: page image + line-level OCR JSON → key/value pairs.
+"""Serving: page image + line-level OCR JSON (or tesseract) → key/value pairs.
 
 Counterpart of ``peneo_tpu/pipeline/infer.py:39-589`` for one device and the
 LiLT, LayoutLMv3 and LayoutLMv2/LayoutXLM families (reference:
 deploy/inference.py:110-464).
-Pages are preprocessed on a thread pool, stacked ``batch_size`` at a time,
+A model directory's weights are ``params.msgpack`` (the JAX package's param
+tree), ``model.safetensors`` or ``pytorch_model.bin`` (reference torch
+keys), tried in that order, as the JAX service does (:func:`load_weights`).
+Pages are preprocessed on a thread pool (or in spawned worker processes,
+``preprocess_procs``), stacked ``batch_size`` at a time,
 and run through :class:`~peneo_tpu_torch.models.peneo.PEneoModel`, whose
 attention is a CUDA kernel on the card (BiACM for LiLT, rel-bias for
 LayoutLMv3 and LayoutLMv2). PyTorch launches asynchronously, so keeping ``inflight_depth``
 batches dispatched before fetching the oldest one (``.cpu()`` of two packed
 int32 tensors) overlaps host preprocessing, host decode (a separate thread
 pool) and device work. A visual backbone's page images travel as resized
-uint8 (H, W, 3) arrays and are normalized on the device.
+uint8 (H, W, 3) arrays and are normalized on the device. ``int8_pair_head``
+/ ``int8_backbone`` run the pair head's hidden layers / the backbone's
+projections and MLPs as s8×s8→s32 products (``ops/quant.py``); off unless
+asked for, as the JAX service is off a TPU. :meth:`InferenceService.run_page`
+and :meth:`~InferenceService.run_batch` are the single-page and one-batch
+API; ``run(visualize_dir=…)`` also draws each page's predictions.
 
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
 GPU and no explicit device it raises.
@@ -21,7 +30,7 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -49,19 +58,67 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def load_weights(model: PEneoModel, path: str) -> None:
-    """Load ``<path>/pytorch_model.bin`` (reference torch key names). Keys
-    the model does not have are ignored; a missing one raises."""
-    fp = os.path.join(path, "pytorch_model.bin")
-    if not os.path.exists(fp):
-        raise FileNotFoundError(f"no pytorch_model.bin under {path}")
-    sd = torch.load(fp, map_location="cpu", weights_only=True, mmap=True)
+# the files a model directory's weights are read from, in the JAX order
+# (``peneo_tpu/pipeline/infer.py:564-589``); training also reads the weight
+# generator's backbone-only tree (``start/run_rfund.py:332-345``)
+SERVE_FILES = ("params.msgpack", "model.safetensors", "pytorch_model.bin")
+TRAIN_FILES = ("params.msgpack", "backbone_params.msgpack",
+               "model.safetensors", "pytorch_model.bin")
+
+
+def read_checkpoint(path: str, cfg: PEneoConfig, names=SERVE_FILES,
+                    partial: bool = False):
+    """The first of ``names`` under ``path`` → (state dict in the port's
+    keys, file). A msgpack param tree goes through
+    ``jax_params_to_state_dict`` (with ``partial`` it may hold a subset);
+    safetensors and torch files carry the reference's torch keys."""
+    from .weights_io import read_flax_msgpack, read_safetensors
+
+    for name in names:
+        fp = os.path.join(path, name)
+        if not os.path.exists(fp):
+            continue
+        if name.endswith(".msgpack"):
+            from ..models.convert import jax_params_to_state_dict
+
+            return jax_params_to_state_dict(read_flax_msgpack(fp), cfg,
+                                            partial=partial), fp
+        if name.endswith(".safetensors"):
+            return {k: torch.from_numpy(v) for k, v in
+                    read_safetensors(fp).items()}, fp
+        return torch.load(fp, map_location="cpu", weights_only=True,
+                          mmap=True), fp
+    raise FileNotFoundError(f"no {' / '.join(names)} under {path}")
+
+
+def load_weights(model: PEneoModel, path: str, train_init: bool = False) -> int:
+    """Load a model directory's weights (:data:`SERVE_FILES`, in order).
+    Keys the model does not have are ignored; a missing one raises.
+
+    ``train_init`` (fine-tuning's start, :data:`TRAIN_FILES`): a msgpack
+    tree may be partial (``backbone_params.msgpack``) and is overlaid on the
+    model's own init as ``merge_params`` does: a shape mismatch raises, an
+    absent entry keeps its init. Returns how many of the model's state-dict
+    keys kept their values."""
+    sd, fp = read_checkpoint(path, model.cfg,
+                             TRAIN_FILES if train_init else SERVE_FILES,
+                             partial=train_init)
     want = model.state_dict()
+    if train_init and fp.endswith(".msgpack"):
+        bad = {k: (tuple(v.shape), tuple(want[k].shape))
+               for k, v in sd.items() if k in want
+               and tuple(v.shape) != tuple(want[k].shape)}
+        if bad:
+            raise ValueError(f"{fp}: shape mismatch (file, model): {bad}")
+        picked = {k: v for k, v in sd.items() if k in want}
+        model.load_state_dict(picked, strict=False)
+        return len(want) - len(picked)
     missing = [k for k in want if k not in sd]
     if missing:
         raise KeyError(f"{fp} lacks {len(missing)} of the model's "
                        f"parameters, e.g. {missing[:3]}")
     model.load_state_dict({k: sd[k] for k in want})
+    return 0
 
 
 class InferenceService:
@@ -76,9 +133,15 @@ class InferenceService:
         batch_size: int = 1,
         dtype: str = "bfloat16",
         score_thresh: float = 0.0,
+        int8_pair_head: Optional[bool] = None,
+        int8_backbone: bool = False,
         bucket_lengths=None,
         device=None,
     ) -> None:
+        """``int8_pair_head`` None (auto) is off, as the JAX service's auto
+        is off any backend but a TPU; True or ``int8_backbone`` set the
+        config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
+        that sets them serves int8 already)."""
         self.device = resolve_device(device)
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
@@ -87,6 +150,10 @@ class InferenceService:
             raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
                              "take bfloat16; serve with dtype='bfloat16'")
         self.cfg = PEneoConfig.from_pretrained(model_name_or_path)
+        if int8_pair_head:
+            self.cfg.quantize_pair_head = "int8"
+        if int8_backbone:
+            self.cfg.quantize_backbone = "int8"
         if max_seq_len:
             self.cfg.max_seq_len = max_seq_len
         self.info = get_backbone_info(self.cfg.backbone_name)
@@ -153,10 +220,24 @@ class InferenceService:
             image_cfg=self.cfg if self.image_loader is not None else None,
             raw_image=self.raw_image, _image_loader=self.image_loader)
 
-    def preprocess_page(self, image_path: str, ocr_path: str):
+    def preprocess_page(self, image_path: str, ocr_path: Optional[str]):
         """One page → (arrays dict, fetched token texts, per-token orig
-        boxes, seq_len)."""
+        boxes, seq_len); ``ocr_path`` None runs tesseract."""
         return self.page_preprocessor()(image_path, ocr_path)
+
+    # ------------------------------------------------------------- one page
+    def run_page(self, image_path: str, ocr_path: Optional[str]):
+        """One page through a forward of its own (batch 1) → (kv_pairs,
+        lines), as the JAX service's ``run_page``."""
+        page = self.preprocess_page(image_path, ocr_path)
+        return self.collect_batch(self._dispatch([page]), [page])[0]
+
+    def run_batch(self, page_inputs):
+        """Synchronous forward over up to ``batch_size`` preprocessed pages
+        → [(kv_pairs, lines)] per page (see dispatch/collect for the
+        pipelined form the directory runner uses)."""
+        return self.collect_batch(self.dispatch_batch(page_inputs),
+                                  page_inputs)
 
     # --------------------------------------------------------------- pipeline
     def _bucket_for(self, n_rows: int) -> int:
@@ -183,7 +264,12 @@ class InferenceService:
         n = len(page_inputs)
         if not 0 < n <= self.batch_size:
             raise ValueError(f"{n} pages for batch_size {self.batch_size}")
-        pages = list(page_inputs) + [page_inputs[-1]] * (self.batch_size - n)
+        return self._dispatch(list(page_inputs)
+                              + [page_inputs[-1]] * (self.batch_size - n),
+                              bucket)
+
+    def _dispatch(self, pages, bucket: Optional[int] = None):
+        """Stack ``pages`` as they are and launch the forward."""
         stacked = {k: np.stack([p[0][k][:bucket] if bucket else p[0][k]
                                 for p in pages])
                    for k in ("input_ids", "bbox", "attention_mask")}
@@ -221,21 +307,32 @@ class InferenceService:
             results.append((kv_pairs, lines))
         return results
 
-    def run(self, image_dir: str, ocr_dir: str, workers: int = 4,
-            decode_workers: int = 2, inflight_depth: int = 2) -> Dict[str, Dict]:
+    def run(self, image_dir: str, ocr_dir: Optional[str] = None,
+            visualize_dir: Optional[str] = None, workers: int = 4,
+            decode_workers: int = 2, preprocess_procs: int = 0,
+            inflight_depth: int = 2) -> Dict[str, Dict]:
         """Batch inference over a directory of page images, each paired with
         the OCR JSON of the same basename stem in ``ocr_dir`` (or one OCR
-        file for a single image). Returns {image basename: record}.
+        file for a single image; None: tesseract reads each page). Returns
+        {image basename: record}; with ``visualize_dir`` each page is also
+        drawn there with its predictions.
 
-        The main thread only dispatches forwards and fetches outputs,
-        keeping ``inflight_depth`` batches in flight; per-page decode runs
-        on its own pool so it never blocks the next dispatch. Afterwards
-        ``self.last_run`` holds the page count, the wall time, and the pages
-        and time after the first batch's fetch (the warm rate)."""
+        Pages are preprocessed on ``workers`` threads, or with
+        ``preprocess_procs`` > 0 in that many spawned worker processes
+        (``pipeline/preprocess.py``: no CUDA context, no torch for a
+        text-only model; the heavy per-page work is a visual backbone's
+        image decode and resize). The main thread only dispatches forwards
+        and fetches outputs, keeping ``inflight_depth`` batches in flight;
+        per-page decode runs on its own pool so it never blocks the next
+        dispatch. Afterwards ``self.last_run`` holds the page count, the
+        wall time, the pages and time after the first batch's fetch (the
+        warm rate), and the time the preprocessing pool took to start."""
         image_paths = sorted(
             os.path.join(image_dir, f) for f in os.listdir(image_dir)) \
             if os.path.isdir(image_dir) else [image_dir]
-        if os.path.isdir(ocr_dir):
+        if ocr_dir is None:
+            ocr_paths = [None] * len(image_paths)  # apply_ocr: tesseract
+        elif os.path.isdir(ocr_dir):
             # pair by basename stem: a missing or duplicate stem is an error
             by_stem = {}
             for f in os.listdir(ocr_dir):
@@ -259,15 +356,32 @@ class InferenceService:
             raise ValueError("a directory of images needs a directory of "
                              "OCR JSONs")
 
-        prep = self.page_preprocessor()
         results = {}
         pending = []  # (basename, future) in input order
         inflight = deque()  # (device_out, pages, paths, t_dispatch)
         bufs: Dict[Optional[int], tuple] = {}
         t_first_fetch, n_first = None, 0
         t_start = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=workers) as pool, \
-                ThreadPoolExecutor(max_workers=decode_workers) as dpool:
+        if preprocess_procs > 0:
+            import multiprocessing as mp
+
+            from .preprocess import _init_worker, _preprocess_task, prespawn
+
+            pool = ProcessPoolExecutor(
+                max_workers=preprocess_procs,
+                mp_context=mp.get_context("spawn"),
+                initializer=_init_worker,
+                initargs=(self.page_preprocessor(),))
+            prespawn(pool, preprocess_procs)
+            prep_map = lambda pairs: pool.map(  # noqa: E731
+                _preprocess_task, pairs, chunksize=2)
+        else:
+            pool = ThreadPoolExecutor(max_workers=workers)
+            prep = self.page_preprocessor()
+            prep_map = lambda pairs: pool.map(  # noqa: E731
+                lambda pair: prep(*pair), pairs)
+        t_pool = time.perf_counter() - t_start
+        with pool, ThreadPoolExecutor(max_workers=decode_workers) as dpool:
 
             def collect():
                 nonlocal t_first_fetch, n_first
@@ -280,8 +394,8 @@ class InferenceService:
                 for i, (img, page) in enumerate(zip(paths, pages)):
                     _, texts, orig_bbox, seq_len = page
                     fut = dpool.submit(dec.decode_page_record, texts, out, i,
-                                       seq_len, dt, self.score_thresh,
-                                       orig_bbox)
+                                       seq_len, dt, img, visualize_dir,
+                                       self.score_thresh, orig_bbox)
                     pending.append((os.path.basename(img), fut))
 
             def flush(bucket):
@@ -299,8 +413,7 @@ class InferenceService:
                     collect()
 
             add_cls = int(self.info.add_cls_token)
-            prepped = pool.map(lambda pair: prep(*pair),
-                               zip(image_paths, ocr_paths))
+            prepped = prep_map(zip(image_paths, ocr_paths))
             for img, page in zip(image_paths, prepped):
                 # page[3] is seq_len (CLS excluded) — real rows add the CLS
                 bucket = (self._bucket_for(page[3] + add_cls)
@@ -322,5 +435,6 @@ class InferenceService:
             "seconds": t_end - t_start,
             "warm_pages": len(image_paths) - n_first,
             "warm_seconds": t_end - t_first_fetch if t_first_fetch else 0.0,
+            "pool_start_seconds": t_pool,  # spawning the workers, if any
         }
         return results

@@ -1,7 +1,7 @@
-"""Host-side page preprocessing for serving.
+"""Host-side page preprocessing for serving — imports no torch.
 
-The port's copy of ``peneo_tpu/pipeline/preprocess.py`` (OCR-JSON path):
-the OCR-JSON reader, the deploy-mode text cleanup, and ``PagePreprocessor``
+The port's copy of ``peneo_tpu/pipeline/preprocess.py``: the OCR-JSON and
+tesseract readers, the deploy-mode text cleanup, and ``PagePreprocessor``
 — the tokenize → fetch → pack → pad pipeline one page goes through before
 the forward (reference: deploy/inference.py:205-373). OCR JSON accepts
 ``text|ocr`` and ``bbox|box`` keys (4- or 8-point boxes); lines are sorted
@@ -9,11 +9,19 @@ in reading order, cleaned, tokenized per line and truncated at
 ``max_token_len`` with a strict ``>`` check; empty lines are skipped. For a
 visual backbone the page image is decoded and resized too (``image_cfg``);
 the loader is a closure, rebuilt lazily from the config after unpickling.
+
+``InferenceService.run(preprocess_procs=N)`` runs ``PagePreprocessor`` in N
+spawned worker processes (never forked: the parent holds a CUDA context).
+A worker imports this module and numpy/PIL/the tokenizer only: no worker
+creates a CUDA context, and a text-only (LiLT) worker imports no torch
+(:func:`_worker_probe`).
 """
 
 from __future__ import annotations
 
 import json
+import sys
+from concurrent import futures
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -58,6 +66,39 @@ def deploy_text_cleanup(text: str) -> str:
     return string_f2h(text)
 
 
+def tesseract_ocr(image_path: str) -> Tuple[List[str], List[List[float]]]:
+    """Line-level OCR through tesseract (reference: apply_ocr mode through
+    the HF image processor, deploy/inference.py:243-252): words grouped by
+    (block, paragraph, line), a line's box the union of its words'. Raises
+    a clear error when pytesseract or the tesseract binary is absent."""
+    try:
+        import pytesseract
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "apply_ocr requires pytesseract + the tesseract binary; install "
+            "them or provide OCR JSON via --dir_ocr") from e
+    with Image.open(image_path) as im:
+        data = pytesseract.image_to_data(
+            im.convert("RGB"), output_type=pytesseract.Output.DICT)
+    lines: dict = {}
+    for i, word in enumerate(data["text"]):
+        if not word.strip():
+            continue
+        key = (data["block_num"][i], data["par_num"][i], data["line_num"][i])
+        l, t = data["left"][i], data["top"][i]
+        r, b = l + data["width"][i], t + data["height"][i]
+        if key in lines:
+            text, (l0, t0, r0, b0) = lines[key]
+            lines[key] = (text + " " + word, (min(l0, l), min(t0, t),
+                                              max(r0, r), max(b0, b)))
+        else:
+            lines[key] = (word, (l, t, r, b))
+    texts = [v[0] for v in lines.values()]
+    boxes = [list(v[1]) for v in lines.values()]
+    return texts, boxes
+
+
 def read_ocr_json(path: str) -> Tuple[List[str], List[List[float]]]:
     with open(path, encoding="utf-8") as f:
         ocr = json.load(f)
@@ -73,7 +114,9 @@ def read_ocr_json(path: str) -> Tuple[List[str], List[List[float]]]:
 @dataclass
 class PagePreprocessor:
     """One page → (arrays dict, fetched token texts, per-token orig boxes,
-    valid seq_len). Pure host work (PIL + tokenizer + numpy); picklable."""
+    valid seq_len). Pure host work (PIL + tokenizer + numpy); picklable, so
+    serving can fan it out over worker processes. ``ocr_path`` None runs
+    :func:`tesseract_ocr` on the image."""
 
     tokenizer: object
     fetcher: Optional[Callable]
@@ -102,12 +145,15 @@ class PagePreprocessor:
                                                    raw=self.raw_image)
         return self._image_loader
 
-    def __call__(self, image_path: str, ocr_path: str):
+    def __call__(self, image_path: str, ocr_path: Optional[str]):
         from PIL import Image
 
         with Image.open(image_path) as im:
             image_w, image_h = im.size
-        line_texts, line_boxes = read_ocr_json(ocr_path)
+        if ocr_path is None:
+            line_texts, line_boxes = tesseract_ocr(image_path)
+        else:
+            line_texts, line_boxes = read_ocr_json(ocr_path)
 
         order = sort_boxes(line_boxes)
         texts: List[str] = []
@@ -159,3 +205,34 @@ class PagePreprocessor:
         seq_len = n - int(self.add_cls_token)
         return arrays, texts, orig_bbox[1 if self.add_cls_token else 0:], \
             seq_len
+
+
+# ------------------------------------------------------- process-pool hooks
+_WORKER_PREP: Optional[PagePreprocessor] = None
+
+
+def _init_worker(prep: PagePreprocessor) -> None:
+    global _WORKER_PREP
+    _WORKER_PREP = prep
+
+
+def _preprocess_task(pair):
+    return _WORKER_PREP(*pair)
+
+
+def _noop():
+    return None
+
+
+def _worker_probe():
+    """(torch imported?, CUDA initialized?) inside a worker, read without
+    importing torch: the test hook of the worker rules above."""
+    torch = sys.modules.get("torch")
+    return (torch is not None,
+            bool(torch is not None and torch.cuda.is_initialized()))
+
+
+def prespawn(pool, n: int) -> None:
+    """Start all ``n`` workers now, not at the first real submit
+    (mid-pipeline)."""
+    futures.wait([pool.submit(_noop) for _ in range(n)])

@@ -25,8 +25,16 @@ given; without a GPU and without ``--device`` it raises.
 batches: on the card one replay of a CUDA graph of the K steps (a capture
 that fails raises), on the CPU the K steps in a loop; ``max_steps`` rounds
 up to a multiple of K. ``--logging_dir D`` also writes the logged scalars
-as TensorBoard events into D. Left out (single device, one attention path):
-the mesh, distributed, platform, quantization and ``--fused_*`` flags.
+as TensorBoard events into D. ``--quantize_pair_head int8`` runs the eval
+forwards' pair head as s8×s8→s32 products (training stays full precision).
+
+``--model_name_or_path`` reads, as the JAX trainer does, ``params.msgpack``,
+``backbone_params.msgpack`` (``python -m
+peneo_tpu_torch.generate_peneo_weights``: a pretrained backbone, the
+decoder keeps its seeded init), ``model.safetensors`` or
+``pytorch_model.bin``, the first present. Left out (single device, one
+attention path): the mesh, distributed and platform flags (multi-device) and
+the ``--fused_*`` flags.
 """
 
 from __future__ import annotations
@@ -99,6 +107,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_model", type=str, default="small",
                    choices=sorted(SYNTHETIC_MODEL_PRESETS),
                    help="backbone size for --synthetic_data runs")
+    p.add_argument("--quantize_pair_head", type=str, default=None,
+                   choices=["int8"],
+                   help="quantize the pair head's matmuls on eval forwards "
+                        "(s8xs8->s32, ops/quant.py); training stays full "
+                        "precision")
     p.add_argument("--synthetic_vocab", type=int, default=None,
                    help="backbone vocab_size for --synthetic_data runs "
                         "(e.g. 250002, the real XLM vocab; the toy "
@@ -177,16 +190,23 @@ def setup(args, dataset_cls_name: str = "rfund"):
         fetcher = None
     cfg.max_seq_len = args.max_seq_len
     cfg.dtype = args.dtype
+    if args.quantize_pair_head:
+        # forwards outside training only: the decoder keeps training float
+        cfg.quantize_pair_head = args.quantize_pair_head
     info = get_backbone_info(cfg.backbone_name or args.backbone_name)
     if tokenizer is None:
         tokenizer = load_tokenizer(info, args.model_name_or_path)
         fetcher = info.tokenizer_fetcher
 
-    model = PEneoModel(cfg)
+    # the seeded init, then the directory's weights over it: a partial tree
+    # (a backbone from generate_peneo_weights) leaves the rest at its init
+    model = PEneoModel(cfg).init_weights(
+        torch.Generator().manual_seed(args.seed))
     if args.model_name_or_path:
-        load_weights(model, args.model_name_or_path)
-    else:
-        model.init_weights(torch.Generator().manual_seed(args.seed))
+        kept = load_weights(model, args.model_name_or_path, train_init=True)
+        if kept:
+            print(f"[peneo] {kept} of the model's tensors keep their seeded "
+                  "init (absent from the checkpoint)")
 
     budget = args.max_seq_len - int(info.add_cls_token) \
         - int(info.add_sep_token)

@@ -2,11 +2,17 @@
 
     python -m peneo_tpu_torch.serve \
         --model_name_or_path /path/to/model --dir_image pages/ \
-        --dir_ocr ocr_json/ --dir_save results.json [--batch_size 32]
+        --dir_ocr ocr_json/ --dir_save results.json [--batch_size 32] \
+        [--dir_visualize viz/] [--preprocess_procs 8] [--int8_pair_head]
 
-The model directory holds ``config.json``, ``pytorch_model.bin`` (reference
-torch key names) and the tokenizer files. Runs on the GPU unless
-``--device cpu`` is given.
+The model directory holds ``config.json``, the weights — ``params.msgpack``
+(the JAX package's param tree), ``model.safetensors`` or
+``pytorch_model.bin`` (reference torch key names), read in that order — and
+the tokenizer files. ``--apply_ocr`` reads each page with tesseract instead
+of OCR JSON (needs pytesseract and the tesseract binary). Runs on the GPU
+unless ``--device cpu`` is given. Left out of ``deploy/inference.py``'s
+flags: the multi-device ``--dp/--tp/--sp`` and the ``--*fused*`` switches
+(the port's attention is always its CUDA kernels on the card).
 """
 
 from __future__ import annotations
@@ -20,9 +26,14 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_name_or_path", type=str, required=True)
     p.add_argument("--dir_image", type=str, required=True)
-    p.add_argument("--dir_ocr", type=str, required=True,
-                   help="line-level OCR JSON dir (paired by basename stem)")
+    p.add_argument("--dir_ocr", type=str, default=None,
+                   help="line-level OCR JSON dir (paired by basename stem); "
+                        "omit with --apply_ocr")
+    p.add_argument("--apply_ocr", action="store_true",
+                   help="run tesseract OCR instead of reading OCR JSON")
     p.add_argument("--dir_save", type=str, default="inference_results.json")
+    p.add_argument("--dir_visualize", type=str, default=None,
+                   help="also draw each page's predictions into this dir")
     p.add_argument("--batch_size", type=int, default=1,
                    help="pages per device forward")
     p.add_argument("--max_seq_len", type=int, default=512)
@@ -35,6 +46,22 @@ def main(argv=None):
                    help="host-decode threads")
     p.add_argument("--inflight_depth", type=int, default=2,
                    help="batches kept in flight on the device")
+    p.add_argument("--preprocess_procs", type=int, default=0,
+                   help="preprocess in N spawned worker processes instead "
+                        "of threads (escapes the GIL that caps the thread "
+                        "pool; costs the workers' start, so it pays on "
+                        "large directories of page images)")
+    p.add_argument("--int8_pair_head", action="store_true", default=None,
+                   help="quantize the pair head's hidden matmuls to int8 "
+                        "(s8xs8->s32; default off)")
+    p.add_argument("--no_int8_pair_head", dest="int8_pair_head",
+                   action="store_false",
+                   help="keep the pair head in the serving dtype (the "
+                        "default; a config that sets int8 still serves it)")
+    p.add_argument("--int8_backbone", action="store_true",
+                   help="additionally quantize the backbone's projection/"
+                        "MLP matmuls to int8 (all three text encoders; "
+                        "the v2 conv tower stays full precision)")
     p.add_argument("--bucket_lengths", type=str, default=None,
                    help="comma-separated sequence-length buckets (e.g. "
                         "'128,256,384'); pages pad only to their bucket; "
@@ -42,6 +69,8 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' to run there)")
     args = p.parse_args(argv)
+    if not args.apply_ocr and args.dir_ocr is None:
+        p.error("--dir_ocr is required unless --apply_ocr is set")
 
     from .pipeline.infer import InferenceService
 
@@ -51,12 +80,18 @@ def main(argv=None):
         batch_size=args.batch_size,
         dtype=args.dtype,
         score_thresh=args.score_thresh,
+        int8_pair_head=args.int8_pair_head,
+        int8_backbone=args.int8_backbone,
         bucket_lengths=[int(b) for b in args.bucket_lengths.split(",")]
         if args.bucket_lengths else None,
         device=args.device,
     )
-    results = service.run(args.dir_image, args.dir_ocr, workers=args.workers,
+    results = service.run(args.dir_image,
+                          None if args.apply_ocr else args.dir_ocr,
+                          visualize_dir=args.dir_visualize,
+                          workers=args.workers,
                           decode_workers=args.decode_workers,
+                          preprocess_procs=args.preprocess_procs,
                           inflight_depth=args.inflight_depth)
     with open(args.dir_save, "w", encoding="utf-8") as f:
         json.dump(results, f, ensure_ascii=False, indent=1)

@@ -1,5 +1,6 @@
 """The CUDA kernels (BiACM #1-#3, rel-bias #4-#6) against their plain twins
-on the card. Needs a CUDA device (and nvcc to build the kernels); skips
+on the card, and the int8 serving product (``torch._int_mm``) against its
+integer twin. Needs a CUDA device (and nvcc to build the kernels); skips
 without one. On the GPU
 machine run it with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernel.py``
@@ -11,6 +12,7 @@ import torch
 
 from peneo_tpu_torch.ops import biacm_attention as ba
 from peneo_tpu_torch.ops import bias_attention as rb
+from peneo_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 NEG = torch.finfo(torch.float32).min / 2
@@ -512,3 +514,50 @@ def test_capturable_optimizer_checkpoint_round_trip_on_card(tmp_path,
     torch.cuda.synchronize()
     assert int(schedule.count) == 6
     assert all(float(s["step"]) == 6.0 for s in fresh.state.values())
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 1000])
+def test_int8_gemm_matches_integer_twin_on_card(rows):
+    """Full-range s8 operands, rows below the library's minimum of 17 too
+    (padded with zeros): the s32 product equals the twin and an int64 CPU
+    product bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    xq = torch.randint(-127, 128, (rows, 768), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (384, 768), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    before = quant.int8_matmul_cuda.launches
+    got = quant.int8_matmul(xq, wq)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (rows, 384)
+    assert torch.equal(got, quant.int8_matmul_reference(xq, wq))
+    assert torch.equal(got.cpu().long(), xq.cpu().long() @ wq.cpu().long().t())
+
+
+def test_int8_gemm_refuses_unaligned_sizes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xq = torch.ones((32, 20), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(xq, torch.ones((16, 20), dtype=torch.int8,
+                                         device="cuda"))
+
+
+def test_int8_linear_on_card_equals_cpu():
+    """The same bf16 input and fp32 weights: the card's int8 layer returns
+    the CPU twin's values bit for bit (IEEE division, round half to even,
+    exact integer products, the same fp32 multiplies and add)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn((4, 100, 384), generator=gen) * 3).to(torch.bfloat16)
+    x[1, 7] = 0  # a zero row
+    w = torch.randn((384, 384), generator=gen) * 0.05
+    b = torch.randn(384, generator=gen)
+    want = quant.int8_linear(x, w, b)
+    got = quant.int8_linear(x.cuda(), w.cuda(), b.cuda())
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: nothing in peneo_tpu_torch/ or
-chip_smoke.py imports jax, flax or peneo_tpu, and the package, its models,
-its serving pipeline and its training pipeline import with those three
-modules blocked."""
+chip_smoke.py imports jax, flax or peneo_tpu (nor msgpack or safetensors:
+the port reads those files itself), and the package, its models, its
+serving pipeline, its checkpoint readers and its training pipeline import
+with those modules blocked."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "peneo_tpu")
+FORBIDDEN = ("jax", "flax", "peneo_tpu", "msgpack", "safetensors")
 
 
 def _port_files():
@@ -55,6 +56,9 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.pipeline.evaluation\n"
         "import peneo_tpu_torch.pipeline.loader, peneo_tpu_torch.ops.losses\n"
         "import peneo_tpu_torch.data.datasets, peneo_tpu_torch.data.collator\n"
+        "import peneo_tpu_torch.ops.quant, peneo_tpu_torch.utils.visualize\n"
+        "import peneo_tpu_torch.pipeline.weights_io\n"
+        "import peneo_tpu_torch.generate_peneo_weights\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

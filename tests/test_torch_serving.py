@@ -7,8 +7,8 @@ raises instead of running on the CPU. The same parity for a LayoutLMv3
 model (page images, CLS and SEP), whose raw uint8 pages normalized by
 ``device_image_normalize`` equal the host-normalized floats bit for bit, and
 for a LayoutLMv2 model (BGR 0-255 pages through a one-block-per-stage
-ResNeXt tower). A model directory whose config sets an int8 switch is
-refused, not served in bf16."""
+ResNeXt tower). A model directory whose config sets an int8 switch serves
+int8 and returns the JAX service's records."""
 
 import json
 import os
@@ -238,24 +238,29 @@ def test_v2_raw_and_host_normalized_images_are_bit_identical(v2_setup):
 
 @pytest.mark.parametrize("switch", ["quantize_pair_head",
                                     "quantize_backbone"])
-def test_int8_switches_are_refused(serving_setup, tmp_path, switch):
-    """The JAX package serves such a directory with int8 matmuls; the port
-    has none, so the model and the service raise at construction."""
+def test_int8_switches_serve_like_jax(serving_setup, tmp_path, switch):
+    """A model directory whose config sets an int8 switch: the port serves
+    it with int8 matmuls (the CPU twin of the s32 product) and returns the
+    JAX service's records on the same directory."""
     import shutil
 
-    wdir, _, _, tok = serving_setup
+    wdir, img_dir, ocr_dir, tok = serving_setup
     int8_dir = str(tmp_path / "int8")
     shutil.copytree(wdir, int8_dir)
     cfg = PortConfig.from_pretrained(int8_dir)
     setattr(cfg, switch, "int8")
     cfg.save_pretrained(int8_dir)
-    from peneo_tpu_torch.models.peneo import PEneoModel as PortModel
-
-    with pytest.raises(NotImplementedError, match=switch):
-        PortModel(cfg)
-    with pytest.raises(NotImplementedError, match=switch):
-        InferenceService(int8_dir, tokenizer=tok, dtype="float32",
-                         device="cpu")
+    svc = InferenceService(int8_dir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    assert getattr(svc.model.cfg, switch) == "int8"
+    got = svc.run(img_dir, ocr_dir)
+    jax_svc = JaxService(int8_dir, tokenizer=tok, dtype="float32",
+                         batch_size=2)
+    assert getattr(jax_svc.cfg, switch) == "int8"
+    want = jax_svc.run(img_dir, ocr_dir)
+    assert set(got) == set(want) and len(want) == 5
+    assert sum(len(v["lines"]) for v in want.values()) > 0
+    assert _kv_and_lines(got) == _kv_and_lines(want)
 
 
 def _kv_and_lines(results):
