@@ -152,12 +152,12 @@ the three families at full width (the counts reset in each phase):
    1e-4 relative, learning rates equal, every fp32 master parameter within
    1e-5 (bit-identical expected).
 27-29. train_graph, train_graph_v3, train_graph_v2 — ``run_rfund`` with
-   ``--steps_per_call 4`` on the K = 1 phase's arguments, 96 steps logged
+   ``--steps_per_call 4`` on the K = 1 phase's arguments, 64 steps logged
    every 16, dropout 0.1, eval and save at the end: the logged steps,
    finite losses, no non-finite step, the wrappers of #2/#3 (or #5/#6)
    called 12 times per step of the first call (its eager warm-up and its
    capture), #1 (or #4) 12 times per eval forward, the saved directory
-   serves a page; ms/step over steps 49-96 beside the K = 1 phase's, peak
+   serves a page; ms/step over steps 33-64 beside the K = 1 phase's, peak
    memory, and one profiled replay of the saved model's graph: its trace
    holds 12 launches per step of each of the family's mask, forward, dq
    and dk/dv kernels and none of the others; device busy ms per step and
@@ -195,6 +195,36 @@ the last two after phase 18):
    kernel #4 12 times behind the int8 projections, the int8 launches, the
    logits against bf16's within the backbone gate.
 
+OHEM and data parallelism (after phase 11; each resets every kernel
+count just before it and reads them just after):
+
+- train_ohem — ``run_rfund`` on phase 9's arguments and weights with the
+   config's ``peneo_ohem_num_positive/negative`` = 128/512 (the JAX
+   L = 512 OHEM test's): finite losses, #2/#3 12 times a step, #1 12 times
+   an eval forward, all 16 dev pages; ms/step over steps 11-30 beside phase
+   9's plain-CE figure, peak memory; then one batch at dropout 0: the
+   streaming OHEM total of the CUDA path equals ``ohem_cross_entropy`` over
+   the same block logits concatenated (relative 1e-5) and the plain twins'
+   path within 1e-3.
+- train_dp — 2 ranks of ``run_rfund --distributed`` spawned by this script
+   (``--dp-worker``: torchrun's environment on a free local port, each its
+   own CUDA context; gloo when they share the card, NCCL when each has its
+   own), global B = 8 (4 a rank), L = 512, bf16, dropout 0: 4 steps of
+   plain CE, then 4 of OHEM 128/512, each with an eval over the 16 dev pages
+   listed twice and a save; the same global batches in this process. Gates:
+   every step's loss within 1e-3 of the one process's and the same on both
+   ranks; step 1's all-reduced gradient (layers 0 and 11's attention
+   projections, combine_fc, the classifiers) within 1e-2 of each tensor's
+   max |g|; both ranks' eval metrics alike, over 16 pages, equal to the one
+   process's; kernel #2's flags at rate 0.1 differ between the ranks and
+   equal the plain bits of each rank's offset seed; rank 0's saved weights
+   are the ones it ended with, bit for bit, and serve the 96 pages to the
+   same records; one rank over NCCL (world 1): the one process's losses
+   within 1e-6. Any rank that fails or outlives its timeout fails the
+   script (all ranks are killed). ms/step for both backends and one
+   process: between the logged steps, and steady (5 more steps on one
+   batch after each CE run, past DDP's bucket rebuild at its second step).
+
 30. the ``kernels`` line (all six; ``launches`` sums every path's serving
    and training runs: the wrappers' counts, and for the graph runs also
    the profiled replay's launches read from its trace; the phase lines
@@ -203,6 +233,7 @@ the last two after phase 18):
 Every phase also prints its seconds.
 """
 
+import gc
 import json
 import math
 import os
@@ -2568,10 +2599,11 @@ def phase_serve_v3_procs(ba, rb, tmp, img_dir, ocr_dir):
 # ------------------------------------------------------------------------
 
 GRAPH_K = 4
-# the graph phases: six logs (every 16 steps), eval and save at 96; ms/step
-# over steps 49-96: the feed thread holds at most three groups (12 steps)
-# ready, so by step 48 a feed slower than the replays has spent them
-GRAPH_STEPS, GRAPH_LOG, GRAPH_FROM = 96, 16, 48
+# the graph phases: four logs (every 16 steps), eval and save at 64 (96
+# until PR 8); ms/step over steps 33-64: the feed thread holds at most three
+# groups (12 steps) ready, so by step 32 a feed slower than the replays has
+# spent them
+GRAPH_STEPS, GRAPH_LOG, GRAPH_FROM = 64, 16, 32
 # the trainer's K = 1 steps against one replay of the K-step graph from the
 # same state and batches, dropout 0: the same kernels in the same order, so
 # the expectation is bit-identical; the gates leave room for a library
@@ -2679,9 +2711,10 @@ def unpack_share(ba, flags, length):
     return ba.unpack_keep_mask(flags, length).float().mean().item()
 
 
-def graph_model_dir(model_dir, dst, dropout):
+def graph_model_dir(model_dir, dst, dropout, **cfg_keys):
     """``model_dir``'s weights and tokenizer under a config whose hidden and
-    attention dropout is ``dropout`` (files linked, config rewritten)."""
+    attention dropout is ``dropout`` and whose other ``cfg_keys`` are set
+    (files linked, config rewritten)."""
     os.makedirs(dst, exist_ok=True)
     for name in os.listdir(model_dir):
         src = os.path.join(model_dir, name)
@@ -2691,6 +2724,7 @@ def graph_model_dir(model_dir, dst, dropout):
         cfg = json.load(f)
     cfg["backbone_config"]["hidden_dropout_prob"] = dropout
     cfg["backbone_config"]["attention_probs_dropout_prob"] = dropout
+    cfg.update(cfg_keys)
     with open(os.path.join(dst, "config.json"), "w") as f:
         json.dump(cfg, f)
     return dst
@@ -2859,7 +2893,9 @@ def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
     argv = list(argv) + ["--output_dir", out, "--max_steps", str(GRAPH_STEPS),
                          "--logging_steps", str(GRAPH_LOG),
                          "--eval_steps", str(GRAPH_STEPS),
-                         "--save_steps", str(GRAPH_STEPS),
+                         # the model is saved; no checkpoint (3.3 GB with
+                         # the optimizer's state, read by no gate)
+                         "--save_steps", "0",
                          "--steps_per_call", str(GRAPH_K)]
     wrappers = {"fwd": ba.biacm_attention_train_fwd_cuda,
                 "bwd": ba.biacm_attention_train_bwd_cuda,
@@ -2978,6 +3014,618 @@ def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
             "eval": launches["eval"], "ms_per_step": ms_step}
 
 
+# OHEM and data parallelism --------------------------------------------------
+OHEM_K = (128, 512)  # the JAX L = 512 OHEM test's (tests/test_losses.py)
+OHEM_STREAM_RTOL = 1e-5
+DP_STEPS = 4
+DP_WORLD = 2
+DP_LOSS_RTOL = 1e-3
+DP_GRAD_TOL = 1e-2  # of each tensor's max |g|, as train_parity's
+NCCL_LOSS_RTOL = 1e-6
+DP_TIMEOUT = 420  # seconds for all ranks of one launch
+
+
+def ohem_keys():
+    return {"peneo_ohem_num_positive": OHEM_K[0],
+            "peneo_ohem_num_negative": OHEM_K[1]}
+
+
+def log_records(path):
+    """A trainer log's step records (with losses) and eval records."""
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    return ([r for r in records if "loss/total" in r],
+            [r for r in records if "eval/f1" in r])
+
+
+def phase_train_ohem(ba, rb, tmp, train_out, train_record):
+    """LiLT-base fine-tuning with OHEM 128/512 through ``run_rfund`` (the
+    train phase's arguments on its weights and corpus, the config's OHEM
+    keys set), then the OHEM loss of one batch at dropout 0 three ways."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.models.decoder import (HEAD_NAMES,
+                                                dense_labels_from_spots,
+                                                triu_valid_mask)
+    from peneo_tpu_torch.ops.losses import ohem_cross_entropy
+
+    model_dir = graph_model_dir(train_out, os.path.join(tmp, "ohem_model"),
+                                DROP, **ohem_keys())
+    out = os.path.join(tmp, "train_ohem")
+    argv = list(train_record["argv"])
+    argv[argv.index("--output_dir") + 1] = out
+    argv[argv.index("--save_steps") + 1] = "0"  # the model, no checkpoint
+    argv += ["--model_name_or_path", model_dir, "--data_dir",
+             os.path.join(train_out, "synthetic_data")]
+    reset_counts(ba, rb)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_rfund.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts(ba, rb)
+    peak = torch.cuda.max_memory_allocated()
+    steps, evals = log_records(os.path.join(out, "log.jsonl"))
+    losses = [r["loss/total"] for r in steps]
+    logged = list(range(LOG_EVERY, TRAIN_STEPS + 1, LOG_EVERY))
+    if [r["step"] for r in steps] != logged \
+            or not all(map(math.isfinite, losses)) \
+            or steps[-1]["nonfinite_loss_steps"] != 0:
+        raise RuntimeError(f"OHEM run: logged steps "
+                           f"{[r['step'] for r in steps]}, losses {losses}")
+    layers, n_dev = 12, 16
+    expect_counts(counts, {"fwd": layers * TRAIN_STEPS,
+                           "bwd": layers * TRAIN_STEPS,
+                           "biacm_attention": layers * math.ceil(
+                               n_dev / TRAIN_B)}, "train_ohem")
+    if len(evals) != 1 or evals[0]["eval/num_sample_processed"] != n_dev:
+        raise RuntimeError(f"OHEM eval records {evals}")
+    ms_step = ((steps[-1]["time"] - steps[0]["time"])
+               / (TRAIN_STEPS - LOG_EVERY) * 1e3)
+
+    # one batch at dropout 0: the streaming OHEM total of the CUDA path,
+    # dense OHEM over the same block logits concatenated, the plain twins
+    pdir = graph_model_dir(train_out, os.path.join(tmp, "ohem_parity"),
+                           0.0, **ohem_keys())
+    model, batch = train_batch(pdir)
+    dec = model.peneo_decoder
+    blocks = []
+    pair_logits = dec._pair_logits
+
+    def keep_blocks(a_blk, b_cols):
+        logits = pair_logits(a_blk, b_cols)
+        blocks.append([x.detach() for x in logits])
+        return logits
+
+    def total(impl, record=False):
+        model.set_attention_impl(impl)
+        if record:
+            dec._pair_logits = keep_blocks
+        try:
+            model.train()
+            with torch.no_grad(), torch.autocast("cuda",
+                                                 dtype=torch.bfloat16):
+                out = model(batch["input_ids"], batch["bbox"],
+                            batch["attention_mask"], labels=batch["labels"],
+                            generator=torch.Generator().manual_seed(SEED))
+            return {k: v.item() for k, v in out.items()}
+        finally:
+            model.set_attention_impl("kernel")
+            dec.__dict__.pop("_pair_logits", None)
+
+    stream = total("kernel", record=True)
+    plain = total("plain")
+    cfg = model.cfg
+    Ld = L - 1
+    bs = min(cfg.pair_block_size, max(Ld, 8))
+    Lp = -(-Ld // bs) * bs
+    weights = dec.category_weights.float()
+    dense = {}
+    for i, name in enumerate(HEAD_NAMES):
+        labels = dense_labels_from_spots(batch["labels"][name], Lp)
+        logit, tgt, mask = [], [], []
+        for j, r0 in enumerate(range(0, Lp, bs)):
+            lg = blocks[j][i]
+            t = labels[:, r0:r0 + bs, r0:]
+            logit.append(lg.reshape(-1, lg.shape[-1]))
+            tgt.append(t.reshape(-1))
+            mask.append(triu_valid_mask(r0, bs, Lp - r0, Ld, col0=r0,
+                                        device="cuda")[None].expand(
+                                            t.shape).reshape(-1))
+        w = weights[:2] if name == "line_extraction" else weights
+        dense[name] = ohem_cross_entropy(
+            torch.cat(logit), torch.cat(tgt), w, torch.cat(mask),
+            *OHEM_K).item()
+    ratios = cfg.peneo_loss_ratio or [1.0] * 5
+    dense["total"] = sum(r * dense[n] for r, n in zip(ratios, HEAD_NAMES))
+    rel_dense = abs(stream["total"] - dense["total"]) / abs(dense["total"])
+    rel_plain = abs(stream["total"] - plain["total"]) / abs(plain["total"])
+    del model, batch, blocks
+    torch.cuda.empty_cache()
+    emit({"phase": "train_ohem", "steps": TRAIN_STEPS, "batch_size": TRAIN_B,
+          "L": L, "dropout": DROP, "ohem": list(OHEM_K),
+          "launches": counts, "ms_per_step": ms_step,
+          "ms_per_step_window": [LOG_EVERY + 1, TRAIN_STEPS],
+          "plain_ce_ms_per_step": train_record["ms_per_step"],
+          "max_memory_allocated": peak,
+          "plain_ce_max_memory_allocated":
+              train_record["max_memory_allocated"],
+          "losses": losses, "eval": {k[len("eval/"):]: v
+                                     for k, v in evals[0].items()
+                                     if k.startswith("eval/")},
+          "wall_seconds": wall,
+          "one_batch": {"stream": stream, "dense": dense, "plain": plain,
+                        "rel_err_dense": rel_dense,
+                        "rel_err_plain": rel_plain,
+                        "tol": {"dense": OHEM_STREAM_RTOL,
+                                "plain": TRAIN_LOSS_TOL}}})
+    if rel_dense > OHEM_STREAM_RTOL or rel_plain > TRAIN_LOSS_TOL \
+            or not math.isfinite(stream["total"]):
+        raise RuntimeError(f"OHEM one batch: streaming {stream['total']}, "
+                           f"dense {dense['total']}, plain {plain['total']}")
+    return counts
+
+
+def dp_data_dir(src, dst):
+    """The corpus of ``src`` with every dev page listed twice (the same
+    file names: the metric's dedup must count each once)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        if name != "en.val.json":
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "en.val.json")) as f:
+        dev = json.load(f)
+    dev["documents"] = dev["documents"] * 2
+    with open(os.path.join(dst, "en.val.json"), "w") as f:
+        json.dump(dev, f)
+    return dst
+
+
+def probe_names(model):
+    """The parameters whose step-1 gradients are compared: layers 0 and
+    11's attention projections of both streams, combine_fc and every
+    classifier layer."""
+    names = [n for n, _ in model.named_parameters()]
+    keep = []
+    for n in names:
+        if re.fullmatch(r"backbone\.encoder\.layer\.(0|11)\.attention\.self"
+                        r"\.(layout_)?(query|key|value)\.weight", n) \
+                or n == "peneo_decoder.handshaking_kernel.combine_fc.weight" \
+                or re.fullmatch(r"peneo_decoder\.\w+_fc\.\d+\.weight", n):
+            keep.append(n)
+    return keep
+
+
+def first_step_grads(argv):
+    """One trainer step (``train_step``, under DDP in a process group) on
+    the first global batch of ``run_rfund``'s arguments: the loss and the
+    (all-reduced) gradients of :func:`probe_names`, on the CPU."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import DataFeed, batch_to_device
+    from peneo_tpu_torch.pipeline.trainer import PEneoTrainer
+
+    args = run_rfund.build_argparser().parse_args(argv)
+    cfg, model, train_ds, _, collator, _ = run_rfund.setup(args)
+    trainer = PEneoTrainer(cfg, model, run_rfund.training_arguments(args),
+                           train_ds, None, collator)
+    feed = DataFeed(train_ds, collator, args.per_device_train_batch_size,
+                    shuffle=True, seed=args.seed, rank=trainer.rank,
+                    world=trainer.world)
+    batch = batch_to_device(next(iter(feed)), trainer.device)
+    metrics = T.train_step(trainer.step_model, trainer.optimizer,
+                           trainer.scheduler, batch,
+                           trainer.args.max_grad_norm, trainer.seeds,
+                           trainer.dtype)
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.detach().float().cpu()
+             for n in probe_names(model)}
+    loss = metrics["total"].item()
+    del trainer, model, params, batch
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def rank_keep_flags(ba, rank):
+    """Kernel #2's packed keep flags at rate DROP on fixed inputs with data
+    parallel rank ``rank``'s first layer seed (``HostSeeds`` of SEED)."""
+    import torch
+
+    from peneo_tpu_torch.models.dropout_seeds import HostSeeds
+
+    qkv, bias = attention_inputs(TRAIN_B // DP_WORLD, L, [(0, slice(400,
+                                                                    None))],
+                                 torch.Generator(device="cuda").manual_seed(
+                                     SEED))
+    seed = HostSeeds(torch.Generator().manual_seed(SEED), rank).layer(0)
+    keep = ba.biacm_attention_train_fwd_cuda(*qkv, bias, seed, 0.125, 0.25,
+                                             DROP)[3]
+    return seed, keep.cpu()
+
+
+STEADY_STEPS = 6  # train_dp: steps timed after a run, the first not counted
+
+
+def steady_ms(trainer):
+    """ms per step of STEADY_STEPS - 1 more of ``trainer``'s steps on the
+    first batch of its feed, after one more (DDP has rebuilt its buckets
+    by then, every library is warm), between syncs; under DDP every rank
+    calls it."""
+    import torch
+
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import DataFeed, batch_to_device
+
+    args = trainer.args
+    feed = DataFeed(trainer.train_dataset, trainer.collator,
+                    args.per_device_train_batch_size, shuffle=True,
+                    seed=args.seed, rank=trainer.rank, world=trainer.world)
+    batch = batch_to_device(next(iter(feed)), trainer.device)
+    for i in range(STEADY_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        T.train_step(trainer.step_model, trainer.optimizer, trainer.scheduler,
+                     batch, args.max_grad_norm, trainer.seeds, trainer.dtype)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (STEADY_STEPS - 1) * 1e3
+
+
+def tensor_digests(state):
+    """sha256 of each tensor's fp32 bytes, by name."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().float().cpu().numpy().tobytes())
+            .hexdigest() for k, v in state.items()}
+
+
+def served_as_ended(trainer, pages):
+    """The weights a run ended with (digests), and the records a service of
+    its saved directory gives with those weights put in from memory."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    state = trainer.model.state_dict()
+    svc = InferenceService(trainer.args.output_dir, batch_size=32,
+                           dtype="bfloat16", device=trainer.device)
+    svc.model.load_state_dict(state)
+    svc.model.cast(torch.bfloat16)
+    records = records_of(svc.run(*pages))
+    return {"final_weights": tensor_digests(state),
+            "final_records": json.loads(json.dumps(records))}
+
+
+def dp_worker(spec):
+    """One rank of a ``train_dp`` launch (``chip_smoke.py --dp-worker``):
+    joins the process group as ``run_rfund --distributed`` does (torchrun's
+    environment, set by the parent), optionally takes the step-1 gradient
+    and the dropout-flag probes, then runs ``run_rfund`` for each loss of
+    ``spec`` with the launch counts reset just before and read just after;
+    writes its results to ``spec["result"]``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.ops import biacm_attention as ba
+    from peneo_tpu_torch.ops import bias_attention as rb
+    from peneo_tpu_torch.parallel import dist as pdist
+
+    parse = run_rfund.build_argparser().parse_args
+    argvs = {k: v + ["--distributed"] for k, v in spec["argv"].items()}
+    first = parse(argvs[spec["losses"][0]])
+    run_rfund.check_parallel_flags(first)
+    run_rfund.init_parallel(first)
+    me = pdist.rank()
+    result = {"rank": me, "world": pdist.world(),
+              "backend": pdist.dist.get_backend(),
+              "device": str(pdist.rank_device())}
+    try:
+        if spec.get("probe"):
+            loss, grads = first_step_grads(spec["probe"] + ["--distributed"])
+            result["step1_loss"] = loss
+            if me == 0:
+                torch.save(grads, spec["grads"])
+            seed, keep = rank_keep_flags(ba, me)
+            result["keep_seed"] = seed
+            torch.save(keep, spec["keep"].format(rank=me))
+        for name in spec["losses"]:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ba, rb)
+            _, trainer = run_rfund.run(parse(argvs[name]))
+            result[name] = {"launches": read_counts(ba, rb),
+                            "max_memory_allocated":
+                                torch.cuda.max_memory_allocated()}
+            if me == 0 and spec.get("pages") and name == "ce":
+                result.update(served_as_ended(trainer, spec["pages"]))
+            if name == "ce":
+                result[name]["steady_ms"] = steady_ms(trainer)
+            del trainer
+        pdist.barrier()
+    finally:
+        pdist.dist.destroy_process_group()
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(spec, world, tmp, tag):
+    """``world`` rank processes of :func:`dp_worker`, each with torchrun's
+    environment on a free local port and its own CUDA context; their
+    results in rank order. A rank that fails, or a launch that outlives
+    DP_TIMEOUT, kills every rank and raises with their output's tail."""
+    port = free_port()
+    procs, logs, results = [], [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        rspec = dict(spec, result=os.path.join(tmp, f"{tag}.rank{r}.json"))
+        logs.append(os.path.join(tmp, f"{tag}.rank{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker",
+                 json.dumps(rspec)], env=env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True))
+        results.append(rspec["result"])
+    deadline = time.time() + DP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    except subprocess.TimeoutExpired:
+        failed = [r for r, p in enumerate(procs) if p.poll() != 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    if failed:
+        tails = []
+        for r in failed:
+            with open(logs[r]) as f:
+                tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
+                             + f.read()[-3000:])
+        raise RuntimeError(f"{tag}: rank(s) {failed} failed or timed out "
+                           f"after {DP_TIMEOUT} s\n" + "\n".join(tails))
+    out = []
+    for path in results:
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def step_ms(steps):
+    """ms per step between the first and the last logged step."""
+    return ((steps[-1]["time"] - steps[0]["time"])
+            / (steps[-1]["step"] - steps[0]["step"]) * 1e3)
+
+
+def rel_close(a, b, rtol):
+    return all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b)) \
+        and len(a) == len(b)
+
+
+def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
+    """Data-parallel fine-tuning of LiLT-base through ``run_rfund
+    --distributed``: DP_WORLD ranks spawned with torchrun's environment
+    (each its own CUDA context; over gloo when they share the card, NCCL
+    when each has its own), global B = TRAIN_B, L = 512, bf16, dropout 0,
+    DP_STEPS steps of plain CE, then of OHEM 128/512, each with an eval over
+    the 16 dev pages listed twice and a save; the same global batches in
+    one process (here); one NCCL rank (world 1) of the CE run."""
+    import torch
+
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    data = dp_data_dir(os.path.join(train_out, "synthetic_data"),
+                       os.path.join(tmp, "dp_data"))
+    models = {"ce": graph_model_dir(train_out, os.path.join(tmp, "dp_ce"),
+                                    0.0),
+              "ohem": graph_model_dir(train_out,
+                                      os.path.join(tmp, "dp_ohem"), 0.0,
+                                      **ohem_keys())}
+
+    def argv(loss, out, per_rank):
+        # the model is saved; no checkpoint (3.3 GB with the optimizer's
+        # state: the machine's disk writes are bounded; the CPU tests check
+        # rank 0's checkpoints)
+        return ["--synthetic_data", "--model_name_or_path", models[loss],
+                "--data_dir", data, "--output_dir", out, "--do_train",
+                "--max_steps", str(DP_STEPS), "--max_seq_len", str(L),
+                "--per_device_train_batch_size", str(per_rank),
+                "--per_device_eval_batch_size", str(per_rank),
+                "--logging_steps", "1", "--eval_steps", str(DP_STEPS),
+                "--save_steps", "0", "--seed", str(SEED), "--no_resume"]
+
+    per_rank = TRAIN_B // DP_WORLD
+    outs = {(run, loss): os.path.join(tmp, f"dp_{run}_{loss}")
+            for run in ("solo", "ranks", "nccl") for loss in ("ce", "ohem")}
+    # the same global batches in this process
+    parse = run_rfund.build_argparser().parse_args
+    reset_counts(ba, rb)
+    solo_ms = {}
+    for loss in ("ce", "ohem"):
+        _, trainer = run_rfund.run(parse(argv(loss, outs["solo", loss],
+                                              TRAIN_B)))
+        if loss == "ce":
+            solo_counts = read_counts(ba, rb)
+            solo_ms = steady_ms(trainer)
+            reset_counts(ba, rb)
+        del trainer
+    for k, v in read_counts(ba, rb).items():
+        solo_counts[k] += v
+    solo_loss, solo_grads = first_step_grads(
+        argv("ce", os.path.join(tmp, "dp_probe_solo"), TRAIN_B))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = {"argv": {loss: argv(loss, outs["ranks", loss], per_rank)
+                     for loss in ("ce", "ohem")},
+            "losses": ["ce", "ohem"],
+            "probe": argv("ce", os.path.join(tmp, "dp_probe_ranks"),
+                          per_rank),
+            "grads": os.path.join(tmp, "dp_grads.pt"),
+            "keep": os.path.join(tmp, "dp_keep.rank{rank}.pt"),
+            "pages": [img_dir, ocr_dir]}
+    t0 = time.perf_counter()
+    ranks = launch_ranks(spec, DP_WORLD, tmp, "train_dp")
+    ranks_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = launch_ranks({"argv": {"ce": argv("ce", outs["nccl", "ce"],
+                                              TRAIN_B)},
+                         "losses": ["ce"]}, 1, tmp, "train_dp_nccl")[0]
+    nccl_wall = time.perf_counter() - t0
+    backend = ranks[0]["backend"]
+    if nccl["backend"] != "nccl" or any(r["backend"] != backend
+                                        for r in ranks):
+        raise RuntimeError(f"backends: ranks {[r['backend'] for r in ranks]}"
+                           f", world 1 {nccl['backend']}")
+
+    # losses and eval: both ranks alike, equal to the one process
+    report, errors = {"backend": backend, "world": DP_WORLD,
+                      "nvidia_smi": smi, "devices":
+                          [r["device"] for r in ranks]}, []
+    layers, n_dev = 12, 16
+    per_run = {"fwd": layers * DP_STEPS, "bwd": layers * DP_STEPS,
+               "biacm_attention": layers * 2 * n_dev // TRAIN_B}
+    for loss in ("ce", "ohem"):
+        solo_steps, solo_evals = log_records(
+            os.path.join(outs["solo", loss], "log.jsonl"))
+        logs = [log_records(os.path.join(
+            outs["ranks", loss], "log.jsonl" if r == 0
+            else f"log.rank{r}.jsonl")) for r in range(DP_WORLD)]
+        want = [r["loss/total"] for r in solo_steps]
+        got = [[r["loss/total"] for r in steps] for steps, _ in logs]
+        evals = [{k: v for k, v in e[0].items()
+                  if k.startswith("eval/") and "per_second" not in k}
+                 for _, e in logs]
+        solo_eval = {k: v for k, v in solo_evals[0].items()
+                     if k.startswith("eval/") and "per_second" not in k}
+        report[loss] = {
+            "losses_one_process": want, "losses_rank0": got[0],
+            "max_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(got[0], want)),
+            "ms_per_step_logged_ranks": step_ms(logs[0][0]),
+            "ms_per_step_logged_one_process": step_ms(solo_steps),
+            "eval_rank0": evals[0], "eval_one_process": solo_eval,
+            "launches_ranks": [r[loss]["launches"] for r in ranks],
+            "max_memory_allocated_ranks":
+                [r[loss]["max_memory_allocated"] for r in ranks]}
+        if len(want) != DP_STEPS or not all(map(math.isfinite, want)):
+            errors.append(f"{loss}: one-process losses {want}")
+        if any(g != got[0] for g in got) \
+                or not rel_close(got[0], want, DP_LOSS_RTOL):
+            errors.append(f"{loss}: rank losses {got} vs one process {want}")
+        if any(e != evals[0] for e in evals) \
+                or evals[0]["eval/num_sample_processed"] != n_dev \
+                or any(evals[0][k] != solo_eval[k] for k in
+                       ("eval/precision", "eval/recall", "eval/f1",
+                        "eval/num_sample_processed")) \
+                or not rel_close([v for k, v in sorted(evals[0].items())
+                                  if "loss" in k],
+                                 [v for k, v in sorted(solo_eval.items())
+                                  if "loss" in k], DP_LOSS_RTOL):
+            errors.append(f"{loss}: eval {evals} vs one process {solo_eval}")
+        for r in ranks:
+            expect_counts(r[loss]["launches"], per_run,
+                          f"train_dp rank {r['rank']} {loss}")
+
+    # step 1's all-reduced gradient against one process's
+    grads = torch.load(spec["grads"], weights_only=True)
+    grad_err = {n: ((grads[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in solo_grads.items()}
+    report["step1_grad_err_over_max"] = grad_err
+    report["step1_loss"] = {"ranks": [r["step1_loss"] for r in ranks],
+                            "one_process": solo_loss}
+    if set(grads) != set(solo_grads) or len(grads) < 20 \
+            or any(v > DP_GRAD_TOL for v in grad_err.values()):
+        errors.append(f"step-1 gradients: {grad_err}")
+
+    # each rank's dropout flags: its own, those of its offset seed
+    flags, same = [], []
+    for r in ranks:
+        keep = torch.load(spec["keep"].format(rank=r["rank"]),
+                          weights_only=True)
+        bits = ba.attention_dropout_bits(
+            r["keep_seed"], TRAIN_B // DP_WORLD, NH, L, device="cuda")
+        want = ba.pack_keep_mask(torch.stack(bits)
+                                 < ba.keep_threshold(DROP)).cpu()
+        same.append(torch.equal(keep, want))
+        flags.append(keep)
+    report["dropout_flags"] = {
+        "seeds": [r["keep_seed"] for r in ranks],
+        "equal_to_offset_seed_bits": same,
+        "differing_words": int((flags[0] != flags[1]).sum())}
+    if not all(same) or torch.equal(flags[0], flags[1]):
+        errors.append(f"dropout flags {report['dropout_flags']}")
+
+    # world 1 over NCCL: the one-process losses bit for bit
+    nccl_steps, _ = log_records(os.path.join(outs["nccl", "ce"],
+                                             "log.jsonl"))
+    nccl_losses = [r["loss/total"] for r in nccl_steps]
+    report["nccl_world1"] = {
+        "losses": nccl_losses,
+        "ms_per_step_logged": step_ms(nccl_steps),
+        "launches": nccl["ce"]["launches"],
+        "max_memory_allocated": nccl["ce"]["max_memory_allocated"]}
+    report["ms_per_step_steady"] = {
+        "one_process": solo_ms,
+        f"{backend}_{DP_WORLD}_ranks": ranks[0]["ce"]["steady_ms"],
+        "nccl_world1": nccl["ce"]["steady_ms"], "steps": STEADY_STEPS - 1}
+    if not rel_close(nccl_losses, report["ce"]["losses_one_process"],
+                     NCCL_LOSS_RTOL):
+        errors.append(f"NCCL world 1 losses {nccl_losses}")
+    expect_counts(nccl["ce"]["launches"], per_run, "train_dp nccl")
+
+    # rank 0's save served by one process: the records of the model the
+    # run ended with (rank 0 served them from its weights in memory), and
+    # those weights bit for bit
+    saved = outs["ranks", "ce"]
+    on_disk = torch.load(os.path.join(saved, "pytorch_model.bin"),
+                         weights_only=True)
+    identical = ranks[0]["final_weights"] == tensor_digests(on_disk)
+    svc = InferenceService(saved, batch_size=32, dtype="bfloat16")
+    served = json.loads(json.dumps(records_of(svc.run(img_dir, ocr_dir))))
+    del svc
+    report["save"] = {"weights_bit_identical": identical,
+                      "pages_served": len(served),
+                      "records_equal": served == ranks[0]["final_records"]}
+    if not identical or len(served) != N_PAGES \
+            or served != ranks[0]["final_records"]:
+        errors.append(f"save: {report['save']}")
+
+    report.update({"phase": "train_dp", "steps": DP_STEPS,
+                   "global_batch": TRAIN_B, "per_rank_batch": per_rank,
+                   "L": L, "dropout": 0.0, "ohem_k": list(OHEM_K),
+                   "ranks_wall_seconds": ranks_wall,
+                   "nccl_wall_seconds": nccl_wall,
+                   "tol": {"loss": DP_LOSS_RTOL, "grad": DP_GRAD_TOL,
+                           "nccl_loss": NCCL_LOSS_RTOL}})
+    emit(report)
+    if errors:
+        raise RuntimeError("train_dp: " + "; ".join(errors))
+    # the main path's launches: this process's runs and every rank's
+    total = dict(solo_counts)
+    for r in ranks + [nccl]:
+        for loss in ("ce", "ohem"):
+            for k, v in r.get(loss, {}).get("launches", {}).items():
+                total[k] += v
+    return total
+
+
 def timed(name, fn, *a, **kw):
     """Run one phase and print its seconds."""
     import torch
@@ -3001,7 +3649,10 @@ def main(argv=None):
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="also write the profiled forward's kernel table and "
                         "chrome trace into DIR")
+    p.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.dp_worker:  # one rank of train_dp, started by this script
+        return dp_worker(json.loads(args.dp_worker))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs a GPU",
@@ -3084,6 +3735,11 @@ def main(argv=None):
               args.profile)
         del model, batch
         torch.cuda.empty_cache()
+        # OHEM and data parallelism: each phase's launches
+        surface.append(timed("train_ohem", phase_train_ohem, ba, rb, tmp,
+                             train_out, train_record))
+        surface.append(timed("train_dp", phase_train_dp, ba, rb, tmp,
+                             train_out, img_dir, ocr_dir, smi))
 
         launches_v3 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v3")

@@ -1,7 +1,8 @@
 """PEneo decoder: shrink MLP, split handshaking combine, block-wise
 upper-triangle pair head with five classifiers; on-device top-k spot
-compaction and packing (inference) and the class-weighted CE losses
-(training and eval).
+compaction and packing (inference) and the losses (training and eval):
+class-weighted CE or streaming OHEM, over one process's batch or, under
+data parallelism, the global batch's.
 
 Counterpart of ``peneo_tpu/models/decoder.py`` (``:34-364, 426-504``).
 Parameter names are the reference's torch keys (model/peneo_decoder.py):
@@ -34,8 +35,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import PEneoConfig
-from ..ops.losses import weighted_cross_entropy
+from ..ops.losses import (ohem_stream_final, ohem_stream_init,
+                          ohem_stream_update, weighted_cross_entropy)
 from ..ops.quant import QuantLinear, quantize_rows, set_int8
+from ..parallel import dist as pdist
 
 HEAD_NAMES = (
     "line_extraction",
@@ -149,6 +152,8 @@ class PEneoDecoder(nn.Module):
         # the five heads' first layers read one input: quantize it once
         self.int8_pair_head = (cfg.quantize_pair_head == "int8"
                                and cfg.peneo_classifier_num_layers > 1)
+        # the losses are the global batch's across the process group
+        self.data_parallel = False
 
     def pair_block(self, a_blk, b_cols) -> Dict[str, torch.Tensor]:
         """One row block through the five heads: the pair features are
@@ -239,17 +244,24 @@ class PEneoDecoder(nn.Module):
         return result
 
     def _losses(self, a, b, Ld, Lp, bs, labels, also_decode, label_row_mask):
-        """Per-block weighted-CE sums over the upper triangle (the default
-        configuration; OHEM is not ported yet); with ``also_decode`` the
-        argmax tags/scores of the same blocks."""
+        """The five head losses over the upper triangle, block by block:
+        weighted-CE sums, or with OHEM (``peneo_ohem_num_positive/negative``
+        not both -1) each block's weighted CE folded into one streaming
+        top-k state per head (``peneo_tpu/models/decoder.py:223-295``); with
+        ``also_decode`` the argmax tags/scores of the same blocks. Under
+        data parallelism (:meth:`PEneoModel.set_data_parallel`) the losses
+        are the global batch's (``parallel/dist.py``)."""
         cfg = self.cfg
-        if cfg.peneo_ohem_num_positive != -1 \
-                or cfg.peneo_ohem_num_negative != -1:
-            raise NotImplementedError("OHEM losses are not ported yet")
         dev = a.device
         if self.category_weights is None:
             raise ValueError("the losses need peneo_category_weights")
         weights = self.category_weights.float()
+        ohem = (cfg.peneo_ohem_num_positive != -1
+                or cfg.peneo_ohem_num_negative != -1)
+        if ohem:
+            acc = {name: ohem_stream_init(cfg.peneo_ohem_num_positive,
+                                          cfg.peneo_ohem_num_negative, dev)
+                   for name in HEAD_NAMES}
         lbl = {}
         for name in HEAD_NAMES:
             m = labels[name]
@@ -283,13 +295,31 @@ class PEneoDecoder(nn.Module):
                     tags[name][:, r0:r0 + bs, r0:] = t_blk.to(torch.int32)
                     scores[name][:, r0:r0 + bs, r0:] = s_blk
                 w = weights[:2] if name == "line_extraction" else weights
+                tgt = lbl[name][:, r0:r0 + bs, r0:]
+                if ohem:
+                    acc[name] = ohem_stream_update(acc[name], lg, tgt, w,
+                                                   mask.expand(lg.shape[:3]))
+                    continue
                 num, den = weighted_cross_entropy(
-                    lg, lbl[name][:, r0:r0 + bs, r0:], w,
-                    mask.expand(lg.shape[:3]), return_sum_and_weight=True)
+                    lg, tgt, w, mask.expand(lg.shape[:3]),
+                    return_sum_and_weight=True)
                 nums[name] = nums[name] + num
                 dens[name] = dens[name] + den
-        losses = {name: nums[name] / torch.clamp_min(dens[name], 1e-12)
-                  for name in HEAD_NAMES}
+        if ohem:
+            merge = (pdist.ohem_stream_merge if self.data_parallel
+                     else (lambda state: state))
+            parts = torch.stack([ohem_stream_final(merge(acc[name]))
+                                 for name in HEAD_NAMES])
+        else:
+            den = torch.stack([torch.as_tensor(dens[n], device=dev)
+                               for n in HEAD_NAMES])
+            if self.data_parallel:
+                den = pdist.all_sum(den)
+            parts = torch.stack([torch.as_tensor(nums[n], device=dev)
+                                 for n in HEAD_NAMES]) / den.clamp_min(1e-12)
+        if self.data_parallel:
+            parts = pdist.global_losses(parts)
+        losses = dict(zip(HEAD_NAMES, parts.unbind()))
         ratios = cfg.peneo_loss_ratio or [1.0] * 5
         losses["total"] = sum(r * losses[name]
                               for r, name in zip(ratios, HEAD_NAMES))

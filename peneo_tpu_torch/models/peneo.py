@@ -65,6 +65,12 @@ class PEneoModel(nn.Module):
     def set_attention_impl(self, attention_impl: str) -> None:
         self.backbone.set_attention_impl(attention_impl)
 
+    def set_data_parallel(self, enabled: bool) -> None:
+        """Reduce the losses over the default process group's ranks (each
+        holding its slice of one global batch), as the JAX package reduces
+        them over its dp mesh axis (``parallel/dist.py``)."""
+        self.peneo_decoder.data_parallel = enabled
+
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
         """Cast to the compute dtype (the backbone keeps its embeddings, the
         rel-bias families their bucket tables, the int8 layers their weights,

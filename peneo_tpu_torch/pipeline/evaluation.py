@@ -4,16 +4,15 @@ Behavioral parity targets (reference: pipeline/evaluation.py):
 - membership-count core                                  :6-95
 - ``calculate_kvpe_metric``                              :98-207
 - ``calculate_detail_kvpe_metric``                       :210-665
-- fname dedup of the count rows                        :149-177, 415-487
-  (single process: the cross-process gather waits for the multi-device
-  slice)
+- fname dedup of the count rows, after the rows of every
+  rank are gathered (``gather_fn``)                      :149-177, 415-487
 
 The port's copy of ``peneo_tpu/pipeline/evaluation.py:27-219``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 TASKS = (
     "kv_pair",
@@ -85,9 +84,12 @@ def calculate_kvpe_metric(
     all_pred: Sequence,
     all_gt: Sequence,
     all_fname: Sequence[str],
+    gather_fn: Optional[Callable[[List], List]] = None,
 ):
     """kv-pair micro P/R/F1 with fname dedup (reference:
-    pipeline/evaluation.py:98-207). Returns (metrics, detail)."""
+    pipeline/evaluation.py:98-207). ``gather_fn`` gathers every rank's
+    count rows before the dedup (``parallel/dist.py`` ``gather_rows``).
+    Returns (metrics, detail)."""
     sample_detail, rows = [], []
     for fname, pred, gt in zip(all_fname, all_pred, all_gt):
         det_rows: List = []
@@ -98,6 +100,8 @@ def calculate_kvpe_metric(
             "precision": p, "recall": r, "f1": f, "detail": det_rows,
         })
         rows.append([fname, np_, ng, nc])
+    if gather_fn is not None:
+        rows = gather_fn(rows)
 
     seen = set()
     tot = [0.0, 0.0, 0.0]
@@ -123,6 +127,7 @@ def calculate_detail_kvpe_metric(
     all_pred: Sequence,
     all_gt: Sequence,
     all_fname: Sequence[str],
+    gather_fn: Optional[Callable[[List], List]] = None,
 ):
     """All six sub-task metrics (reference: pipeline/evaluation.py:210-665).
 
@@ -146,6 +151,8 @@ def calculate_detail_kvpe_metric(
         for task in TASKS:
             row.extend(counts[task])
         rows.append(row)
+    if gather_fn is not None:
+        rows = gather_fn(rows)
 
     seen = set()
     totals = {task: [0.0, 0.0, 0.0] for task in TASKS}

@@ -20,7 +20,14 @@ import numpy as np
 class DataFeed:
     """Iterate (shuffled) fixed-size batches from a map-style dataset through
     a collator, with items parsed in a pool of worker threads and batches
-    prefetched into a bounded queue."""
+    prefetched into a bounded queue.
+
+    Under data parallelism (``world`` > 1) a global batch is ``batch_size ×
+    world`` items: every rank shuffles with the same seed and collates rows
+    ``[rank·b, (rank+1)·b)`` of each global batch, as a JAX process feeds
+    its addressable shard (``peneo_tpu/pipeline/trainer.py:236-237``). The
+    feed position (epoch, batches consumed) counts global batches, the same
+    on every rank."""
 
     def __init__(
         self,
@@ -31,8 +38,15 @@ class DataFeed:
         seed: int = 0,
         drop_last: bool = True,
         num_workers: int = 4,
+        rank: int = 0,
+        world: int = 1,
     ) -> None:
+        if world > 1 and not drop_last:
+            raise ValueError("a data-parallel feed drops the ragged last "
+                             "batch (evaluation pads the global one)")
         self.dataset = dataset
+        self.rank = rank
+        self.world = world
         self.collator = collator
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,17 +87,20 @@ class DataFeed:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        size = self.batch_size * self.world
+        return n // size if self.drop_last else -(-n // size)
 
     def _index_batches(self) -> Sequence[Sequence[int]]:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
-        n_full = len(idx) // self.batch_size
-        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(n_full)]
-        if not self.drop_last and len(idx) % self.batch_size:
-            batches.append(idx[n_full * self.batch_size:])
+        size = self.batch_size * self.world
+        n_full = len(idx) // size
+        mine = slice(self.rank * self.batch_size,
+                     (self.rank + 1) * self.batch_size)
+        batches = [idx[i * size:(i + 1) * size][mine] for i in range(n_full)]
+        if not self.drop_last and len(idx) % size:
+            batches.append(idx[n_full * size:])
         return batches
 
     def __iter__(self) -> Iterator:

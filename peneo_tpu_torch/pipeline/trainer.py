@@ -1,4 +1,5 @@
-"""PEneoTrainer: the fine-tuning loop on one device.
+"""PEneoTrainer: the fine-tuning loop, on one device or data-parallel across
+processes.
 
 Counterpart of ``peneo_tpu/pipeline/trainer.py:36-80,248-427,464-663``
 (reference: ``PEneoTrainer(transformers.Trainer)``, pipeline/trainer.py):
@@ -26,8 +27,22 @@ fetched), host decode on two threads, the ragged last batch edge-padded with a
 ``InferenceService`` serves: ``config.json``, ``pytorch_model.bin`` (the
 reference's torch keys) and the tokenizer.
 
-Not ported here (single device): the mesh, fsdp and sequence-parallel
-arguments and multi-process runs.
+Data parallelism (``peneo_tpu/pipeline/trainer.py:105-150,236-237,
+430-640``): in a process group (``parallel/dist.py``
+``init_distributed``) the steps run under ``DistributedDataParallel`` (at
+any world size) and, with more than one rank, the decoder reduces the
+losses over the global batch; each rank collates its rows of every global
+batch (``per_device_train_batch_size × world``) and draws its own dropout
+(seeds offset by its rank). Rank 0 owns ``log.jsonl``, TensorBoard and
+every saved file (the unwrapped module's ``state_dict``, then a barrier);
+the other ranks log to ``log.rank{i}.jsonl``. All ranks resume from the same
+checkpoint, which holds every rank's RNG states. Evaluation splits each
+global batch over the ranks, gathers the metric rows and dedups them by file
+name, so every rank returns the same metrics. Saving needs one
+``output_dir`` on every rank (a shared filesystem), checked at start
+(``PENEO_ALLOW_DIVERGENT_OUTPUT_DIR=1`` on every rank waives it). Not ported
+(``ROADMAP.md`` §1): ``steps_per_call`` > 1 in a process group, fsdp, tp
+and sp.
 """
 
 from __future__ import annotations
@@ -47,21 +62,24 @@ import torch
 
 from ..config import PEneoConfig
 from ..models.decoder import pack_spots
+from ..models.dropout_seeds import RANK_STRIDE, HostSeeds
 from ..models.peneo import PEneoModel
+from ..parallel import dist as pdist
 from . import decode as dec
 from . import evaluation as ev
 from . import train as T
 from .checkpoint import CheckpointManager
 from .infer import DTYPES, resolve_device
 from .loader import (DataFeed, batch_arrays, batch_to_device, stack_batches,
-                     to_host_tensors)
+                     to_host_tensors, tree_map)
 
 
 @dataclass
 class TrainingArguments:
-    """The reference's HF TrainingArguments subset (README.md:206-241), one
-    device. ``device`` None means ``cuda`` (raising without a GPU); the
-    compute dtype is the config's ``dtype``."""
+    """The reference's HF TrainingArguments subset (README.md:206-241).
+    Batch sizes are per rank. ``device`` None means ``cuda`` (raising
+    without a GPU; under data parallelism the rank's card); the compute dtype
+    is the config's ``dtype``."""
 
     output_dir: str = "output"
     learning_rate: float = 5e-5
@@ -95,7 +113,15 @@ class PEneoTrainer:
                  source_dir: Optional[str] = None) -> None:
         self.cfg = cfg
         self.args = args
-        self.device = resolve_device(args.device)
+        self.rank, self.world = pdist.rank(), pdist.world()
+        # in a process group (any size) the steps run under DDP
+        self.distributed = pdist.initialized()
+        if self.distributed and args.steps_per_call > 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 under data parallelism (a CUDA graph "
+                "around DDP's all-reduce) is not ported yet: ROADMAP.md §1")
+        self.device = (pdist.rank_device(args.device) if self.distributed
+                       else resolve_device(args.device))
         if cfg.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[cfg.dtype]
@@ -109,9 +135,13 @@ class PEneoTrainer:
         self.tokenizer = tokenizer
         self.source_dir = source_dir
         os.makedirs(args.output_dir, exist_ok=True)
-        self._log_file = open(os.path.join(args.output_dir, "log.jsonl"), "a")
+        if self.world > 1 and args.save_steps:
+            self._check_output_dir()
+        log_name = ("log.jsonl" if self.rank == 0
+                    else f"log.rank{self.rank}.jsonl")
+        self._log_file = open(os.path.join(args.output_dir, log_name), "a")
         self._tb = None
-        if args.logging_dir:
+        if args.logging_dir and self.rank == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -120,20 +150,51 @@ class PEneoTrainer:
                 print(f"[peneo] tensorboard disabled: {e}")
         # hidden dropout draws from the device's default generator; each
         # layer's attention-dropout seed from this one in an eager step (a
-        # CUDA graph of K steps computes them on the card: StepSeeds)
-        torch.manual_seed(args.seed)
+        # CUDA graph of K steps computes them on the card: StepSeeds); a
+        # rank draws its own masks
+        torch.manual_seed(args.seed + self.rank * RANK_STRIDE)
         self.generator = torch.Generator().manual_seed(args.seed)
+        self.seeds = HostSeeds(self.generator, self.rank)
         self.optimizer, self.scheduler = T.make_optimizer(
             self.model, lr=args.learning_rate, total_steps=args.max_steps,
             warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
             downstream_speedup_ratio=cfg.peneo_downstream_speedup_ratio)
         self.step = 0
+        # the module DDP wraps for the steps; self.model stays the plain
+        # module (state dicts without a "module." prefix, eval forwards)
+        self.step_model = self.model
+        if self.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.model.set_data_parallel(self.world > 1)
+            cards = [self.device.index] if self.device.type == "cuda" \
+                else None
+            self.step_model = DistributedDataParallel(self.model,
+                                                      device_ids=cards)
         self.ckpt = CheckpointManager(
             os.path.join(args.output_dir, "checkpoints"),
             save_total_limit=args.save_total_limit,
             best_metric_key=args.metric_for_best_model)
 
     # ------------------------------------------------------------------ utils
+    def _check_output_dir(self) -> None:
+        """Every rank must save into one directory (rank 0 writes it, the
+        others resume from it), unless ``PENEO_ALLOW_DIVERGENT_OUTPUT_DIR``
+        is set on every rank (one filesystem under different paths). Raises
+        on every rank (``peneo_tpu/pipeline/trainer.py:111-140``)."""
+        allow = os.environ.get("PENEO_ALLOW_DIVERGENT_OUTPUT_DIR",
+                               "") not in ("", "0")
+        probes = pdist.gather_objects(
+            (os.path.abspath(self.args.output_dir), allow))
+        if len({d for d, _ in probes}) > 1 and not all(a for _, a in probes):
+            raise ValueError(
+                "data-parallel training with save_steps > 0 needs the SAME "
+                f"output_dir on every rank (a shared filesystem); rank "
+                f"{self.rank} has {self.args.output_dir!r}, the ranks "
+                f"{[d for d, _ in probes]}. If the ranks reach one shared "
+                "filesystem through different paths, set "
+                "PENEO_ALLOW_DIVERGENT_OUTPUT_DIR=1 on EVERY rank.")
+
     def log(self, record: Dict[str, Any]) -> None:
         record = {k: (float(v) if hasattr(v, "item") else v)
                   for k, v in record.items()}
@@ -145,28 +206,46 @@ class PEneoTrainer:
                 if isinstance(v, (int, float)) and k not in ("step", "time"):
                     self._tb.add_scalar(k, v, record["step"])
             self._tb.flush()
-        brief = {k: (round(v, 5) if isinstance(v, float) else v)
-                 for k, v in record.items() if k != "time"}
-        print(f"[peneo] {brief}", flush=True)
+        if self.rank == 0:
+            brief = {k: (round(v, 5) if isinstance(v, float) else v)
+                     for k, v in record.items() if k != "time"}
+            print(f"[peneo] {brief}", flush=True)
+
+    def _rng_state(self) -> Dict[str, Any]:
+        state = {"cpu_rng": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+        return state
 
     def _state(self) -> Dict[str, Any]:
+        """The checkpoint's state; under data parallelism every rank's RNG
+        states too (a collective: every rank calls it)."""
         state = {"model": self.model.state_dict(),
                  "optimizer": self.optimizer.state_dict(),
                  "scheduler": self.scheduler.state_dict(),
                  "generator": self.generator.get_state(),
-                 "cpu_rng": torch.get_rng_state()}
-        if self.device.type == "cuda":
-            state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+                 **self._rng_state()}
+        if self.world > 1:
+            state["rank_rng"] = pdist.gather_objects(self._rng_state())
         return state
+
+    def _save(self, state: Dict[str, Any], **kw) -> None:
+        """Rank 0 writes the checkpoint (and prunes); the others wait."""
+        if self.rank == 0:
+            self.ckpt.save(self.step, state, **kw)
+        pdist.barrier()
 
     def _load_state(self, state: Dict[str, Any]) -> None:
         self.model.load_state_dict(state["model"])
         T.load_optimizer_state(self.optimizer, state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
-        torch.set_rng_state(state["cpu_rng"])
-        if "cuda_rng" in state and self.device.type == "cuda":
-            torch.cuda.set_rng_state(state["cuda_rng"], self.device)
+        rng = state
+        if len(state.get("rank_rng", ())) == self.world:
+            rng = state["rank_rng"][self.rank]
+        torch.set_rng_state(rng["cpu_rng"])
+        if "cuda_rng" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng["cuda_rng"], self.device)
         self.step = int(state["step"])
 
     # ------------------------------------------------------------------ train
@@ -174,7 +253,8 @@ class PEneoTrainer:
         args = self.args
         feed = DataFeed(self.train_dataset, self.collator,
                         batch_size=args.per_device_train_batch_size,
-                        shuffle=True, seed=args.seed)
+                        shuffle=True, seed=args.seed, rank=self.rank,
+                        world=self.world)
         # the feed position (epoch, batches consumed this epoch) travels in
         # every checkpoint: resume continues on the next unconsumed batch
         pos = {"epoch": 0, "batch": 0}
@@ -250,8 +330,8 @@ class PEneoTrainer:
                 group, n, feed_pos = item
                 if k == 1:
                     metrics = T.train_step(
-                        self.model, self.optimizer, self.scheduler, group,
-                        args.max_grad_norm, self.generator, self.dtype)
+                        self.step_model, self.optimizer, self.scheduler,
+                        group, args.max_grad_norm, self.seeds, self.dtype)
                     nonfinite += ~torch.isfinite(metrics["total"])
                 else:
                     metrics = step_fn(group)
@@ -259,7 +339,7 @@ class PEneoTrainer:
                         step_fn.per_step["total"])).sum()
                 prev = self.step
                 self.step += k
-                seen += n
+                seen += n * self.world
 
                 def crossed(every):
                     return every and (self.step // every) > (prev // every)
@@ -284,13 +364,11 @@ class PEneoTrainer:
                               **{f"eval/{name}": v
                                  for name, v in eval_metrics.items()}})
                     if crossed(args.save_steps):
-                        self.ckpt.save(self.step, self._state(),
-                                       metrics=eval_metrics,
-                                       feed_state=feed_pos)
+                        self._save(self._state(), metrics=eval_metrics,
+                                   feed_state=feed_pos)
                     t_last, seen = time.time(), 0
                 elif crossed(args.save_steps):
-                    self.ckpt.save(self.step, self._state(),
-                                   feed_state=feed_pos)
+                    self._save(self._state(), feed_state=feed_pos)
         finally:
             stop.set()
             try:  # unblock a producer waiting on a full queue
@@ -311,8 +389,15 @@ class PEneoTrainer:
 
     # ------------------------------------------------------------------- eval
     def evaluate(self, score_thresh: float = 0.0) -> Dict[str, float]:
+        """KVPE metrics and the mean losses over the eval set. Under data
+        parallelism each global batch (``per_device_eval_batch_size ×
+        world``, the ragged last one edge-padded) is split over the ranks;
+        a rank decodes its real rows, the metric rows are gathered and
+        deduped by file name, and every rank returns the same metrics."""
         args = self.args
-        full = args.per_device_eval_batch_size
+        per_rank = args.per_device_eval_batch_size
+        full = per_rank * self.world
+        mine = slice(self.rank * per_rank, (self.rank + 1) * per_rank)
         feed = DataFeed(self.eval_dataset, self.collator, batch_size=full,
                         shuffle=False, drop_last=False)
         all_pred, all_gt, all_fname = [], [], []
@@ -339,10 +424,14 @@ class PEneoTrainer:
             else:  # dense maps (max_spots_per_head = 0)
                 out = {name: {k: v.cpu().numpy() for k, v in head.items()}
                        for name, head in packed.items()}
+            # this rank's real rows of the global batch
+            rows = range(mine.start, min(mine.stop, bsz))
             decode_futs.append(pool.submit(
-                dec.decode_batch, batch.texts, out, batch.labels,
-                [int(s) for s in batch.seq_len], batch.fnames,
-                score_thresh=score_thresh))
+                dec.decode_batch, [batch.texts[i] for i in rows], out,
+                {k: v[rows.start:rows.stop]
+                 for k, v in batch.labels.items()},
+                [int(batch.seq_len[i]) for i in rows],
+                [batch.fnames[i] for i in rows], score_thresh=score_thresh))
 
         try:
             for batch in feed:
@@ -361,6 +450,8 @@ class PEneoTrainer:
                 row_mask = np.zeros((full,), np.float32)
                 row_mask[:bsz] = 1.0
                 arrays["row_mask"] = row_mask
+                if self.world > 1:
+                    arrays = tree_map(lambda x: x[mine], arrays)
                 dev_batch = batch_to_device(arrays, self.device)
                 with_loss = bool(batch.labels)
                 res = T.eval_step(self.model, dev_batch, with_loss=with_loss,
@@ -383,14 +474,15 @@ class PEneoTrainer:
             pool.shutdown(wait=True)
         calc = (ev.calculate_detail_kvpe_metric if args.detail_eval
                 else ev.calculate_kvpe_metric)
-        summary, detail = calc(all_pred, all_gt, all_fname)
+        summary, detail = calc(all_pred, all_gt, all_fname,
+                               gather_fn=pdist.gather_rows)
         summary = dict(summary)
         summary["num_sample_processed"] = detail.get("num_sample_processed")
         if loss_weight > 0:
             for k, v in loss_sums.items():
                 summary[f"loss_{k}"] = v / loss_weight
         summary["eval_samples_per_second"] = n_eval / (time.time() - t0)
-        if args.save_eval_detail:
+        if args.save_eval_detail and self.rank == 0:
             with open(os.path.join(args.output_dir, "detail.json"), "w",
                       encoding="utf-8") as f:
                 json.dump(detail, f, ensure_ascii=False, indent=1)
@@ -401,8 +493,13 @@ class PEneoTrainer:
         """A servable model directory: ``config.json``,
         ``pytorch_model.bin`` (fp32, the reference's torch keys) and the
         tokenizer file(s) (reference: trainer.save_model() +
-        processor.save_pretrained(), start/run_rfund.py:323-327)."""
-        out_dir = self.args.output_dir
+        processor.save_pretrained(), start/run_rfund.py:323-327). Under
+        data parallelism rank 0 writes it and every rank waits for it."""
+        if self.rank == 0:
+            self._write_model(self.args.output_dir)
+        pdist.barrier()
+
+    def _write_model(self, out_dir: str) -> None:
         self.cfg.save_pretrained(out_dir)
         torch.save({k: v.detach().to("cpu", torch.float32)
                     for k, v in self.model.state_dict().items()},

@@ -32,9 +32,21 @@ forwards' pair head as s8×s8→s32 products (training stays full precision).
 ``backbone_params.msgpack`` (``python -m
 peneo_tpu_torch.generate_peneo_weights``: a pretrained backbone, the
 decoder keeps its seeded init), ``model.safetensors`` or
-``pytorch_model.bin``, the first present. Left out (single device, one
-attention path): the mesh, distributed and platform flags (multi-device) and
-the ``--fused_*`` flags.
+``pytorch_model.bin``, the first present.
+
+Data-parallel fine-tuning, one process per rank (``parallel/dist.py``):
+
+    torchrun --nproc_per_node N -m peneo_tpu_torch.run_rfund --distributed ...
+
+or the JAX trainer's launch, one command per process: ``--coordinator_address
+host:port --num_processes N --process_id i``. Each rank takes its card
+(``cuda:{local_rank}``; NCCL), or shares one with other ranks (gloo), or runs
+on the CPU with ``--device cpu`` (gloo); ``--dist_backend`` forces one.
+Batch sizes are per rank; the losses are the global batch's. ``--tp``,
+``--sp`` and ``--fsdp`` are accepted and refused unless 1 / off
+(``ROADMAP.md`` §1), as is ``--steps_per_call`` > 1 in a process group.
+Left out (one attention path, one backend): ``--platform`` and the
+``--fused_*`` flags.
 """
 
 from __future__ import annotations
@@ -94,6 +106,32 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="K optimizer steps per call (one CUDA graph replay "
                         "of the K steps on the card); max_steps rounds up "
                         "to a multiple of K")
+    # parallelism (the JAX trainer's mesh and multi-process flags)
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks; default (and the only value "
+                        "taken): the number of processes")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: not ported (1 only)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel chips: not ported (1 only)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard params + optimizer state over dp: not "
+                        "ported")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process run: torch.distributed from "
+                        "torchrun's environment (RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK); one process "
+                        "per rank, shared output_dir; rank 0 writes "
+                        "logs/artifacts")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 (implies --distributed; "
+                        "for launches without torchrun)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default="auto",
+                   choices=["auto", "nccl", "gloo"],
+                   help="process-group backend: auto = NCCL when every "
+                        "rank has a card of its own, else gloo")
     # port extensions
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (raises without a GPU)")
@@ -129,6 +167,7 @@ def setup(args, dataset_cls_name: str = "rfund"):
     from .data.collator import PEneoCollator
     from .data.datasets import RFUNDDataset, SIBRDataset
     from .models.peneo import PEneoModel
+    from .parallel import dist as pdist
     from .pipeline.infer import load_weights
     from .registry import get_backbone_info, load_tokenizer
 
@@ -141,14 +180,16 @@ def setup(args, dataset_cls_name: str = "rfund"):
         from .data.synthetic import ToyTokenizer, write_rfund_dataset, \
             write_sibr_dataset
 
-        if dataset_cls_name == "rfund":
-            if not os.path.exists(os.path.join(
-                    data_dir, f"{args.language}.train.json")):
-                write_rfund_dataset(data_dir, args.language, n_train=64,
-                                    n_val=16,
-                                    with_images=info.has_visual_embeds)
-        elif not os.path.exists(os.path.join(data_dir, "train.txt")):
-            write_sibr_dataset(data_dir, n_train=64, n_test=16)
+        if pdist.rank() == 0:  # the other ranks wait for its corpus
+            if dataset_cls_name == "rfund":
+                if not os.path.exists(os.path.join(
+                        data_dir, f"{args.language}.train.json")):
+                    write_rfund_dataset(data_dir, args.language, n_train=64,
+                                        n_val=16,
+                                        with_images=info.has_visual_embeds)
+            elif not os.path.exists(os.path.join(data_dir, "train.txt")):
+                write_sibr_dataset(data_dir, n_train=64, n_test=16)
+        pdist.barrier()
         tokenizer = ToyTokenizer()
         fetcher = fetch_xlm
         if args.model_name_or_path:
@@ -236,17 +277,11 @@ def setup(args, dataset_cls_name: str = "rfund"):
     return cfg, model, train_ds, eval_ds, collator, tokenizer
 
 
-def main(argv=None, dataset_cls_name: str = "rfund"):
-    args = build_argparser().parse_args(argv)
-    os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+def training_arguments(args):
+    """The trainer's arguments from the parsed flags."""
+    from .pipeline.trainer import TrainingArguments
 
-    from .pipeline.trainer import PEneoTrainer, TrainingArguments
-
-    cfg, model, train_ds, eval_ds, collator, tokenizer = setup(
-        args, dataset_cls_name)
-    targs = TrainingArguments(
+    return TrainingArguments(
         output_dir=args.output_dir, learning_rate=args.learning_rate,
         warmup_ratio=args.warmup_ratio, max_steps=args.max_steps,
         per_device_train_batch_size=args.per_device_train_batch_size,
@@ -259,6 +294,66 @@ def main(argv=None, dataset_cls_name: str = "rfund"):
         detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
         start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
         device=args.device, steps_per_call=args.steps_per_call)
+
+
+def check_parallel_flags(args) -> None:
+    """Refuse the mesh flags that are not ported, before anything starts."""
+    for flag, value, off in (("--tp", args.tp, 1), ("--sp", args.sp, 1),
+                             ("--fsdp", args.fsdp, False)):
+        if value != off:
+            raise NotImplementedError(
+                f"{flag} {value}: tensor, sequence and fully sharded "
+                "parallelism are not ported yet (PR 10, ROADMAP.md §1); "
+                "data parallelism is --distributed / --dp")
+
+
+def init_parallel(args) -> bool:
+    """Join the process group the flags describe (if any) and check
+    ``--dp`` against it; True when this call started the group."""
+    from .parallel import dist as pdist
+
+    started = False
+    if (args.distributed or args.coordinator_address) \
+            and not pdist.initialized():
+        pdist.init_distributed(args.device, args.coordinator_address,
+                               args.num_processes, args.process_id,
+                               backend=args.dist_backend)
+        started = True
+    if args.dp is not None and args.dp != pdist.world():
+        raise ValueError(f"--dp {args.dp} must equal the number of "
+                         f"processes, {pdist.world()} (one rank each)")
+    return started
+
+
+def main(argv=None, dataset_cls_name: str = "rfund"):
+    args = build_argparser().parse_args(argv)
+    check_parallel_flags(args)
+    started = init_parallel(args)
+    try:
+        return run(args, dataset_cls_name)[0]
+    finally:
+        if started:
+            from .parallel import dist as pdist
+
+            pdist.dist.destroy_process_group()
+
+
+def run(args, dataset_cls_name: str = "rfund"):
+    """Train and/or evaluate as the flags say, in the process group (if
+    any) already joined; returns (the final eval metrics or None, the
+    trainer)."""
+    from .parallel import dist as pdist
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    if pdist.rank() == 0:
+        with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+
+    from .pipeline.trainer import PEneoTrainer
+
+    cfg, model, train_ds, eval_ds, collator, tokenizer = setup(
+        args, dataset_cls_name)
+    targs = training_arguments(args)
     trainer = PEneoTrainer(cfg, model, targs, train_ds, eval_ds, collator,
                            tokenizer=tokenizer,
                            source_dir=args.model_name_or_path)
@@ -268,11 +363,12 @@ def main(argv=None, dataset_cls_name: str = "rfund"):
     if args.do_eval:
         metrics = trainer.evaluate()
         trainer.log({"event": "final_eval", **metrics})
-        with open(os.path.join(args.output_dir, "eval_results.json"),
-                  "w") as f:
-            json.dump(metrics, f, indent=2)
-        return metrics
-    return None
+        if pdist.rank() == 0:
+            with open(os.path.join(args.output_dir, "eval_results.json"),
+                      "w") as f:
+                json.dump(metrics, f, indent=2)
+        return metrics, trainer
+    return None, trainer
 
 
 if __name__ == "__main__":

@@ -450,6 +450,59 @@ def test_bias_device_seed_keep_flags_on_card(L):
         q, k, v, bias, mask, rng, 0.125, 0.1)[2], (3 << 32) + 77 * L)
 
 
+def _rank_offset_check(keep_of, want_of, seed):
+    """Rank 1's layer seed (host-drawn and on the card) is rank 0's plus
+    ``RANK_STRIDE``; its packed keep flags differ from rank 0's and equal
+    the plain bits' of the offset seed, for both kinds of seed."""
+    from peneo_tpu_torch.models import dropout_seeds as ds
+
+    step = torch.tensor(5, dtype=torch.int64, device="cuda")
+    host = [ds.HostSeeds(torch.Generator().manual_seed(seed), r).layer(0)
+            for r in (0, 1)]
+    card = [ds.StepSeeds(seed, step, r).layer(0) for r in (0, 1)]
+    assert host[1] == host[0] + ds.RANK_STRIDE
+    assert int(card[1]) == int(card[0]) + ds.RANK_STRIDE
+    for rank0, rank1 in (host, card):
+        flags = [keep_of(rank0), keep_of(rank1)]
+        torch.cuda.synchronize()
+        assert not torch.equal(flags[0], flags[1])
+        assert torch.equal(flags[0], want_of(int(rank0)))
+        assert torch.equal(flags[1], want_of(int(rank0) + ds.RANK_STRIDE))
+
+
+@pytest.mark.parametrize("L", [65, 512])
+def test_rank_offset_keep_flags_on_card(L):
+    """Kernel #2 on data-parallel rank 1 draws other masks than rank 0,
+    those of ``attention_dropout_bits`` at the offset seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    qkv, bias, _ = _train_inputs(L, seed=L + 7)
+    B, nh = bias.shape[0], qkv[0].shape[1]
+
+    def want(seed):
+        bits = ba.attention_dropout_bits(seed, B, nh, L, device="cuda")
+        return ba.pack_keep_mask(torch.stack(bits) < ba.keep_threshold(0.1))
+
+    _rank_offset_check(lambda rng: ba.biacm_attention_train_fwd_cuda(
+        *qkv, bias, rng, 0.125, 0.25, 0.1)[3], want, 11 + L)
+
+
+@pytest.mark.parametrize("L", [561, 709])
+def test_bias_rank_offset_keep_flags_on_card(L):
+    """Kernel #5 on rank 1: ``element_dropout_bits`` at the offset seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L + 7, stride="padded")
+    B, nh = mask.shape[0], q.shape[1]
+
+    def want(seed):
+        bits = ba.element_dropout_bits(seed, B, nh, L, device="cuda")
+        return ba.pack_keep_mask(bits < ba.keep_threshold(0.1))
+
+    _rank_offset_check(lambda rng: rb.bias_attention_train_fwd_cuda(
+        q, k, v, bias, mask, rng, 0.125, 0.1)[2], want, 11 + L)
+
+
 @pytest.mark.parametrize("written_on", ["cuda", "cpu"])
 def test_capturable_optimizer_checkpoint_round_trip_on_card(tmp_path,
                                                             written_on):

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: nothing in peneo_tpu_torch/ or
 chip_smoke.py imports jax, flax or peneo_tpu (nor msgpack or safetensors:
 the port reads those files itself), and the package, its models, its
-serving pipeline, its checkpoint readers and its training pipeline import
-with those modules blocked."""
+serving pipeline, its checkpoint readers, its training pipeline and its
+data-parallel module import with those modules blocked."""
 
 import ast
 import os
@@ -59,6 +59,7 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.ops.quant, peneo_tpu_torch.utils.visualize\n"
         "import peneo_tpu_torch.pipeline.weights_io\n"
         "import peneo_tpu_torch.generate_peneo_weights\n"
+        "import peneo_tpu_torch.parallel.dist\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
