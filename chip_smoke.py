@@ -225,6 +225,37 @@ count just before it and reads them just after):
    process: between the logged steps, and steady (5 more steps on one
    batch after each CE run, past DDP's bucket rebuild at its second step).
 
+Sequence parallelism (after train_dp; ``parallel/seq_parallel.py``: the
+pair grid's rows over the ranks of an sp group, the backbone replicated;
+each phase resets every kernel count just before it, in every process):
+
+- train_sp — 2 ranks of ``run_rfund --distributed --sp 2`` (dp 1) on the
+   card over gloo, LiLT-base, global B = 8, L = 512, bf16, dropout 0: 4
+   steps of plain CE and 4 of OHEM 128/512, each with an eval of the 16
+   dev pages (listed twice) and no save, against train_dp's one-process
+   runs. Gates: each step's loss within 1e-3 of one process's and alike
+   on both ranks; step 1's gradient within 1e-2 of each tensor's max;
+   eval P/R/F1 equal to one process's and alike on both ranks; #2/#3 12
+   times a step and #1 12 times an eval forward on each rank; kernel #2's
+   flags at rate 0.1 under each rank's dp-index seed identical on both
+   ranks and equal to that seed's bits. ms/step, peak per rank.
+- serve_sp — 2 gloo ranks of ``InferenceService(dp=1, sp=2)``, LiLT-base,
+   L = 512, B = 32, bf16, the 96 pages (#1 12 times a forward on each
+   rank, a record per page); one batch's merged spots against one
+   process's (``spot_gate``: ``spot_count`` equal, the tags equal and the
+   scores within 2e-2 where both keep a position, the k sorted scores
+   within 2e-2, every spot clear of the k-th score by more than 2e-2 kept
+   by both; at the k-th score sp keeps the lowest flat indices, one
+   process's ``torch.topk`` an unspecified subset) and alike on both
+   ranks; each rank's shard of the pair grid (device ms, profiled while
+   the other rank waits), the decoder's device and wall ms with both ranks
+   on the card and one batch's wall ms, beside one process's decoder and
+   its grid whole and split in two shards in turns.
+- serve_sp_long — LiLT-base widths and depth at 2050 positions, random
+   pages of L = 2048, B = 2: one process against the 2 sp ranks (run in
+   serve_sp's launch); spots gated as serve_sp's; the same device ms and
+   the forward's peak memory above the weights beside one process's.
+
 30. the ``kernels`` line (all six; ``launches`` sums every path's serving
    and training runs: the wrappers' counts, and for the graph runs also
    the profiled replay's launches read from its trace; the phase lines
@@ -3212,8 +3243,8 @@ def first_step_grads(argv):
     trainer = PEneoTrainer(cfg, model, run_rfund.training_arguments(args),
                            train_ds, None, collator)
     feed = DataFeed(train_ds, collator, args.per_device_train_batch_size,
-                    shuffle=True, seed=args.seed, rank=trainer.rank,
-                    world=trainer.world)
+                    shuffle=True, seed=args.seed, rank=trainer.dp_rank,
+                    world=trainer.dp)
     batch = batch_to_device(next(iter(feed)), trainer.device)
     metrics = T.train_step(trainer.step_model, trainer.optimizer,
                            trainer.scheduler, batch,
@@ -3228,15 +3259,15 @@ def first_step_grads(argv):
     return loss, grads
 
 
-def rank_keep_flags(ba, rank):
-    """Kernel #2's packed keep flags at rate DROP on fixed inputs with data
-    parallel rank ``rank``'s first layer seed (``HostSeeds`` of SEED)."""
+def rank_keep_flags(ba, rank, batch=TRAIN_B // DP_WORLD):
+    """Kernel #2's packed keep flags at rate DROP on fixed inputs of
+    ``batch`` rows with data-parallel index ``rank``'s first layer seed
+    (``HostSeeds`` of SEED)."""
     import torch
 
     from peneo_tpu_torch.models.dropout_seeds import HostSeeds
 
-    qkv, bias = attention_inputs(TRAIN_B // DP_WORLD, L, [(0, slice(400,
-                                                                    None))],
+    qkv, bias = attention_inputs(batch, L, [(0, slice(400, None))],
                                  torch.Generator(device="cuda").manual_seed(
                                      SEED))
     seed = HostSeeds(torch.Generator().manual_seed(SEED), rank).layer(0)
@@ -3261,7 +3292,7 @@ def steady_ms(trainer):
     args = trainer.args
     feed = DataFeed(trainer.train_dataset, trainer.collator,
                     args.per_device_train_batch_size, shuffle=True,
-                    seed=args.seed, rank=trainer.rank, world=trainer.world)
+                    seed=args.seed, rank=trainer.dp_rank, world=trainer.dp)
     batch = batch_to_device(next(iter(feed)), trainer.device)
     for i in range(STEADY_STEPS):
         if i == 1:
@@ -3417,6 +3448,21 @@ def rel_close(a, b, rtol):
         and len(a) == len(b)
 
 
+def dp_argv(model_dir, data, out, per_rank, *extra):
+    """``run_rfund``'s arguments of the data- and sequence-parallel phases:
+    DP_STEPS steps, then an eval, then the model saved only when asked
+    (``--do_train`` saves it); no checkpoint (3.3 GB with the optimizer's
+    state: the machine's disk writes are bounded; the CPU tests check rank
+    0's checkpoints)."""
+    return ["--synthetic_data", "--model_name_or_path", model_dir,
+            "--data_dir", data, "--output_dir", out, "--do_train",
+            "--max_steps", str(DP_STEPS), "--max_seq_len", str(L),
+            "--per_device_train_batch_size", str(per_rank),
+            "--per_device_eval_batch_size", str(per_rank),
+            "--logging_steps", "1", "--eval_steps", str(DP_STEPS),
+            "--save_steps", "0", "--seed", str(SEED), "--no_resume", *extra]
+
+
 def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
     """Data-parallel fine-tuning of LiLT-base through ``run_rfund
     --distributed``: DP_WORLD ranks spawned with torchrun's environment
@@ -3439,16 +3485,7 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
                                       **ohem_keys())}
 
     def argv(loss, out, per_rank):
-        # the model is saved; no checkpoint (3.3 GB with the optimizer's
-        # state: the machine's disk writes are bounded; the CPU tests check
-        # rank 0's checkpoints)
-        return ["--synthetic_data", "--model_name_or_path", models[loss],
-                "--data_dir", data, "--output_dir", out, "--do_train",
-                "--max_steps", str(DP_STEPS), "--max_seq_len", str(L),
-                "--per_device_train_batch_size", str(per_rank),
-                "--per_device_eval_batch_size", str(per_rank),
-                "--logging_steps", "1", "--eval_steps", str(DP_STEPS),
-                "--save_steps", "0", "--seed", str(SEED), "--no_resume"]
+        return dp_argv(models[loss], data, out, per_rank)
 
     per_rank = TRAIN_B // DP_WORLD
     outs = {(run, loss): os.path.join(tmp, f"dp_{run}_{loss}")
@@ -3623,6 +3660,641 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
         for loss in ("ce", "ohem"):
             for k, v in r.get(loss, {}).get("launches", {}).items():
                 total[k] += v
+    # the one-process runs are train_sp's reference too
+    reference = {"models": models, "data": data,
+                 "logs": {loss: os.path.join(outs["solo", loss], "log.jsonl")
+                          for loss in ("ce", "ohem")},
+                 "grads": solo_grads, "loss": solo_loss,
+                 "probe": argv("ce", os.path.join(tmp, "sp_probe"), TRAIN_B),
+                 "ms_per_step": report["ce"]["ms_per_step_logged_one_process"]}
+    return total, reference
+
+
+SP_WORLD = 2  # sequence-parallel ranks sharing the card (dp 1)
+# step 1's gradient under sp against one process's: each tensor within
+# DP_GRAD_TOL of its max, but layer 11's query and key weights within
+# SP_QK_TOL. Their gradients are small differences of large terms (the
+# nearly collinear keys of PATH_QK_TOL), and sp sums the pair head's input
+# gradients over other row blocks than one process does, so the bf16
+# rounding of that sum shows there amplified; train_sp prints the same
+# error for one process re-blocked (pair_block_size 64 against 128).
+SP_QK_TOL = 5e-2
+SP_QK = re.compile(r"backbone\.encoder\.layer\.11\.attention\.self\."
+                   r"(query|key)\.weight")
+SP_SCORE_TOL = 2e-2  # spot scores, one process against the sp ranks
+LONG_L, LONG_B = 2048, 2  # serve_sp_long: the pages sp exists for
+
+
+def sp_train_worker(spec):
+    """One rank of a ``train_sp`` launch: joins the process group as
+    ``run_rfund --distributed --sp 2`` does, takes the step-1 gradient
+    (rank 0 saves it) and kernel #2's flags under its dp index's seed, then
+    fine-tunes for each loss of ``spec`` through ``run_rfund``'s setup and
+    ``PEneoTrainer`` (no model saved: no gate reads it), the launch counts
+    reset just before and read just after."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.ops import biacm_attention as ba
+    from peneo_tpu_torch.ops import bias_attention as rb
+    from peneo_tpu_torch.parallel import dist as pdist
+    from peneo_tpu_torch.pipeline.trainer import PEneoTrainer
+
+    parse = run_rfund.build_argparser().parse_args
+    argvs = {k: v + ["--distributed"] for k, v in spec["argv"].items()}
+    first = parse(argvs[spec["losses"][0]])
+    run_rfund.check_parallel_flags(first)
+    run_rfund.init_parallel(first)
+    me = pdist.rank()
+    result = {"rank": me, "world": pdist.world(),
+              "backend": pdist.dist.get_backend(),
+              "device": str(pdist.rank_device()),
+              "dp": [pdist.dp_index(), pdist.dp_size()],
+              "sp": [pdist.sp_index(), pdist.sp_size()]}
+    try:
+        loss, grads = first_step_grads(spec["probe"] + ["--distributed"])
+        result["step1_loss"] = loss
+        if me == 0:
+            torch.save(grads, spec["grads"])
+        seed, keep = rank_keep_flags(ba, pdist.dp_index(), TRAIN_B)
+        result["keep_seed"] = seed
+        torch.save(keep, spec["keep"].format(rank=me))
+        for name in spec["losses"]:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ba, rb)
+            args = parse(argvs[name])
+            cfg, model, train_ds, eval_ds, collator, tok = run_rfund.setup(
+                args)
+            trainer = PEneoTrainer(cfg, model,
+                                   run_rfund.training_arguments(args),
+                                   train_ds, eval_ds, collator, tokenizer=tok)
+            trainer.train()
+            result[name] = {"launches": read_counts(ba, rb),
+                            "max_memory_allocated":
+                                torch.cuda.max_memory_allocated(),
+                            "seed_offset": trainer.seeds.offset}
+            del trainer, model
+        pdist.barrier()
+    finally:
+        pdist.shutdown()
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_train_sp(ba, rb, tmp, reference, smi):
+    """Sequence-parallel fine-tuning of LiLT-base: SP_WORLD ranks of
+    ``run_rfund --distributed --sp 2`` (dp 1) sharing the card over gloo,
+    global B = TRAIN_B, L = 512, bf16, dropout 0, DP_STEPS steps of plain CE
+    and of OHEM 128/512, each with an eval of the 16 dev pages (listed
+    twice); against train_dp's one-process runs of the same global
+    batches."""
+    import torch
+
+    spec = {"worker": "sp_train", "losses": ["ce", "ohem"],
+            "argv": {loss: dp_argv(reference["models"][loss],
+                                   reference["data"],
+                                   os.path.join(tmp, f"sp_{loss}"), TRAIN_B,
+                                   "--sp", str(SP_WORLD))
+                     for loss in ("ce", "ohem")},
+            "probe": reference["probe"] + ["--sp", str(SP_WORLD)],
+            "grads": os.path.join(tmp, "sp_grads.pt"),
+            "keep": os.path.join(tmp, "sp_keep.rank{rank}.pt")}
+    t0 = time.perf_counter()
+    ranks = launch_ranks(spec, SP_WORLD, tmp, "train_sp")
+    wall = time.perf_counter() - t0
+    report = {"phase": "train_sp", "nvidia_smi": smi, "world": SP_WORLD,
+              "backend": ranks[0]["backend"],
+              "grid": [[r["dp"], r["sp"]] for r in ranks],
+              "devices": [r["device"] for r in ranks]}
+    errors = []
+    if [r["sp"] for r in ranks] != [[s, SP_WORLD] for s in range(SP_WORLD)]:
+        errors.append(f"grid {report['grid']}")
+    layers, n_dev = 12, 16
+    per_run = {"fwd": layers * DP_STEPS, "bwd": layers * DP_STEPS,
+               "biacm_attention": layers * 2 * n_dev // TRAIN_B}
+    for loss in ("ce", "ohem"):
+        solo_steps, solo_evals = log_records(reference["logs"][loss])
+        out = os.path.join(tmp, f"sp_{loss}")
+        logs = [log_records(os.path.join(out, "log.jsonl" if r == 0
+                                         else f"log.rank{r}.jsonl"))
+                for r in range(SP_WORLD)]
+        want = [r["loss/total"] for r in solo_steps]
+        got = [[r["loss/total"] for r in steps] for steps, _ in logs]
+        keys = ("eval/precision", "eval/recall", "eval/f1",
+                "eval/num_sample_processed")
+        evals = [{k: e[0][k] for k in keys} for _, e in logs]
+        solo_eval = {k: solo_evals[0][k] for k in keys}
+        eval_losses = [[v for k, v in sorted(e[0].items()) if "loss" in k]
+                       for _, e in logs]
+        solo_eval_losses = [v for k, v in sorted(solo_evals[0].items())
+                            if "loss" in k]
+        report[loss] = {
+            "losses_one_process": want, "losses_ranks": got,
+            "max_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(got[0], want)),
+            "ms_per_step_logged_ranks": step_ms(logs[0][0]),
+            "ms_per_step_logged_one_process": step_ms(solo_steps),
+            "eval_ranks": evals, "eval_one_process": solo_eval,
+            "eval_losses_rank0": eval_losses[0],
+            "eval_losses_one_process": solo_eval_losses,
+            "launches_ranks": [r[loss]["launches"] for r in ranks],
+            "seed_offsets": [r[loss]["seed_offset"] for r in ranks],
+            "max_memory_allocated_ranks":
+                [r[loss]["max_memory_allocated"] for r in ranks]}
+        if any(g != got[0] for g in got) \
+                or not rel_close(got[0], want, DP_LOSS_RTOL):
+            errors.append(f"{loss}: rank losses {got} vs one process {want}")
+        if any(e != solo_eval for e in evals) \
+                or evals[0]["eval/num_sample_processed"] != n_dev \
+                or any(e != eval_losses[0] for e in eval_losses) \
+                or not rel_close(eval_losses[0], solo_eval_losses,
+                                 DP_LOSS_RTOL):
+            errors.append(f"{loss}: eval {evals} {eval_losses} vs one "
+                          f"process {solo_eval} {solo_eval_losses}")
+        if len(set(report[loss]["seed_offsets"])) != 1:
+            errors.append(f"{loss}: seed offsets {report[loss]['seed_offsets']}")
+        for r in ranks:
+            expect_counts(r[loss]["launches"], per_run,
+                          f"train_sp rank {r['rank']} {loss}")
+
+    # step 1's gradient (DDP's mean of the ranks' world-scaled shares),
+    # and one process's re-blocked (the rounding floor of another order)
+    grads = torch.load(spec["grads"], weights_only=True)
+    solo_grads = reference["grads"]
+
+    def err(other):
+        return {n: ((other[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in solo_grads.items()}
+
+    grad_err = err(grads)
+    reblocked = graph_model_dir(reference["models"]["ce"],
+                                os.path.join(tmp, "sp_block64"), 0.0,
+                                pair_block_size=64)
+    _, floor_grads = first_step_grads(dp_argv(
+        reblocked, reference["data"], os.path.join(tmp, "sp_probe64"),
+        TRAIN_B))
+    report["step1_grad_err_over_max"] = grad_err
+    report["step1_grad_err_one_process_block64"] = err(floor_grads)
+    report["step1_loss"] = {"ranks": [r["step1_loss"] for r in ranks],
+                            "one_process": reference["loss"]}
+    if set(grads) != set(solo_grads) or len(grads) < 20 \
+            or any(v > (SP_QK_TOL if SP_QK.fullmatch(n) else DP_GRAD_TOL)
+                   for n, v in grad_err.items()):
+        errors.append(f"step-1 gradients: {grad_err}")
+
+    # the sp ranks of one dp index draw the same attention-dropout flags
+    flags, same = [], []
+    for r in ranks:
+        keep = torch.load(spec["keep"].format(rank=r["rank"]),
+                          weights_only=True)
+        bits = ba.attention_dropout_bits(r["keep_seed"], TRAIN_B, NH, L,
+                                         device="cuda")
+        want = ba.pack_keep_mask(torch.stack(bits)
+                                 < ba.keep_threshold(DROP)).cpu()
+        same.append(torch.equal(keep, want))
+        flags.append(keep)
+    report["dropout_flags"] = {
+        "rate": DROP, "seeds": [r["keep_seed"] for r in ranks],
+        "equal_to_seed_bits": same,
+        "ranks_identical": all(torch.equal(f, flags[0]) for f in flags)}
+    if not all(same) or not report["dropout_flags"]["ranks_identical"] \
+            or len({r["keep_seed"] for r in ranks}) != 1:
+        errors.append(f"dropout flags {report['dropout_flags']}")
+    report.update({"steps": DP_STEPS, "global_batch": TRAIN_B, "L": L,
+                   "dropout": 0.0, "ohem_k": list(OHEM_K),
+                   "ranks_wall_seconds": wall,
+                   "tol": {"loss": DP_LOSS_RTOL, "grad": DP_GRAD_TOL,
+                           "grad_layer11_query_key": SP_QK_TOL}})
+    emit(report)
+    if errors:
+        raise RuntimeError("train_sp: " + "; ".join(errors))
+    total = {k: 0 for k in ranks[0]["ce"]["launches"]}
+    for r in ranks:
+        for loss in ("ce", "ohem"):
+            for k, v in r[loss]["launches"].items():
+                total[k] += v
+    return total
+
+
+def long_model(sp_index=0, sp=1, group=None):
+    """LiLT-base widths and depth at max_position_embeddings LONG_L + 2
+    (seeded random init, as tests/test_long_sequence.py builds its
+    configs), bf16 on the card, in eval mode; with ``sp`` > 1 its pair grid
+    split over the sp group."""
+    import torch
+
+    from peneo_tpu_torch.config import LiltConfig, PEneoConfig
+    from peneo_tpu_torch.models.peneo import PEneoModel
+
+    cfg = PEneoConfig(
+        backbone_name="lilt-infoxlm-base",
+        backbone_config=LiltConfig(
+            vocab_size=250002, max_position_embeddings=LONG_L + 2,
+            pad_token_id=0, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0).to_dict(),
+        max_seq_len=LONG_L)
+    model = PEneoModel(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    if sp > 1:
+        model.set_sequence_parallel(sp_index, sp, group)
+    return model.cast(torch.bfloat16).cuda().eval()
+
+
+def long_inputs():
+    """LONG_B pages of LONG_L tokens (random ids and boxes, seeded)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(3, 250002, (LONG_B, LONG_L))
+    x0 = rng.integers(0, 900, (LONG_B, LONG_L))
+    y0 = rng.integers(0, 950, (LONG_B, LONG_L))
+    bbox = np.stack([x0, y0, x0 + rng.integers(5, 100, x0.shape),
+                     y0 + rng.integers(5, 50, y0.shape)], -1)
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(bbox).cuda(),
+            torch.ones((LONG_B, LONG_L), dtype=torch.int64, device="cuda"))
+
+
+def decoder_device_ms(model, ids, bbox, attn):
+    """Device ms, wall ms and the largest device rows (name, ms, count) of
+    one decoder forward (shrink, combine, this rank's pair grid, the spot
+    selection and, under sp, the merge) on the backbone's output of one
+    batch (profiled after a warm call); under sp every rank of the group
+    calls it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        hidden = model.backbone(ids, bbox, attn)["last_hidden_state"]
+        hidden = hidden[:, 1:ids.shape[1]]
+        model.peneo_decoder(hidden)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.peneo_decoder(hidden)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    rows, device = device_rows(prof, wall, None, "")
+    return device, wall, [[k[:80], round(ms, 3), n] for k, ms, n in rows[:8]]
+
+
+def pair_inputs(model, ids, bbox, attn):
+    """One batch's combine features (a, b) and Ld, as the decoder forms
+    them (inference mode)."""
+    import torch
+
+    dec = model.peneo_decoder
+    with torch.inference_mode():
+        hidden = model.backbone(ids, bbox, attn)["last_hidden_state"]
+        hidden = hidden[:, 1:ids.shape[1]]
+        a, b = dec.handshaking_kernel(dec.shrink_projection(
+            hidden.to(dec.handshaking_kernel.combine_fc.weight.dtype)))
+    return a, b, hidden.shape[1]
+
+
+def profiled_shard(model, a, b, valid_len, index, size):
+    """Device ms and the largest device rows of shard ``index`` of ``size``
+    of the pair grid: ``sp_partials`` (the shard's rows, every block, the
+    five heads, the spot keys) and its packed top k, no collective."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dec = model.peneo_decoder
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dec.sp_partials(a, b, valid_len, index, size)[0].packed()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    rows, device = device_rows(prof, wall, None, "")
+    return device, [[k[:80], round(ms, 3), n] for k, ms, n in rows[:6]]
+
+
+def shard_device_ms(model, ids, bbox, attn, index, size, barrier):
+    """This sp rank's shard of one batch's pair grid (``profiled_shard``,
+    after a warm call), the ranks of the card taking turns (``barrier``) so
+    that each profile sees the card alone."""
+    a, b, valid_len = pair_inputs(model, ids, bbox, attn)
+    profiled_shard(model, a, b, valid_len, index, size)
+    for turn in range(size):
+        barrier()
+        if turn == index:
+            out = profiled_shard(model, a, b, valid_len, index, size)
+    barrier()
+    return out
+
+
+def split_device_ms(model, ids, bbox, attn, repeats=3):
+    """In one process, one batch's pair grid through ``sp_partials`` whole
+    (size 1) and as its two sp shards, in turns (whole, shard 0, shard 1)
+    ``repeats`` times after a warm call of each: the medians of their device
+    ms, and the largest rows of the last whole and shard-0 calls."""
+    a, b, valid_len = pair_inputs(model, ids, bbox, attn)
+    parts = {"whole": (0, 1), "shard0": (0, SP_WORLD), "shard1": (1, SP_WORLD)}
+    times = {name: [] for name in parts}
+    for rep in range(repeats + 1):
+        for name, (index, size) in parts.items():
+            ms, top = profiled_shard(model, a, b, valid_len, index, size)
+            if rep:
+                times[name].append(ms)
+                if name != "shard1":
+                    times[name + "_top"] = top
+    return {name: statistics.median(v) if not name.endswith("_top") else v
+            for name, v in times.items()}
+
+
+def packed_spots(out):
+    """The model's compact spots as two host int32 arrays (pack_spots)."""
+    from peneo_tpu_torch.models.decoder import pack_spots
+
+    return [x.cpu().numpy().tolist() for x in pack_spots(out)]
+
+
+def sp_serve_worker(spec):
+    """One rank of the ``serve_sp`` launch (two gloo ranks, sp 2): serves
+    the 96 pages through ``InferenceService(dp=1, sp=2)``, then one batch's
+    spots, wall ms and decoder device ms; then (``serve_sp_long``) the long
+    model's spots at LONG_L, its decoder device ms and peak memory. The
+    launch counts are reset just before each part and read just after."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from peneo_tpu_torch.ops import biacm_attention as ba
+    from peneo_tpu_torch.ops import bias_attention as rb
+    from peneo_tpu_torch.parallel import dist as pdist
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    pdist.init_distributed()
+    me = pdist.rank()
+    result = {"rank": me, "backend": pdist.dist.get_backend(),
+              "device": str(pdist.rank_device())}
+    img_dir, ocr_dir = spec["pages"]
+    try:
+        reset_counts(ba, rb)
+        svc = InferenceService(spec["model"], batch_size=B, dtype="bfloat16",
+                               dp=1, sp=SP_WORLD)
+        results = svc.run(img_dir, ocr_dir)
+        serve = {"launches": read_counts(ba, rb), "pages": len(results),
+                 "seconds": svc.last_run["seconds"],
+                 "records": json.loads(json.dumps(records_of(results)))}
+        pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+                 for i in range(B)]
+        serve["spots"] = [x.cpu().numpy().tolist()
+                          for x in svc.dispatch_batch(pages)]
+        serve["forward_wall_ms"] = batch_wall_ms(svc, pages)
+        tensors = batch_tensors(svc, pages)[:3]
+        (serve["decoder_device_ms"], serve["decoder_wall_ms"],
+         serve["decoder_top"]) = decoder_device_ms(svc.model, *tensors)
+        serve["shard_device_ms"], serve["shard_top"] = shard_device_ms(
+            svc.model, *tensors, pdist.sp_index(), SP_WORLD, pdist.barrier)
+        result["serve"] = serve
+        del svc
+        torch.cuda.empty_cache()
+
+        reset_counts(ba, rb)
+        model = long_model(pdist.sp_index(), SP_WORLD, pdist.sp_group())
+        ids, bbox, attn = long_inputs()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = model(ids, bbox, attn)
+        long = {"launches": read_counts(ba, rb),
+                "spots": packed_spots(out),
+                "forward_peak_bytes":
+                    torch.cuda.max_memory_allocated() - base}
+        del out
+        (long["decoder_device_ms"], long["decoder_wall_ms"],
+         long["decoder_top"]) = decoder_device_ms(model, ids, bbox, attn)
+        long["shard_device_ms"], long["shard_top"] = shard_device_ms(
+            model, ids, bbox, attn, pdist.sp_index(), SP_WORLD,
+            pdist.barrier)
+        result["long"] = long
+        pdist.barrier()
+    finally:
+        pdist.shutdown()
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def batch_wall_ms(svc, pages, n=3):
+    """Median wall ms of one batch's dispatch and fetch (host clock)."""
+    import torch
+
+    svc._fetch(svc.dispatch_batch(pages))  # warm
+    wall = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc._fetch(svc.dispatch_batch(pages))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(wall)
+
+
+def spot_gate(ref, got, k, tol=SP_SCORE_TOL):
+    """One process's compact spots (``ref``) against the sp ranks' merged
+    ones (``got``), both as ``pack_spots`` lists. The tie rule: where scores
+    tie at the k-th place, the sp merge keeps the lowest flat indices (the
+    JAX order, score descending then flat index ascending) and
+    ``torch.topk`` in one process an unspecified subset. So per head and
+    sample: ``spot_count`` equal; on the positions both keep, the tags
+    equal and the scores within ``tol``; the k kept scores, sorted, within
+    ``tol``; and every spot whose score clears the k-th by more than
+    ``tol`` kept by both. Returns (errors, summary)."""
+    import numpy as np
+
+    from peneo_tpu_torch.models.decoder import HEAD_NAMES
+    from peneo_tpu_torch.pipeline.decode import unpack_spots
+
+    r, g = (unpack_spots(np.asarray(x[0], np.int32), np.asarray(x[1],
+                                                                 np.int32))
+            for x in (ref, got))
+    errors, common, differ, clear, max_diff, bit_equal = [], 0, 0, 0, 0.0, \
+        True
+    for name in HEAD_NAMES:
+        if not np.array_equal(r[name]["spot_count"], g[name]["spot_count"]):
+            errors.append(f"{name}: spot_count {r[name]['spot_count']} vs "
+                          f"{g[name]['spot_count']}")
+        for bi in range(len(r[name]["spot_count"])):
+            rs, gs = r[name]["spot_score"][bi], g[name]["spot_score"][bi]
+            ri = dict(zip(r[name]["spot_idx"][bi][rs > -0.5],
+                          zip(r[name]["spot_tag"][bi][rs > -0.5],
+                              rs[rs > -0.5])))
+            gi = dict(zip(g[name]["spot_idx"][bi][gs > -0.5],
+                          zip(g[name]["spot_tag"][bi][gs > -0.5],
+                              gs[gs > -0.5])))
+            both = set(ri) & set(gi)
+            common += len(both)
+            differ += len(set(ri) ^ set(gi))
+            for i in both:
+                d = abs(float(ri[i][1]) - float(gi[i][1]))
+                max_diff = max(max_diff, d)
+                bit_equal &= ri[i][1] == gi[i][1]
+                if ri[i][0] != gi[i][0] or d > tol:
+                    errors.append(f"{name}[{bi}] at {i}: {ri[i]} vs {gi[i]}")
+                    break
+            a, b = np.sort(rs)[::-1], np.sort(gs)[::-1]
+            if np.abs(a - b).max() > tol:
+                errors.append(f"{name}[{bi}]: sorted scores differ by "
+                              f"{np.abs(a - b).max()}")
+            kth = float(a[k - 1]) if int(r[name]["spot_count"][bi]) >= k \
+                else -1.0
+            above = ({i for i, (_, s) in ri.items() if s > kth + tol}
+                     | {i for i, (_, s) in gi.items() if s > kth + tol})
+            clear += len(above)
+            if not above <= both:
+                errors.append(f"{name}[{bi}]: {len(above - both)} spots "
+                              "clear of the k-th score kept by one side")
+    summary = {"common_spots": common, "differing_at_boundary": differ,
+               "clear_of_boundary": clear, "max_score_diff": max_diff,
+               "common_scores_bit_identical": bool(bit_equal),
+               "tie_rule": "sp keeps the lowest flat indices among spots "
+                           "tied at the k-th score; one process's "
+                           "torch.topk an unspecified subset",
+               "score_tol": tol}
+    return errors[:10], summary
+
+
+def phase_serve_sp(ba, rb, tmp, img_dir, ocr_dir, smi):
+    """Sequence-parallel serving of LiLT-base (L = 512, B = 32, bf16, the
+    96 pages): two gloo ranks on the card at sp 2 (the ranks also run
+    serve_sp_long's part: one launch), against this process's
+    ``InferenceService`` on the same model directory."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    model_dir = os.path.join(tmp, "model")
+    spec = {"worker": "sp_serve", "model": model_dir,
+            "pages": [img_dir, ocr_dir]}
+    t0 = time.perf_counter()
+    ranks = launch_ranks(spec, SP_WORLD, tmp, "serve_sp")
+    wall = time.perf_counter() - t0
+
+    reset_counts(ba, rb)
+    svc = InferenceService(model_dir, batch_size=B, dtype="bfloat16")
+    records = json.loads(json.dumps(records_of(svc.run(img_dir, ocr_dir))))
+    solo_counts = read_counts(ba, rb)
+    pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+             for i in range(B)]
+    spots = [x.cpu().numpy().tolist() for x in svc.dispatch_batch(pages)]
+    solo_wall = batch_wall_ms(svc, pages)
+    tensors = batch_tensors(svc, pages)[:3]
+    solo_device, solo_dec_wall, solo_top = decoder_device_ms(svc.model,
+                                                             *tensors)
+    split = split_device_ms(svc.model, *tensors)
+    k = svc.cfg.max_spots_per_head
+    del svc
+    torch.cuda.empty_cache()
+
+    errors, summary = spot_gate(spots, ranks[0]["serve"]["spots"], k)
+    if any(r["serve"]["spots"] != ranks[0]["serve"]["spots"] for r in ranks):
+        errors.append("the ranks' merged spots differ")
+    n_forwards = math.ceil(N_PAGES / B)
+    for r in ranks:
+        expect_counts(r["serve"]["launches"],
+                      {"biacm_attention": 12 * n_forwards},
+                      f"serve_sp rank {r['rank']}")
+        if r["serve"]["pages"] != N_PAGES:
+            errors.append(f"rank {r['rank']}: {r['serve']['pages']} pages")
+    report = {
+        "phase": "serve_sp", "nvidia_smi": smi, "sp": SP_WORLD,
+        "backend": ranks[0]["backend"], "batch_size": B, "L": L,
+        "max_spots_per_head": k, "spots": summary,
+        "launches_ranks": [r["serve"]["launches"] for r in ranks],
+        "decoder_device_ms_ranks":
+            [r["serve"]["decoder_device_ms"] for r in ranks],
+        "decoder_device_ms_one_process": solo_device,
+        "decoder_top_kernels_rank0": ranks[0]["serve"]["decoder_top"],
+        "decoder_top_kernels_one_process": solo_top,
+        "shard_device_ms_ranks": [r["serve"]["shard_device_ms"]
+                                  for r in ranks],
+        "shard_top_kernels_rank0": ranks[0]["serve"]["shard_top"],
+        "split_device_ms_one_process": split,
+        "decoder_wall_ms_ranks": [r["serve"]["decoder_wall_ms"]
+                                  for r in ranks],
+        "decoder_wall_ms_one_process": solo_dec_wall,
+        "forward_wall_ms_ranks": [r["serve"]["forward_wall_ms"]
+                                  for r in ranks],
+        "forward_wall_ms_one_process": solo_wall,
+        "run_seconds_ranks": [r["serve"]["seconds"] for r in ranks],
+        "records_equal_one_process": ranks[0]["serve"]["records"] == records,
+        "ranks_wall_seconds": wall}
+    emit(report)
+    if errors:
+        raise RuntimeError("serve_sp: " + "; ".join(errors))
+    total = dict(solo_counts)
+    for r in ranks:
+        for key, v in r["serve"]["launches"].items():
+            total[key] += v
+    return total, ranks
+
+
+def phase_serve_sp_long(ba, rb, ranks, smi):
+    """The long pages sp exists for: LiLT-base widths and depth at
+    L = LONG_L, B = LONG_B, one process here against serve_sp's two sp
+    ranks (which ran their part in serve_sp's launch): spots as serve_sp
+    gates them, each rank's decoder device ms and peak memory of the
+    forward against one process's."""
+    import torch
+
+    reset_counts(ba, rb)
+    model = long_model()
+    ids, bbox, attn = long_inputs()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = model(ids, bbox, attn)
+    spots = packed_spots(out)
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = read_counts(ba, rb)
+    del out
+    device, dec_wall, top = decoder_device_ms(model, ids, bbox, attn)
+    split = split_device_ms(model, ids, bbox, attn)
+    k = model.cfg.max_spots_per_head
+    del model
+    torch.cuda.empty_cache()
+
+    errors, summary = spot_gate(spots, ranks[0]["long"]["spots"], k)
+    if any(r["long"]["spots"] != ranks[0]["long"]["spots"] for r in ranks):
+        errors.append("the ranks' merged spots differ")
+    for r in [{"rank": "one process", "long": {"launches": counts}}] + ranks:
+        expect_counts(r["long"]["launches"], {"biacm_attention": 12},
+                      f"serve_sp_long {r['rank']}")
+    report = {
+        "phase": "serve_sp_long", "nvidia_smi": smi, "sp": SP_WORLD,
+        "batch_size": LONG_B, "L": LONG_L, "max_spots_per_head": k,
+        "spots": summary,
+        "decoder_device_ms_ranks": [r["long"]["decoder_device_ms"]
+                                    for r in ranks],
+        "decoder_device_ms_one_process": device,
+        "decoder_top_kernels_rank0": ranks[0]["long"]["decoder_top"],
+        "decoder_top_kernels_one_process": top,
+        "shard_device_ms_ranks": [r["long"]["shard_device_ms"]
+                                  for r in ranks],
+        "shard_top_kernels_rank0": ranks[0]["long"]["shard_top"],
+        "split_device_ms_one_process": split,
+        "decoder_wall_ms_ranks": [r["long"]["decoder_wall_ms"]
+                                  for r in ranks],
+        "decoder_wall_ms_one_process": dec_wall,
+        "forward_peak_bytes_ranks": [r["long"]["forward_peak_bytes"]
+                                     for r in ranks],
+        "forward_peak_bytes_one_process": peak,
+        "launches_ranks": [r["long"]["launches"] for r in ranks]}
+    emit(report)
+    if errors:
+        raise RuntimeError("serve_sp_long: " + "; ".join(errors))
+    total = dict(counts)
+    for r in ranks:
+        for key, v in r["long"]["launches"].items():
+            total[key] += v
     return total
 
 
@@ -3651,8 +4323,10 @@ def main(argv=None):
                         "chrome trace into DIR")
     p.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.dp_worker:  # one rank of train_dp, started by this script
-        return dp_worker(json.loads(args.dp_worker))
+    if args.dp_worker:  # one rank of train_dp / train_sp / serve_sp
+        spec = json.loads(args.dp_worker)
+        return {"dp": dp_worker, "sp_train": sp_train_worker,
+                "sp_serve": sp_serve_worker}[spec.get("worker", "dp")](spec)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs a GPU",
@@ -3738,8 +4412,17 @@ def main(argv=None):
         # OHEM and data parallelism: each phase's launches
         surface.append(timed("train_ohem", phase_train_ohem, ba, rb, tmp,
                              train_out, train_record))
-        surface.append(timed("train_dp", phase_train_dp, ba, rb, tmp,
-                             train_out, img_dir, ocr_dir, smi))
+        dp_counts, dp_reference = timed("train_dp", phase_train_dp, ba, rb,
+                                        tmp, train_out, img_dir, ocr_dir, smi)
+        surface.append(dp_counts)
+        # sequence parallelism: the pair grid's rows over two ranks
+        surface.append(timed("train_sp", phase_train_sp, ba, rb, tmp,
+                             dp_reference, smi))
+        sp_counts, sp_ranks = timed("serve_sp", phase_serve_sp, ba, rb, tmp,
+                                    img_dir, ocr_dir, smi)
+        surface.append(sp_counts)
+        surface.append(timed("serve_sp_long", phase_serve_sp_long, ba, rb,
+                             sp_ranks, smi))
 
         launches_v3 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v3")

@@ -23,6 +23,10 @@ Labels are per head either compact ``(B, S, 3)`` spot arrays, scattered
 into dense matrices on the device, or dense int8 ``(B, Ld, Ld)`` matrices;
 the loss covers the upper triangle of the first Ld positions, and
 ``label_row_mask`` drops rows (eval's edge-padded ragged batch) from it.
+
+Under sequence parallelism (:meth:`PEneoDecoder.set_sequence_parallel`) the
+same blocks run over this rank's strided rows only, and the spots are merged
+over the sp group (``parallel/seq_parallel.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops.losses import (ohem_stream_final, ohem_stream_init,
                           ohem_stream_update, weighted_cross_entropy)
 from ..ops.quant import QuantLinear, quantize_rows, set_int8
 from ..parallel import dist as pdist
+from ..parallel import seq_parallel as sq
 
 HEAD_NAMES = (
     "line_extraction",
@@ -154,6 +159,17 @@ class PEneoDecoder(nn.Module):
                                and cfg.peneo_classifier_num_layers > 1)
         # the losses are the global batch's across the process group
         self.data_parallel = False
+        self.sp = sq.SpShard()
+
+    def set_sequence_parallel(self, index: int, size: int,
+                              group=None) -> None:
+        """Run the pair grid over rows ``index, index + size, …`` only and
+        merge the spots over ``group`` (the sp group of
+        ``parallel/dist.py``); the losses are then reduced over the whole
+        process group."""
+        if not 0 <= index < size:
+            raise ValueError(f"sp index {index} out of [0, {size})")
+        self.sp = sq.SpShard(index, size, group)
 
     def pair_block(self, a_blk, b_cols) -> Dict[str, torch.Tensor]:
         """One row block through the five heads: the pair features are
@@ -195,6 +211,9 @@ class PEneoDecoder(nn.Module):
         h = self.shrink_projection(sequence_output.to(dtype))
         a, b = self.handshaking_kernel(h)
 
+        if self.sp.size > 1:
+            return self._sp_forward(a, b, Ld, labels, also_decode,
+                                    label_row_mask, return_logits)
         bs = min(cfg.pair_block_size, max(Ld, 8))
         Lp = ((Ld + bs - 1) // bs) * bs
         if Lp != Ld:
@@ -243,6 +262,57 @@ class PEneoDecoder(nn.Module):
                 result[name] = {"tags": t, "scores": s}
         return result
 
+    def _loss_state(self, device):
+        """The per-head loss accumulators: streaming OHEM states
+        (``peneo_ohem_num_positive/negative`` not both -1), else weighted-CE
+        (numerator, denominator) sums."""
+        cfg = self.cfg
+        if self.category_weights is None:
+            raise ValueError("the losses need peneo_category_weights")
+        if (cfg.peneo_ohem_num_positive != -1
+                or cfg.peneo_ohem_num_negative != -1):
+            return {name: ohem_stream_init(cfg.peneo_ohem_num_positive,
+                                           cfg.peneo_ohem_num_negative,
+                                           device)
+                    for name in HEAD_NAMES}
+        return {name: (0.0, 0.0) for name in HEAD_NAMES}
+
+    def _fold_loss(self, acc, name, logits, targets, mask) -> None:
+        """Fold one block's logits of head ``name`` into ``acc``."""
+        weights = self.category_weights.float()
+        w = weights[:2] if name == "line_extraction" else weights
+        mask = mask.expand(logits.shape[:3])
+        if isinstance(acc[name], dict):
+            acc[name] = ohem_stream_update(acc[name], logits, targets, w,
+                                           mask)
+            return
+        num, den = weighted_cross_entropy(logits, targets, w, mask,
+                                          return_sum_and_weight=True)
+        acc[name] = (acc[name][0] + num, acc[name][1] + den)
+
+    def _finish_losses(self, acc, device, reduce: bool):
+        """Accumulators → the five head losses and ``total``; with
+        ``reduce`` over the process group's ranks (each holding a disjoint
+        share: its slice of the global batch, its rows of the pair grid)."""
+        if isinstance(acc[HEAD_NAMES[0]], dict):
+            merge = pdist.ohem_stream_merge if reduce else (lambda st: st)
+            parts = torch.stack([ohem_stream_final(merge(acc[name]))
+                                 for name in HEAD_NAMES])
+        else:
+            den = torch.stack([torch.as_tensor(acc[n][1], device=device)
+                               for n in HEAD_NAMES])
+            if reduce:
+                den = pdist.all_sum(den)
+            parts = torch.stack([torch.as_tensor(acc[n][0], device=device)
+                                 for n in HEAD_NAMES]) / den.clamp_min(1e-12)
+        if reduce:
+            parts = pdist.global_losses(parts)
+        losses = dict(zip(HEAD_NAMES, parts.unbind()))
+        ratios = self.cfg.peneo_loss_ratio or [1.0] * 5
+        losses["total"] = sum(r * losses[name]
+                              for r, name in zip(ratios, HEAD_NAMES))
+        return losses
+
     def _losses(self, a, b, Ld, Lp, bs, labels, also_decode, label_row_mask):
         """The five head losses over the upper triangle, block by block:
         weighted-CE sums, or with OHEM (``peneo_ohem_num_positive/negative``
@@ -251,17 +321,8 @@ class PEneoDecoder(nn.Module):
         ``also_decode`` the argmax tags/scores of the same blocks. Under
         data parallelism (:meth:`PEneoModel.set_data_parallel`) the losses
         are the global batch's (``parallel/dist.py``)."""
-        cfg = self.cfg
         dev = a.device
-        if self.category_weights is None:
-            raise ValueError("the losses need peneo_category_weights")
-        weights = self.category_weights.float()
-        ohem = (cfg.peneo_ohem_num_positive != -1
-                or cfg.peneo_ohem_num_negative != -1)
-        if ohem:
-            acc = {name: ohem_stream_init(cfg.peneo_ohem_num_positive,
-                                          cfg.peneo_ohem_num_negative, dev)
-                   for name in HEAD_NAMES}
+        acc = self._loss_state(dev)
         lbl = {}
         for name in HEAD_NAMES:
             m = labels[name]
@@ -274,8 +335,6 @@ class PEneoDecoder(nn.Module):
             lbl[name] = m
         rowm = (None if label_row_mask is None
                 else (label_row_mask > 0)[:, None, None])
-        nums = {name: 0.0 for name in HEAD_NAMES}
-        dens = {name: 0.0 for name in HEAD_NAMES}
         B = a.shape[0]
         if also_decode:
             tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
@@ -294,38 +353,103 @@ class PEneoDecoder(nn.Module):
                         torch.softmax(lg.float(), dim=-1), dim=-1)
                     tags[name][:, r0:r0 + bs, r0:] = t_blk.to(torch.int32)
                     scores[name][:, r0:r0 + bs, r0:] = s_blk
-                w = weights[:2] if name == "line_extraction" else weights
-                tgt = lbl[name][:, r0:r0 + bs, r0:]
-                if ohem:
-                    acc[name] = ohem_stream_update(acc[name], lg, tgt, w,
-                                                   mask.expand(lg.shape[:3]))
-                    continue
-                num, den = weighted_cross_entropy(
-                    lg, tgt, w, mask.expand(lg.shape[:3]),
-                    return_sum_and_weight=True)
-                nums[name] = nums[name] + num
-                dens[name] = dens[name] + den
-        if ohem:
-            merge = (pdist.ohem_stream_merge if self.data_parallel
-                     else (lambda state: state))
-            parts = torch.stack([ohem_stream_final(merge(acc[name]))
-                                 for name in HEAD_NAMES])
-        else:
-            den = torch.stack([torch.as_tensor(dens[n], device=dev)
-                               for n in HEAD_NAMES])
-            if self.data_parallel:
-                den = pdist.all_sum(den)
-            parts = torch.stack([torch.as_tensor(nums[n], device=dev)
-                                 for n in HEAD_NAMES]) / den.clamp_min(1e-12)
-        if self.data_parallel:
-            parts = pdist.global_losses(parts)
-        losses = dict(zip(HEAD_NAMES, parts.unbind()))
-        ratios = cfg.peneo_loss_ratio or [1.0] * 5
-        losses["total"] = sum(r * losses[name]
-                              for r, name in zip(ratios, HEAD_NAMES))
+                self._fold_loss(acc, name, lg, lbl[name][:, r0:r0 + bs, r0:],
+                                mask)
+        losses = self._finish_losses(acc, dev, self.data_parallel)
         if also_decode:
             return losses, self._spot_outputs(tags, scores, Ld)
         return losses
+
+    # ------------------------------------------------------ sequence parallel
+    def sp_partials(self, a, b, Ld: int, index: int, size: int,
+                    labels: Optional[Dict[str, torch.Tensor]] = None,
+                    decode: bool = True, label_row_mask=None):
+        """Shard ``index`` of ``size`` of the pair grid from the combine
+        features ``a``, ``b`` (B, ≥Ld, H): the rows ``index, index + size,
+        …`` below Ld, block by block (``pair_block_size / size`` local rows,
+        which span ``pair_block_size`` rows of the grid as one process's
+        blocks do; the columns from ``r0·size``). Returns (its :class:`~peneo_tpu_torch.
+        parallel.seq_parallel.SpotCandidates` or None, its loss accumulators
+        or None); nothing is reduced across ranks."""
+        dev = a.device
+        B = a.shape[0]
+        if Ld < size:
+            raise ValueError(f"sp {size} needs at least {size} rows of the "
+                             f"pair grid, not {Ld}")
+        rows = sq.local_rows(Ld, size, index, dev)
+        a_loc = a.index_select(1, rows)
+        spots = (sq.SpotCandidates(B, self.cfg.max_spots_per_head, Ld, dev)
+                 if decode else None)
+        acc = lbl = rowm = None
+        if labels is not None:
+            acc = self._loss_state(dev)
+            lbl = {name: sq.local_labels(labels[name], Ld, size, index)
+                   for name in HEAD_NAMES}
+            if label_row_mask is not None:
+                rowm = (label_row_mask > 0)[:, None, None]
+        block = max(1, self.cfg.pair_block_size // size)
+        for r0, n, col0 in sq.row_blocks(rows.numel(), block, size):
+            g = rows[r0:r0 + n]
+            a_blk, b_cols = a_loc[:, r0:r0 + n], b[:, col0:Ld]
+            if labels is None:
+                out = self.pair_block(a_blk, b_cols)
+                blk = tuple(out[name] for name in HEAD_NAMES)
+            else:
+                blk = self._pair_logits(a_blk, b_cols)
+            ok = g[:, None] <= torch.arange(col0, Ld, device=dev)[None]
+            for hi, (name, lg) in enumerate(zip(HEAD_NAMES, blk)):
+                if spots is not None:
+                    spots.update(hi, lg, ok, g, col0)
+                if labels is not None:
+                    mask = ok[None] if rowm is None else ok[None] & rowm
+                    self._fold_loss(acc, name, lg, lbl[name][:, r0:r0 + n,
+                                                             col0:], mask)
+        return spots, acc
+
+    def _sp_forward(self, a, b, Ld, labels, also_decode, label_row_mask,
+                    return_logits):
+        """This rank's shard of the pair grid, its spots merged over the sp
+        group and its losses reduced over the process group. The gradient
+        of ``a`` and ``b`` is averaged over the sp group
+        (:func:`~peneo_tpu_torch.parallel.dist.sp_mean_grad`): the layers
+        below run one backward on the whole gradient, as one process does.
+        A training forward draws the pair head's dropout from a stream of
+        its own per sp rank (as JAX folds it per shard,
+        ``seq_parallel.py:331-337``) and leaves the device's generator where
+        the other sp ranks leave theirs, so that their next backbone
+        forwards draw alike."""
+        decode = labels is None or also_decode
+        if decode and (self.cfg.max_spots_per_head <= 0 or return_logits):
+            raise ValueError("sequence parallelism returns compact spots: "
+                             "max_spots_per_head > 0, no dense logits")
+        dev = a.device
+        if self.sp.group is not None:
+            a, b = pdist.sp_mean_grad(a, b)
+        if self.training:
+            seed = int(torch.randint(0, 2 ** 62, ()))
+            with torch.random.fork_rng(
+                    devices=[dev] if dev.type == "cuda" else []):
+                torch.default_generator.manual_seed(seed + self.sp.index)
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        torch.cuda.manual_seed(seed + self.sp.index)
+                spots, acc = self.sp_partials(
+                    a, b, Ld, self.sp.index, self.sp.size, labels, decode,
+                    label_row_mask)
+        else:
+            spots, acc = self.sp_partials(a, b, Ld, self.sp.index,
+                                          self.sp.size, labels, decode,
+                                          label_row_mask)
+        out = None
+        if spots is not None:
+            gathered = (pdist.sp_gather(spots.packed())
+                        if self.sp.group is not None else spots.packed()[None])
+            out = sq.merge_spots(gathered, a.shape[0],
+                                 self.cfg.max_spots_per_head, Ld, HEAD_NAMES)
+        if labels is None:
+            return out
+        losses = self._finish_losses(acc, dev, pdist.world() > 1)
+        return (losses, out) if also_decode else losses
 
 
 def compact_spots(tags: torch.Tensor, scores: torch.Tensor, k: int):

@@ -71,6 +71,14 @@ class PEneoModel(nn.Module):
         them over its dp mesh axis (``parallel/dist.py``)."""
         self.peneo_decoder.data_parallel = enabled
 
+    def set_sequence_parallel(self, index: int, size: int,
+                              group=None) -> None:
+        """Split the pair grid's rows over an sp group (``parallel/
+        seq_parallel.py``): this rank runs rows ``index, index + size, …``
+        and merges the spots over ``group``. The backbone is replicated:
+        every rank of the group runs it on the same batch."""
+        self.peneo_decoder.set_sequence_parallel(index, size, group)
+
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
         """Cast to the compute dtype (the backbone keeps its embeddings, the
         rel-bias families their bucket tables, the int8 layers their weights,

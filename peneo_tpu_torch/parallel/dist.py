@@ -23,12 +23,21 @@ axis under GSPMD there), of ``peneo_tpu/pipeline/evaluation.py:83-118``
   fills its own row of a zero buffer) or ``all_gather_object``: gloo has no
   gather of CUDA tensors.
 - :func:`gather_rows` is the eval metric's ``gather_fn``.
+- :func:`grid` lays the ranks out as a ``(dp, sp)`` grid, sp varying
+  fastest (``rank = d·sp + s``: the JAX mesh's ``reshape(dp, tp, sp)`` order,
+  ``peneo_tpu/parallel/mesh.py:31-44``, at tp = 1). The sp ranks of one dp
+  index run the same rows of the batch through a replicated backbone and
+  split the pair grid's rows (``parallel/seq_parallel.py``); their shares of
+  each loss are disjoint, so the losses are still reduced over the whole
+  world. :func:`sp_gather` gathers small tensors (the top-k spot
+  candidates) over the sp group.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
@@ -137,6 +146,147 @@ def init_distributed(device=None, coordinator_address: Optional[str] = None,
     return dev
 
 
+@dataclass(frozen=True)
+class ProcessGrid:
+    """The ranks as a ``(dp, sp)`` grid; ``sp_group`` and ``dp_group`` are
+    this rank's row and column of it (built for sp > 1 only; None for
+    sp = 1, where the row is the rank and the column the default group)."""
+
+    dp: int = 1
+    sp: int = 1
+    sp_group: Optional[object] = None
+    dp_group: Optional[object] = None
+
+
+_grid = ProcessGrid()  # the layout of the default group, set by grid()
+
+
+def grid(dp: Optional[int] = None, sp: int = 1) -> ProcessGrid:
+    """Lay the default group's ranks out as ``dp × sp`` (``dp`` None: world
+    // sp) and, for sp > 1, build the group of each row and column (every
+    rank calls ``new_group`` for every group, in one order). A call with
+    the current sizes returns the current grid. Without a process group
+    only 1 × 1 exists."""
+    global _grid
+    n = world()
+    if sp < 1 or (dp is not None and dp < 1):
+        raise ValueError(f"--dp {dp} --sp {sp}: sizes must be positive")
+    dp = n // sp if dp is None else dp
+    if dp * sp != n:
+        raise ValueError(
+            f"--dp {dp} × --sp {sp} must equal the number of processes, {n} "
+            "(one rank each); launch dp·sp processes: torchrun "
+            "--nproc_per_node N ... --distributed, or --coordinator_address "
+            "host:port --num_processes N --process_id i")
+    if (_grid.dp, _grid.sp) == (dp, sp):
+        return _grid
+    d, s = divmod(rank(), sp)
+    sp_group = dp_group = None
+    if sp > 1:  # with sp = 1 the rows are the ranks and the column is all
+        for row in range(dp):
+            group = dist.new_group([row * sp + j for j in range(sp)])
+            if row == d:
+                sp_group = group
+        for col in range(sp):
+            group = dist.new_group([i * sp + col for i in range(dp)])
+            if col == s:
+                dp_group = group
+    _grid = ProcessGrid(dp, sp, sp_group, dp_group)
+    return _grid
+
+
+def dp_index() -> int:
+    """This rank's row of the grid: its share of every batch."""
+    return rank() // _grid.sp
+
+
+def dp_size() -> int:
+    return world() // _grid.sp
+
+
+def sp_index() -> int:
+    """This rank's column of the grid: its rows of the pair grid."""
+    return rank() % _grid.sp
+
+
+def sp_size() -> int:
+    return _grid.sp
+
+
+def sp_group():
+    return _grid.sp_group
+
+
+def dp_group():
+    return _grid.dp_group
+
+
+def shutdown() -> None:
+    """Leave the process group (and forget the grid)."""
+    global _grid
+    _grid = ProcessGrid()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def sp_gather(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` of every rank of this rank's sp group, stacked in sp order
+    (a new leading axis of size sp). NCCL: ``all_gather_into_tensor``; gloo,
+    which has no gather of CUDA tensors: an all-reduce of a zero buffer in
+    which each rank fills its own row (exact: x + 0 = x)."""
+    n = _grid.sp
+    if n == 1:
+        return tensor[None]
+    group = _grid.sp_group
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((n * tensor.numel(),), dtype=tensor.dtype,
+                          device=tensor.device)
+        dist.all_gather_into_tensor(out, tensor.contiguous().reshape(-1),
+                                    group=group)
+        return out.view(n, *tensor.shape)
+    out = torch.zeros((n, *tensor.shape), dtype=tensor.dtype,
+                      device=tensor.device)
+    out[sp_index()] = tensor
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _SpMeanGrad(torch.autograd.Function):
+    """The identity, whose backward replaces each gradient by its mean over
+    the sp group (one fp32 ``all_reduce`` of all of them)."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.float().reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=_grid.sp_group)
+        flat /= _grid.sp
+        out, offset = [], 0
+        for g in grads:
+            out.append(flat[offset:offset + g.numel()].view_as(g).to(g.dtype))
+            offset += g.numel()
+        return tuple(out)
+
+
+def sp_mean_grad(*tensors):
+    """``tensors`` unchanged; in the backward their gradients are averaged
+    over the sp group. The decoder applies it to the combine features that
+    every sp rank computes alike (``peneo_tpu/parallel/seq_parallel.py``:
+    the transpose of the replicated input is a psum over sp), so the
+    backbone's backward runs once, on the summed gradient of all the
+    shares, on every rank: the same numbers as one process, where
+    separate backward passes per share would round each in bf16. Each rank
+    back-propagates ``world ×`` its share (:func:`global_losses`): the mean
+    over sp leaves ``dp ×`` its dp index's, and DDP's mean over the world
+    makes that the global gradient."""
+    if _grid.sp == 1 or not torch.is_grad_enabled():
+        return tensors
+    return _SpMeanGrad.apply(*tensors)
+
+
 def barrier() -> None:
     if world() > 1:
         dist.barrier()
@@ -186,6 +336,33 @@ def _rank_share(best: torch.Tensor, every: torch.Tensor,
     return torch.where(keep & torch.isfinite(best), best, float("-inf"))
 
 
+def _merged_state(state, counts, every, me):
+    """This rank's merged OHEM state from the summed ``counts`` (one per
+    group) and ``every`` rank's ``best`` buffers (one row each, per top-k
+    group)."""
+    merged = {}
+    for i, key in enumerate(("pos", "neg")):
+        g = state[key]
+        count = counts[i]
+        if "sum" in g:
+            merged[key] = {"sum": g["sum"], "count": count}
+        else:
+            merged[key] = {"best": _rank_share(g["best"], every[key], me),
+                           "count": count}
+    return merged
+
+
+def ohem_merge_states(states, me: int):
+    """Rank ``me``'s merged state from every rank's OHEM ``states`` (in
+    rank order) held in one process: what :func:`ohem_stream_merge` computes
+    after its all-reduce."""
+    counts = [sum(st[key]["count"] for st in states) for key in ("pos",
+                                                                 "neg")]
+    every = {key: torch.stack([st[key]["best"].detach() for st in states])
+             for key in ("pos", "neg") if "best" in states[me][key]}
+    return _merged_state(states[me], counts, every, me)
+
+
 def ohem_stream_merge(state):
     """Merge one head's streaming OHEM state (``ops/losses.py``) across the
     ranks, as ``peneo_tpu/ops/losses.py:167-182`` does across a mesh axis:
@@ -212,19 +389,14 @@ def ohem_stream_merge(state):
     counts = torch.stack([state[k]["count"] for k in keys]).double()
     packed = torch.cat([counts] + [b.reshape(-1) for b in rows])
     dist.all_reduce(packed)
-    merged, offset = {}, len(keys)
-    for i, key in enumerate(keys):
-        g = state[key]
-        count = packed[i].round().to(torch.int64)
-        if "sum" in g:
-            merged[key] = {"sum": g["sum"], "count": count}
-            continue
-        k = g["best"].numel()
-        every = packed[offset:offset + n * k].view(n, k).float()
-        offset += n * k
-        merged[key] = {"best": _rank_share(g["best"], every, me),
-                       "count": count}
-    return merged
+    every, offset = {}, len(keys)
+    for key in keys:
+        if "best" in state[key]:
+            k = state[key]["best"].numel()
+            every[key] = packed[offset:offset + n * k].view(n, k).float()
+            offset += n * k
+    counts = packed[:len(keys)].round().to(torch.int64)
+    return _merged_state(state, counts, every, me)
 
 
 def global_losses(partials: torch.Tensor) -> torch.Tensor:

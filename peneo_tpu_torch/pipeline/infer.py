@@ -23,6 +23,14 @@ API; ``run(visualize_dir=…)`` also draws each page's predictions.
 
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
 GPU and no explicit device it raises.
+
+In a process group of ``dp × sp`` ranks (``InferenceService(dp=, sp=)``;
+``peneo_tpu/pipeline/infer.py:186-202,242-270``) each dp index serves every
+dp-th page of the directory; its sp ranks preprocess the same pages, run the
+same batches through the backbone, split the pair grid's rows
+(``parallel/seq_parallel.py``) and merge the spots, and only sp rank 0
+decodes. :meth:`InferenceService.run` then gathers every dp index's records
+and returns them all, on every rank, in the order one process returns them.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 from ..config import PEneoConfig
 from ..models.decoder import pack_spots
 from ..models.peneo import PEneoModel
+from ..parallel import dist as pdist
 from ..registry import get_backbone_info
 from . import decode as dec
 from .preprocess import PagePreprocessor
@@ -137,12 +146,29 @@ class InferenceService:
         int8_backbone: bool = False,
         bucket_lengths=None,
         device=None,
+        dp: int = 1,
+        sp: int = 1,
     ) -> None:
         """``int8_pair_head`` None (auto) is off, as the JAX service's auto
         is off any backend but a TPU; True or ``int8_backbone`` set the
         config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
-        that sets them serves int8 already)."""
-        self.device = resolve_device(device)
+        that sets them serves int8 already). ``dp × sp`` > 1 needs a
+        process group of that many ranks (``parallel/dist.py``
+        ``init_distributed``); each rank then runs on its own device."""
+        self.dp, self.sp = dp, sp
+        if dp * sp > 1:
+            if pdist.world() != dp * sp:
+                raise ValueError(
+                    f"dp {dp} × sp {sp} serving needs a process group of "
+                    f"{dp * sp} ranks, not {pdist.world()}: torchrun "
+                    f"--nproc_per_node {dp * sp} -m peneo_tpu_torch.serve "
+                    f"--distributed --dp {dp} --sp {sp} ..., or one "
+                    f"command per rank with --coordinator_address host:port "
+                    f"--num_processes {dp * sp} --process_id i")
+            pdist.grid(dp, sp)
+            self.device = pdist.rank_device(device)
+        else:
+            self.device = resolve_device(device)
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[dtype]
@@ -195,6 +221,12 @@ class InferenceService:
 
         model = PEneoModel(self.cfg)
         load_weights(model, model_name_or_path)
+        if sp > 1:
+            if self.cfg.max_spots_per_head <= 0:
+                raise ValueError("sp serving returns compact spots: "
+                                 "max_spots_per_head must be > 0")
+            model.set_sequence_parallel(pdist.sp_index(), sp,
+                                        pdist.sp_group())
         self.model = model.cast(self.dtype).to(self.device).eval()
         if self.device.type == "cuda":
             # build the family's kernel now: fail at construction, not mid-run
@@ -326,10 +358,15 @@ class InferenceService:
         per-page decode runs on its own pool so it never blocks the next
         dispatch. Afterwards ``self.last_run`` holds the page count, the
         wall time, the pages and time after the first batch's fetch (the
-        warm rate), and the time the preprocessing pool took to start."""
+        warm rate), and the time the preprocessing pool took to start.
+
+        With ``dp × sp`` > 1 every rank of the process group calls it: the
+        dp indices serve every dp-th page each, and the records of all of
+        them come back on every rank (``last_run`` counts this rank's)."""
         image_paths = sorted(
             os.path.join(image_dir, f) for f in os.listdir(image_dir)) \
             if os.path.isdir(image_dir) else [image_dir]
+        all_paths = image_paths
         if ocr_dir is None:
             ocr_paths = [None] * len(image_paths)  # apply_ocr: tesseract
         elif os.path.isdir(ocr_dir):
@@ -355,6 +392,11 @@ class InferenceService:
         else:
             raise ValueError("a directory of images needs a directory of "
                              "OCR JSONs")
+        if self.dp > 1:  # this dp index's pages
+            image_paths = image_paths[pdist.dp_index()::self.dp]
+            ocr_paths = ocr_paths[pdist.dp_index()::self.dp]
+        # the sp ranks of a dp index run its batches; sp rank 0 decodes
+        decodes = pdist.sp_index() == 0
 
         results = {}
         pending = []  # (basename, future) in input order
@@ -386,6 +428,9 @@ class InferenceService:
             def collect():
                 nonlocal t_first_fetch, n_first
                 out_dev, pages, paths, t0 = inflight.popleft()
+                if not decodes:
+                    t_first_fetch = t_first_fetch or time.perf_counter()
+                    return
                 out = self._fetch(out_dev)
                 now = time.perf_counter()
                 if t_first_fetch is None:
@@ -429,6 +474,12 @@ class InferenceService:
                 collect()
             for name, fut in pending:
                 results[name] = fut.result()
+        if self.dp * self.sp > 1:  # every dp index's records, in page order
+            merged = {}
+            for part in pdist.gather_objects(results):
+                merged.update(part)
+            results = {os.path.basename(p): merged[os.path.basename(p)]
+                       for p in all_paths}
         t_end = time.perf_counter()
         self.last_run = {
             "pages": len(image_paths),

@@ -27,7 +27,9 @@ class DataFeed:
     ``[rank·b, (rank+1)·b)`` of each global batch, as a JAX process feeds
     its addressable shard (``peneo_tpu/pipeline/trainer.py:236-237``). The
     feed position (epoch, batches consumed) counts global batches, the same
-    on every rank."""
+    on every rank. Under sequence parallelism ``rank`` and ``world`` are
+    the dp index and the dp size: the sp ranks of one dp index take the
+    same rows, in the same order."""
 
     def __init__(
         self,

@@ -40,9 +40,18 @@ checkpoint, which holds every rank's RNG states. Evaluation splits each
 global batch over the ranks, gathers the metric rows and dedups them by file
 name, so every rank returns the same metrics. Saving needs one
 ``output_dir`` on every rank (a shared filesystem), checked at start
-(``PENEO_ALLOW_DIVERGENT_OUTPUT_DIR=1`` on every rank waives it). Not ported
-(``ROADMAP.md`` §1): ``steps_per_call`` > 1 in a process group, fsdp, tp
-and sp.
+(``PENEO_ALLOW_DIVERGENT_OUTPUT_DIR=1`` on every rank waives it).
+
+Sequence parallelism (``sp`` > 1; ``peneo_tpu/pipeline/trainer.py:182-206,
+572-579``): the ranks form a ``dp × sp`` grid (``parallel/dist.py``
+``grid``); the sp ranks of one dp index collate the same rows, run the same
+backbone forward (seeds offset by the dp index, so their dropout is alike)
+and split the pair grid's rows (``parallel/seq_parallel.py``). DDP runs over
+the whole world and the losses are reduced over it. Eval runs spots and
+losses in one pass; the metric rows come from each dp index's sp rank 0
+(the other sp ranks hold the same records and decode nothing). Not ported
+(``ROADMAP.md`` §1): ``steps_per_call`` > 1 in a process group, fsdp and
+tp.
 """
 
 from __future__ import annotations
@@ -104,6 +113,9 @@ class TrainingArguments:
     # K optimizer steps per call (one CUDA graph replay of the K steps on
     # the card); max_steps rounds up to a multiple of K
     steps_per_call: int = 1
+    # sequence-parallel ranks: the pair grid's rows split over sp ranks of
+    # a process group of dp × sp ranks
+    sp: int = 1
 
 
 class PEneoTrainer:
@@ -118,8 +130,19 @@ class PEneoTrainer:
         self.distributed = pdist.initialized()
         if self.distributed and args.steps_per_call > 1:
             raise NotImplementedError(
-                "steps_per_call > 1 under data parallelism (a CUDA graph "
-                "around DDP's all-reduce) is not ported yet: ROADMAP.md §1")
+                "steps_per_call > 1 in a process group (data or sequence "
+                "parallel: a CUDA graph around the collectives) is not "
+                "ported yet: ROADMAP.md §1")
+        if args.sp > 1 and not self.distributed:
+            raise ValueError(
+                f"sp {args.sp} needs a process group of dp × sp ranks: "
+                "torchrun --nproc_per_node N -m peneo_tpu_torch.run_rfund "
+                f"--distributed --sp {args.sp} ..., or --coordinator_address "
+                "host:port --num_processes N --process_id i")
+        if self.distributed:
+            pdist.grid(sp=args.sp)
+        # this rank's share of every batch, and the number of shares
+        self.dp_rank, self.dp = pdist.dp_index(), pdist.dp_size()
         self.device = (pdist.rank_device(args.device) if self.distributed
                        else resolve_device(args.device))
         if cfg.dtype not in DTYPES:
@@ -151,10 +174,10 @@ class PEneoTrainer:
         # hidden dropout draws from the device's default generator; each
         # layer's attention-dropout seed from this one in an eager step (a
         # CUDA graph of K steps computes them on the card: StepSeeds); a
-        # rank draws its own masks
-        torch.manual_seed(args.seed + self.rank * RANK_STRIDE)
+        # dp index draws its own masks, its sp ranks the same ones
+        torch.manual_seed(args.seed + self.dp_rank * RANK_STRIDE)
         self.generator = torch.Generator().manual_seed(args.seed)
-        self.seeds = HostSeeds(self.generator, self.rank)
+        self.seeds = HostSeeds(self.generator, self.dp_rank)
         self.optimizer, self.scheduler = T.make_optimizer(
             self.model, lr=args.learning_rate, total_steps=args.max_steps,
             warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
@@ -167,6 +190,9 @@ class PEneoTrainer:
             from torch.nn.parallel import DistributedDataParallel
 
             self.model.set_data_parallel(self.world > 1)
+            if args.sp > 1:
+                self.model.set_sequence_parallel(
+                    pdist.sp_index(), args.sp, pdist.sp_group())
             cards = [self.device.index] if self.device.type == "cuda" \
                 else None
             self.step_model = DistributedDataParallel(self.model,
@@ -253,8 +279,8 @@ class PEneoTrainer:
         args = self.args
         feed = DataFeed(self.train_dataset, self.collator,
                         batch_size=args.per_device_train_batch_size,
-                        shuffle=True, seed=args.seed, rank=self.rank,
-                        world=self.world)
+                        shuffle=True, seed=args.seed, rank=self.dp_rank,
+                        world=self.dp)
         # the feed position (epoch, batches consumed this epoch) travels in
         # every checkpoint: resume continues on the next unconsumed batch
         pos = {"epoch": 0, "batch": 0}
@@ -339,7 +365,7 @@ class PEneoTrainer:
                         step_fn.per_step["total"])).sum()
                 prev = self.step
                 self.step += k
-                seen += n * self.world
+                seen += n * self.dp
 
                 def crossed(every):
                     return every and (self.step // every) > (prev // every)
@@ -390,14 +416,17 @@ class PEneoTrainer:
     # ------------------------------------------------------------------- eval
     def evaluate(self, score_thresh: float = 0.0) -> Dict[str, float]:
         """KVPE metrics and the mean losses over the eval set. Under data
-        parallelism each global batch (``per_device_eval_batch_size ×
-        world``, the ragged last one edge-padded) is split over the ranks;
-        a rank decodes its real rows, the metric rows are gathered and
-        deduped by file name, and every rank returns the same metrics."""
+        parallelism each global batch (``per_device_eval_batch_size × dp``,
+        the ragged last one edge-padded) is split over the dp indices; a
+        rank decodes its real rows, the metric rows are gathered and deduped
+        by file name, and every rank returns the same metrics. Under
+        sequence parallelism only sp rank 0 of each dp index decodes and
+        sends metric rows (its sp ranks hold the same spots)."""
         args = self.args
         per_rank = args.per_device_eval_batch_size
-        full = per_rank * self.world
-        mine = slice(self.rank * per_rank, (self.rank + 1) * per_rank)
+        full = per_rank * self.dp
+        mine = slice(self.dp_rank * per_rank, (self.dp_rank + 1) * per_rank)
+        decodes = pdist.sp_index() == 0
         feed = DataFeed(self.eval_dataset, self.collator, batch_size=full,
                         shuffle=False, drop_last=False)
         all_pred, all_gt, all_fname = [], [], []
@@ -419,6 +448,8 @@ class PEneoTrainer:
                 for k, v in losses.items():
                     loss_sums[k] = loss_sums.get(k, 0.0) + float(v) * bsz
                 loss_weight += bsz
+            if not decodes:
+                return
             if isinstance(packed, tuple):
                 out = dec.unpack_spots(*(x.cpu().numpy() for x in packed))
             else:  # dense maps (max_spots_per_head = 0)
@@ -450,7 +481,7 @@ class PEneoTrainer:
                 row_mask = np.zeros((full,), np.float32)
                 row_mask[:bsz] = 1.0
                 arrays["row_mask"] = row_mask
-                if self.world > 1:
+                if self.dp > 1:
                     arrays = tree_map(lambda x: x[mine], arrays)
                 dev_batch = batch_to_device(arrays, self.device)
                 with_loss = bool(batch.labels)

@@ -42,11 +42,17 @@ or the JAX trainer's launch, one command per process: ``--coordinator_address
 host:port --num_processes N --process_id i``. Each rank takes its card
 (``cuda:{local_rank}``; NCCL), or shares one with other ranks (gloo), or runs
 on the CPU with ``--device cpu`` (gloo); ``--dist_backend`` forces one.
-Batch sizes are per rank; the losses are the global batch's. ``--tp``,
-``--sp`` and ``--fsdp`` are accepted and refused unless 1 / off
-(``ROADMAP.md`` §1), as is ``--steps_per_call`` > 1 in a process group.
-Left out (one attention path, one backend): ``--platform`` and the
-``--fused_*`` flags.
+Batch sizes are per dp index; the losses are the global batch's.
+
+Sequence parallelism (``parallel/seq_parallel.py``), the JAX flags'
+meaning (``start/run_rfund.py:63-68``): ``--sp M`` splits the pair grid's
+rows over M ranks that share one slice of each batch, ``--dp`` (default:
+the number of processes // M) slices the batch; dp × sp processes, one rank
+each, e.g. ``torchrun --nproc_per_node 4 -m peneo_tpu_torch.run_rfund
+--distributed --dp 2 --sp 2 ...``. ``--tp`` and ``--fsdp`` are accepted
+and refused unless 1 / off (``ROADMAP.md`` §1), as is ``--steps_per_call``
+> 1 in a process group. Left out (one attention path, one backend):
+``--platform`` and the ``--fused_*`` flags.
 """
 
 from __future__ import annotations
@@ -108,12 +114,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "to a multiple of K")
     # parallelism (the JAX trainer's mesh and multi-process flags)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel ranks; default (and the only value "
-                        "taken): the number of processes")
+                   help="data-parallel ranks (slices of each batch); "
+                        "default: the number of processes // --sp")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor parallelism: not ported (1 only)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel chips: not ported (1 only)")
+                   help="sequence-parallel ranks: the pair grid's rows "
+                        "split over them (dp x sp processes)")
     p.add_argument("--fsdp", action="store_true",
                    help="shard params + optimizer state over dp: not "
                         "ported")
@@ -293,23 +300,24 @@ def training_arguments(args):
         metric_for_best_model=args.metric_for_best_model, seed=args.seed,
         detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
         start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
-        device=args.device, steps_per_call=args.steps_per_call)
+        device=args.device, steps_per_call=args.steps_per_call, sp=args.sp)
 
 
 def check_parallel_flags(args) -> None:
     """Refuse the mesh flags that are not ported, before anything starts."""
-    for flag, value, off in (("--tp", args.tp, 1), ("--sp", args.sp, 1),
+    for flag, value, off in (("--tp", args.tp, 1),
                              ("--fsdp", args.fsdp, False)):
         if value != off:
             raise NotImplementedError(
-                f"{flag} {value}: tensor, sequence and fully sharded "
-                "parallelism are not ported yet (PR 10, ROADMAP.md §1); "
-                "data parallelism is --distributed / --dp")
+                f"{flag} {value}: tensor and fully sharded parallelism are "
+                "not ported yet (ROADMAP.md §1); data and sequence "
+                "parallelism are --distributed with --dp / --sp")
 
 
 def init_parallel(args) -> bool:
-    """Join the process group the flags describe (if any) and check
-    ``--dp`` against it; True when this call started the group."""
+    """Join the process group the flags describe (if any) and lay its ranks
+    out as ``--dp × --sp`` (which must equal its size); True when this call
+    started the group."""
     from .parallel import dist as pdist
 
     started = False
@@ -319,9 +327,12 @@ def init_parallel(args) -> bool:
                                args.num_processes, args.process_id,
                                backend=args.dist_backend)
         started = True
-    if args.dp is not None and args.dp != pdist.world():
-        raise ValueError(f"--dp {args.dp} must equal the number of "
-                         f"processes, {pdist.world()} (one rank each)")
+    try:
+        pdist.grid(args.dp, args.sp)
+    except ValueError:
+        if started:
+            pdist.shutdown()
+        raise
     return started
 
 
@@ -335,7 +346,7 @@ def main(argv=None, dataset_cls_name: str = "rfund"):
         if started:
             from .parallel import dist as pdist
 
-            pdist.dist.destroy_process_group()
+            pdist.shutdown()
 
 
 def run(args, dataset_cls_name: str = "rfund"):

@@ -10,9 +10,21 @@ The model directory holds ``config.json``, the weights — ``params.msgpack``
 ``pytorch_model.bin`` (reference torch key names), read in that order — and
 the tokenizer files. ``--apply_ocr`` reads each page with tesseract instead
 of OCR JSON (needs pytesseract and the tesseract binary). Runs on the GPU
-unless ``--device cpu`` is given. Left out of ``deploy/inference.py``'s
-flags: the multi-device ``--dp/--tp/--sp`` and the ``--*fused*`` switches
-(the port's attention is always its CUDA kernels on the card).
+unless ``--device cpu`` is given.
+
+Across processes, ``--dp N --sp M`` (``deploy/inference.py:39-45``): N × M
+ranks, one process each; each dp index serves every N-th page, its M sp
+ranks split each page's pair grid by rows, and rank 0 writes the one JSON:
+
+    torchrun --nproc_per_node 4 -m peneo_tpu_torch.serve --distributed \
+        --dp 2 --sp 2 --model_name_or_path M --dir_image I --dir_ocr O
+
+or one command per rank with ``--coordinator_address host:port
+--num_processes 4 --process_id i`` in place of ``--distributed``. Each rank
+takes its card (NCCL), or ranks share one (gloo). ``--tp`` is refused
+(``ROADMAP.md`` §1). Left out of ``deploy/inference.py``'s flags: the
+``--*fused*`` switches (the port's attention is always its CUDA kernels on
+the card).
 """
 
 from __future__ import annotations
@@ -68,12 +80,62 @@ def main(argv=None):
                         "max_seq_len is always the overflow bucket")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' to run there)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks (each serves every dp-th "
+                        "page); default: the number of processes // --sp")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (each page's pair grid "
+                        "split by rows over them)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: not ported (1 only)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per rank, torch.distributed from "
+                        "torchrun's environment")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 (for launches without "
+                        "torchrun)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default="auto",
+                   choices=["auto", "nccl", "gloo"],
+                   help="process-group backend: auto = NCCL when every "
+                        "rank has a card of its own, else gloo")
     args = p.parse_args(argv)
     if not args.apply_ocr and args.dir_ocr is None:
         p.error("--dir_ocr is required unless --apply_ocr is set")
+    if args.tp != 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: tensor-parallel serving is not ported yet "
+            "(ROADMAP.md §1); --dp / --sp split the pages and the pair grid")
 
+    from .parallel import dist as pdist
+
+    started = False
+    if args.distributed or args.coordinator_address:
+        if not pdist.initialized():
+            pdist.init_distributed(args.device, args.coordinator_address,
+                                   args.num_processes, args.process_id,
+                                   backend=args.dist_backend)
+            started = True
+    elif (args.dp or 1) * args.sp > 1:
+        raise ValueError(
+            f"--dp {args.dp} --sp {args.sp} needs one process per rank: "
+            "torchrun --nproc_per_node N -m peneo_tpu_torch.serve "
+            "--distributed --dp ... --sp ..., or one command per rank with "
+            "--coordinator_address host:port --num_processes N "
+            "--process_id i")
+    try:
+        return _serve(args, pdist)
+    finally:
+        if started:
+            pdist.shutdown()
+
+
+def _serve(args, pdist):
     from .pipeline.infer import InferenceService
 
+    sp = args.sp
+    dp = args.dp if args.dp is not None else max(pdist.world() // sp, 1)
     service = InferenceService(
         args.model_name_or_path,
         max_seq_len=args.max_seq_len,
@@ -85,6 +147,8 @@ def main(argv=None):
         bucket_lengths=[int(b) for b in args.bucket_lengths.split(",")]
         if args.bucket_lengths else None,
         device=args.device,
+        dp=dp,
+        sp=sp,
     )
     results = service.run(args.dir_image,
                           None if args.apply_ocr else args.dir_ocr,
@@ -93,11 +157,13 @@ def main(argv=None):
                           decode_workers=args.decode_workers,
                           preprocess_procs=args.preprocess_procs,
                           inflight_depth=args.inflight_depth)
-    with open(args.dir_save, "w", encoding="utf-8") as f:
-        json.dump(results, f, ensure_ascii=False, indent=1)
     run = service.last_run
-    print(f"[peneo] {run['pages']} pages in {run['seconds']:.3f}s "
-          f"(batch_size={args.batch_size}); wrote {args.dir_save}")
+    if pdist.rank() == 0:
+        with open(args.dir_save, "w", encoding="utf-8") as f:
+            json.dump(results, f, ensure_ascii=False, indent=1)
+        print(f"[peneo] {len(results)} pages in {run['seconds']:.3f}s "
+              f"(batch_size={args.batch_size}, dp={dp}, sp={sp}); wrote "
+              f"{args.dir_save}")
     return results
 
 

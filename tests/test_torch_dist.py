@@ -19,8 +19,9 @@ global batches beside them. Checked:
 4. rank 0's saved directory loads in one process, without ``module.``
    prefixes, and holds the weights both ranks ended with;
 5. a mismatched ``output_dir`` raises on every rank;
-6. ``--tp 2``, ``--sp 2``, ``--fsdp`` and ``steps_per_call`` 2 under a
-   process group raise ``NotImplementedError``.
+6. ``--tp 2``, ``--fsdp``, ``steps_per_call`` 2 under a process group and
+   ``serve --tp 2`` raise ``NotImplementedError`` (``--sp``:
+   tests/test_torch_seq_parallel.py).
 
 And in process: each rank's dropout seeds are offset by ``rank · 1000003``
 and reach kernel #5's (LayoutLMv3) and #2's (LiLT) plain twins; the feed
@@ -325,8 +326,8 @@ def test_steps_per_call_refused_under_dp(refused):
         assert "ROADMAP.md" in r["steps_per_call"]
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--sp", "2"], ["--fsdp"]],
-                         ids=["tp", "sp", "fsdp"])
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--fsdp"]],
+                         ids=["tp", "fsdp"])
 def test_unported_mesh_flags_raise(flags, tmp_path):
     from peneo_tpu_torch import run_rfund
 
@@ -336,6 +337,15 @@ def test_unported_mesh_flags_raise(flags, tmp_path):
     with pytest.raises(ValueError, match="--dp 2"):
         run_rfund.main(["--output_dir", str(tmp_path), "--device", "cpu",
                         "--dp", "2"])
+
+
+def test_serve_tp_raises(tmp_path):
+    from peneo_tpu_torch import serve
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        serve.main(["--model_name_or_path", str(tmp_path), "--dir_image",
+                    str(tmp_path), "--dir_ocr", str(tmp_path), "--device",
+                    "cpu", "--tp", "2"])
 
 
 # in process ----------------------------------------------------------------

@@ -2,7 +2,7 @@
 chip_smoke.py imports jax, flax or peneo_tpu (nor msgpack or safetensors:
 the port reads those files itself), and the package, its models, its
 serving pipeline, its checkpoint readers, its training pipeline and its
-data-parallel module import with those modules blocked."""
+data- and sequence-parallel modules import with those modules blocked."""
 
 import ast
 import os
@@ -60,6 +60,7 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.pipeline.weights_io\n"
         "import peneo_tpu_torch.generate_peneo_weights\n"
         "import peneo_tpu_torch.parallel.dist\n"
+        "import peneo_tpu_torch.parallel.seq_parallel\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
