@@ -27,10 +27,20 @@ the loss covers the upper triangle of the first Ld positions, and
 Under sequence parallelism (:meth:`PEneoDecoder.set_sequence_parallel`) the
 same blocks run over this rank's strided rows only, and the spots are merged
 over the sp group (``parallel/seq_parallel.py``).
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) the shrink MLP
+and the combine stay replicated: each rank computes a row block's pair
+features whole, its columns of each head's ``fc_0`` (SiLU and dropout on
+them) and its share of ``fc_out``'s product; the five heads' partial logits
+are summed over the tp group in one fp32 all-reduce per block and the
+biases added after it, so every tp rank holds the same logits. ``A`` and
+``B`` enter through ``copy_to_tp``: each rank's gradient of them covers its
+``fc_0`` columns only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -44,6 +54,9 @@ from ..ops.losses import (ohem_stream_final, ohem_stream_init,
 from ..ops.quant import QuantLinear, quantize_rows, set_int8
 from ..parallel import dist as pdist
 from ..parallel import seq_parallel as sq
+from ..parallel.tensor_parallel import (COL, NO_TP, compute_dtype,
+                                        copy_to_tp, partial_linear,
+                                        reduce_from_tp)
 
 HEAD_NAMES = (
     "line_extraction",
@@ -160,6 +173,7 @@ class PEneoDecoder(nn.Module):
         # the losses are the global batch's across the process group
         self.data_parallel = False
         self.sp = sq.SpShard()
+        self.tp = NO_TP
 
     def set_sequence_parallel(self, index: int, size: int,
                               group=None) -> None:
@@ -171,23 +185,39 @@ class PEneoDecoder(nn.Module):
             raise ValueError(f"sp index {index} out of [0, {size})")
         self.sp = sq.SpShard(index, size, group)
 
+    def _split_heads(self) -> bool:
+        """Whether the classifiers are split over a tp group (fc_0 by
+        columns, fc_out by rows)."""
+        return getattr(self.line_extraction_fc[0], "split", None) == COL
+
     def pair_block(self, a_blk, b_cols) -> Dict[str, torch.Tensor]:
         """One row block through the five heads: the pair features are
         computed once and shared (with the int8 head, quantized once too);
-        one classifier chain per head."""
+        one classifier chain per head, or under tp each head's partial
+        logits and one reduce of all five."""
         pair = F.silu(a_blk[:, :, None, :] + b_cols[:, None, :, :])
-        if not (self.int8_pair_head and not self.training):
+        quantized = (quantize_rows(pair) if self.int8_pair_head
+                     and not self.training else None)
+        split = self._split_heads()
+        if quantized is None and not split:
             return {name: getattr(self, f"{name}_fc")(pair)
                     for name in HEAD_NAMES}
-        quantized = quantize_rows(pair)
         out = {}
         for name in HEAD_NAMES:
-            first, *rest = getattr(self, f"{name}_fc")
+            first, *body, last = getattr(self, f"{name}_fc")
             x = first(pair, quantized)
-            for layer in rest:
+            for layer in body:
                 x = layer(x)
-            out[name] = x
-        return out
+            out[name] = partial_linear(x, last.weight) if split else last(x)
+        if not split:
+            return out
+        widths = [HEAD_CLASSES[name] for name in HEAD_NAMES]
+        dtype = compute_dtype(pair)
+        logits = reduce_from_tp(torch.cat([out[n] for n in HEAD_NAMES], -1),
+                                self.tp).split(widths, -1)
+        return {name: (lg + getattr(self, f"{name}_fc")[-1].bias.float()
+                       ).to(dtype)
+                for name, lg in zip(HEAD_NAMES, logits)}
 
     def _pair_logits(self, a_blk, b_cols):
         """The five heads' logits of one row block as a tuple, recomputed in
@@ -210,10 +240,41 @@ class PEneoDecoder(nn.Module):
         dtype = self.handshaking_kernel.combine_fc.weight.dtype
         h = self.shrink_projection(sequence_output.to(dtype))
         a, b = self.handshaking_kernel(h)
+        if self._split_heads():
+            a, b = copy_to_tp(a, self.tp), copy_to_tp(b, self.tp)
 
         if self.sp.size > 1:
             return self._sp_forward(a, b, Ld, labels, also_decode,
                                     label_row_mask, return_logits)
+        if self.training and self.tp.size > 1:
+            with self._shard_rng(a.device):
+                return self._grid_forward(a, b, Ld, labels, also_decode,
+                                          label_row_mask, return_logits)
+        return self._grid_forward(a, b, Ld, labels, also_decode,
+                                  label_row_mask, return_logits)
+
+    @contextlib.contextmanager
+    def _shard_rng(self, dev):
+        """The pair head's dropout on a stream of this rank's own per (tp,
+        sp) index, as JAX folds it per shard (``seq_parallel.py:331-337``):
+        its activations are split (tp) or its rows are (sp). The device's
+        generator is left where the other ranks leave theirs, so that their
+        next replicated forwards draw alike."""
+        seed = int(torch.randint(0, 2 ** 62, ()))
+        seed += self.sp.index + self.tp.index * self.sp.size
+        with torch.random.fork_rng(
+                devices=[dev] if dev.type == "cuda" else []):
+            torch.default_generator.manual_seed(seed)
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    torch.cuda.manual_seed(seed)
+            yield
+
+    def _grid_forward(self, a, b, Ld, labels, also_decode, label_row_mask,
+                      return_logits):
+        """The whole pair grid in one process (or one tp cell)."""
+        cfg = self.cfg
+        B = a.shape[0]
         bs = min(cfg.pair_block_size, max(Ld, 8))
         Lp = ((Ld + bs - 1) // bs) * bs
         if Lp != Ld:
@@ -223,7 +284,7 @@ class PEneoDecoder(nn.Module):
             return self._losses(a, b, Ld, Lp, bs, labels, also_decode,
                                 label_row_mask)
 
-        dev = sequence_output.device
+        dev = a.device
         tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
                 for n in HEAD_NAMES}
         scores = {n: torch.zeros((B, Lp, Lp), dtype=torch.float32, device=dev)
@@ -302,7 +363,7 @@ class PEneoDecoder(nn.Module):
             den = torch.stack([torch.as_tensor(acc[n][1], device=device)
                                for n in HEAD_NAMES])
             if reduce:
-                den = pdist.all_sum(den)
+                den = pdist.replica_sum(den)
             parts = torch.stack([torch.as_tensor(acc[n][0], device=device)
                                  for n in HEAD_NAMES]) / den.clamp_min(1e-12)
         if reduce:
@@ -426,13 +487,7 @@ class PEneoDecoder(nn.Module):
         if self.sp.group is not None:
             a, b = pdist.sp_mean_grad(a, b)
         if self.training:
-            seed = int(torch.randint(0, 2 ** 62, ()))
-            with torch.random.fork_rng(
-                    devices=[dev] if dev.type == "cuda" else []):
-                torch.default_generator.manual_seed(seed + self.sp.index)
-                if dev.type == "cuda":
-                    with torch.cuda.device(dev):
-                        torch.cuda.manual_seed(seed + self.sp.index)
+            with self._shard_rng(dev):
                 spots, acc = self.sp_partials(
                     a, b, Ld, self.sp.index, self.sp.size, labels, decode,
                     label_row_mask)

@@ -12,22 +12,23 @@ attention kernels #2 and #5 read such a seed from device memory when they
 run (``ops/biacm_attention.py``, ``ops/bias_attention.py``).
 
 A seed is a pure function of the trainer's seed, the step, the layer and
-the data-parallel index: ``seed · 2³² + step · 64 + layer + dp · 1000003``,
-the Philox key (lo word ``step · 64 + layer + dp · 1000003``, hi word
-``seed``). A resumed run draws the attention masks of an uninterrupted one.
-(The hidden dropout draws from the device's default generator, which a graph
-advances by its own offsets on every replay.)
+the (dp, tp) shard ``d·tp + t``: ``seed · 2³² + step · 64 + layer + shard ·
+1000003``, the Philox key (lo word ``step · 64 + layer + shard · 1000003``,
+hi word ``seed``). A resumed run draws the attention masks of an
+uninterrupted one. (The hidden dropout draws from the device's default
+generator, which a graph advances by its own offsets on every replay.)
 
-Under data parallelism every dp index draws its own masks for its own rows
-of the batch: the seed of each layer is offset by ``dp · 1000003``, as the
-JAX kernels offset it per (dp, tp) shard (``peneo_tpu/ops/
-biacm_attention.py:174-199``, ``bias_attention.py:519-543``), for the
-host-drawn seeds (:class:`HostSeeds`) and the device-resident ones
-(:class:`StepSeeds`) alike. The offset is the dp index, not the rank: the sp
-ranks of one dp index run one replicated backbone forward on the same rows,
-and must draw the same masks for the sum of their gradients to be the
-gradient of that one forward. The trainer seeds the default generator by the
-dp index for the same reason.
+Every (dp, tp) shard draws its own attention masks: a dp index for its own
+rows of the batch, a tp index for its own heads. The seed of each layer is
+offset by ``(d·tp + t) · 1000003``, as the JAX kernels offset it per (dp,
+tp) shard (``peneo_tpu/ops/biacm_attention.py:174-199``,
+``bias_attention.py:519-543``), for the host-drawn seeds (:class:`HostSeeds`)
+and the device-resident ones (:class:`StepSeeds`) alike. The sp ranks of one
+shard share it: they run one backbone forward on the same rows, and must
+draw the same masks for the sum of their gradients to be the gradient of
+that one forward. The hidden dropout acts on activations every tp rank holds
+whole, so the trainer seeds the default generator by the dp index alone,
+and the tp ranks of a dp index draw the same hidden masks.
 """
 
 from __future__ import annotations
@@ -37,19 +38,19 @@ from typing import Optional, Union
 import torch
 
 LAYERS_PER_STEP = 64  # room for this many layers in a step's key range
-RANK_STRIDE = 1000003  # a dp index's seed offset (the JAX shards')
+RANK_STRIDE = 1000003  # a (dp, tp) shard's seed offset (the JAX shards')
 
 
 class StepSeeds:
     """The layer seeds of the step that ``step`` (an int64 device tensor,
     the optimizer's step counter) counts, under the trainer's ``seed``, at
-    data-parallel index ``dp_index``."""
+    (dp, tp) shard ``shard`` = d·tp + t."""
 
     def __init__(self, seed: int, step: torch.Tensor,
-                 dp_index: int = 0) -> None:
+                 shard: int = 0) -> None:
         if not 0 <= seed < 2 ** 31:
             raise ValueError(f"seed must lie in [0, 2^31), got {seed}")
-        self.base = (seed << 32) + dp_index * RANK_STRIDE
+        self.base = (seed << 32) + shard * RANK_STRIDE
         self.step = step
 
     def layer(self, index: int) -> torch.Tensor:
@@ -60,14 +61,14 @@ class StepSeeds:
 
 
 class HostSeeds:
-    """Seeds drawn on the host from the CPU ``generator``, offset for
-    data-parallel index ``dp_index``: each rank draws the same numbers and
-    adds its dp index's offset."""
+    """Seeds drawn on the host from the CPU ``generator``, offset for (dp,
+    tp) shard ``shard`` = d·tp + t: each rank draws the same numbers and
+    adds its shard's offset."""
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dp_index: int = 0) -> None:
+                 shard: int = 0) -> None:
         self.generator = generator
-        self.offset = dp_index * RANK_STRIDE
+        self.offset = shard * RANK_STRIDE
 
     def layer(self, index: int) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (),

@@ -41,6 +41,14 @@ are a plain ``arange``.
 
 The embedding sums and their LayerNorms run in fp32 and only the outputs
 are cast to the compute dtype (:meth:`LayoutLMv2Model.cast`).
+
+Under tensor parallelism a rank runs ``nh / tp`` heads, as LayoutLMv3's
+layers do. The fused ``qkv_linear`` with ``q_bias``/``v_bias`` matches no
+split rule (JAX ``layoutlmv2.py:214``) and stays replicated: a rank takes
+the rows of its heads of the q, k and v thirds (its product equals those
+columns of the whole one) through ``copy_to_tp``, so that the gradients of
+the replicated weight and biases are summed over the group. The tower is
+replicated.
 """
 
 from __future__ import annotations
@@ -54,9 +62,10 @@ from torch import nn
 
 from ..config import LayoutLMv2Config
 from ..ops.quant import QuantLinear
+from ..parallel.tensor_parallel import copy_to_tp
 from .layoutlmv3 import LayoutLMv3Encoder, RelBiasBackbone, \
     RelBiasSelfAttention
-from .lilt import init_module_weights, key_mask_bias
+from .lilt import init_module_weights, key_mask_bias, word_lookup
 
 BN_EPS = 1e-5  # detectron2's FrozenBatchNorm2d
 # norm.weight of each residual branch's last conv at random init: the
@@ -263,9 +272,20 @@ class LayoutLMv2SelfAttention(RelBiasSelfAttention):
     def project(self, x):
         if not self.fast_qkv:
             return self.query(x), self.key(x), self.value(x)
+        q_bias, v_bias = self.q_bias, self.v_bias
+        if self.tp.size == 1:
+            qkv = self.qkv_linear(x)
+        else:  # this rank's heads' rows of each third
+            w = copy_to_tp(self.qkv_linear.weight, self.tp)
+            H = w.shape[1]
+            cols = self.tp.part(H)
+            qkv = self.qkv_linear.linear(
+                x, w.view(3, H, H)[:, cols].reshape(-1, H))
+            q_bias = copy_to_tp(q_bias, self.tp)[..., cols]
+            v_bias = copy_to_tp(v_bias, self.tp)[..., cols]
         # k is a strided view of the (B, L, 3H) product: the kernels read it
-        q, k, v = self.qkv_linear(x).chunk(3, dim=-1)
-        return q + self.q_bias.to(q.dtype), k, v + self.v_bias.to(v.dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        return q + q_bias.to(q.dtype), k, v + v_bias.to(v.dtype)
 
 
 # ---------------------------------------------------------------------- model
@@ -365,8 +385,9 @@ class LayoutLMv2Model(RelBiasBackbone):
 
         text_pos = self._static_tensor(
             ("arange", L), lambda: np.arange(L, dtype=np.int64), dev)
-        text = (emb.word_embeddings(input_ids) + emb.position_embeddings(
-            text_pos) + emb.spatial(bbox) + emb.token_type_embeddings.weight[0])
+        text = (word_lookup(emb.word_embeddings, input_ids)
+                + emb.position_embeddings(text_pos) + emb.spatial(bbox)
+                + emb.token_type_embeddings.weight[0])
         text = F.dropout(emb.LayerNorm(text.float()).to(dtype), drop,
                          self.training)
 

@@ -44,6 +44,12 @@ to the compute dtype (:meth:`LayoutLMv3Model.cast`).
 :class:`RelBiasSelfAttention` (the attention) and :class:`RelBiasBackbone`
 (the bias build, the layer loop, the shape-only tensor cache) are shared
 with LayoutLMv2 (``models/layoutlmv2.py``), whose bias is not divided by √d.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) a rank runs
+``nh / tp`` heads: the attention and the MLP split as LiLT's do, and the
+bias build gathers only this rank's head rows of the (B, nh, L', L') bias
+from the replicated bucket tables, which enter through ``copy_to_tp``: each
+rank's table gradient covers its heads, and their sum is the gradient.
 """
 
 from __future__ import annotations
@@ -64,9 +70,11 @@ from ..ops.bias_attention import (bias_attention, bias_attention_reference,
                                   bias_attention_train,
                                   bias_attention_train_reference)
 from ..ops.quant import QuantLinear
+from ..parallel.tensor_parallel import NO_TP, copy_to_tp
 from .dropout_seeds import layer_seed
 from .lilt import (ATTENTION_IMPLS, Intermediate, ResidualOutput,
-                   init_module_weights, key_mask_bias, make_position_ids)
+                   init_module_weights, key_mask_bias, make_position_ids,
+                   word_lookup)
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,7 +230,7 @@ class LayoutLMv3Embeddings(nn.Module):
                 (bbox[:, :, 2] - bbox[:, :, 0]).clamp(0, 1023)),
         ], dim=-1)
         # token_type_ids are always zeros in the PEneo pipeline
-        out = (self.word_embeddings(input_ids)
+        out = (word_lookup(self.word_embeddings, input_ids)
                + self.token_type_embeddings.weight[0]
                + self.position_embeddings(
                    make_position_ids(input_ids, self.pad_token_id))
@@ -248,7 +256,10 @@ class RelBiasSelfAttention(nn.Module):
     """Self-attention on a precomputed relative bias, shared by the
     LayoutLMv3 and LayoutLMv2 layers: ``softmax(q·kᵀ/√d + rel_bias +
     key_mask)·v`` through the rel-bias kernels. A subclass makes q, k and v
-    (:meth:`project`, each (B, L, H))."""
+    (:meth:`project`, each (B, L, H), or (B, L, H / tp) of this rank's heads
+    under tp)."""
+
+    tp = NO_TP
 
     def __init__(self, cfg):
         super().__init__()
@@ -263,24 +274,25 @@ class RelBiasSelfAttention(nn.Module):
     def forward(self, x, mask, rel_bias, seed: int = 0):
         """``seed`` keys the attention-dropout mask of a training step."""
         B, L, _ = x.shape
+        nh = self.nh // self.tp.size
         # (B, L, nh, d) projections viewed as (B, nh, L, d): no copy, the
         # kernels read them through strides
-        qkv = [t.view(B, L, self.nh, self.dh).transpose(1, 2)
-               for t in self.project(x)]
+        qkv = [t.view(B, L, nh, self.dh).transpose(1, 2)
+               for t in self.project(copy_to_tp(x, self.tp))]
         scale = 1.0 / math.sqrt(self.dh)
         plain = self.attention_impl == "plain"
         if not self.training:
             fn = bias_attention_reference if plain else bias_attention
             ctx = fn(*qkv, rel_bias, mask, scale)
         elif plain:
-            bits = (element_dropout_bits(seed, B, self.nh, L, x.device)
+            bits = (element_dropout_bits(seed, B, nh, L, x.device)
                     if self.dropout > 0 else None)
             ctx = bias_attention_train_reference(*qkv, rel_bias, mask, bits,
                                                  scale, self.dropout)
         else:
             ctx = bias_attention_train(*qkv, rel_bias, mask, seed, scale,
                                        self.dropout)
-        return ctx.transpose(1, 2).reshape(B, L, self.nh * self.dh)
+        return ctx.transpose(1, 2).reshape(B, L, nh * self.dh)
 
 
 class LayoutLMv3SelfAttention(RelBiasSelfAttention):
@@ -353,6 +365,7 @@ class RelBiasBackbone(nn.Module):
     ``cfg``, ``encoder`` and ``bias_div``."""
 
     bias_div = 1.0
+    tp = NO_TP  # this rank's share of the heads: its rows of the bias
 
     def __init__(self):
         super().__init__()
@@ -389,27 +402,36 @@ class RelBiasBackbone(nn.Module):
                 self._static[key] = torch.from_numpy(make()).to(device)
         return self._static[key]
 
+    def _table(self, linear: nn.Linear) -> torch.Tensor:
+        """A bucket table's (heads, bins) rows of this rank's heads."""
+        if self.tp.size == 1:
+            return linear.weight
+        w = copy_to_tp(linear.weight, self.tp)
+        return w[self.tp.part(w.shape[0])]
+
     def rel_bias(self, bbox, seq_len: int, n_vis: int):
         """The fp32 (B, nh, L', L') relative-position bias of boxes ``bbox``
         (B, L', 4), divided by ``bias_div`` (rows 16-byte aligned, see
-        :class:`RelBias`), or zeros where the config has neither table."""
+        :class:`RelBias`), or zeros where the config has neither table.
+        Under tp its nh / tp rows of this rank's heads."""
         cfg, enc = self.cfg, self.encoder
         B, Lp = bbox.shape[:2]
         if not (cfg.has_relative_attention_bias
                 or cfg.has_spatial_attention_bias):
             return torch.zeros((1, 1, Lp, Lp), device=bbox.device).expand(
-                B, cfg.num_attention_heads, Lp, Lp)
+                B, cfg.num_attention_heads // self.tp.size, Lp, Lp)
         pad = -Lp % 4  # keys appended so that a row is a multiple of 4
         w1 = wx = wy = b1 = bx = by = None
         if cfg.has_relative_attention_bias:
-            w1 = enc.rel_pos_bias.weight
+            w1 = self._table(enc.rel_pos_bias)
             b1 = self._static_tensor(
                 ("bucket", seq_len, n_vis),
                 lambda: np.pad(static_rel_pos_bucket(
                     seq_len, n_vis, cfg.rel_pos_bins, cfg.max_rel_pos),
                     ((0, 0), (0, pad))), bbox.device)
         if cfg.has_spatial_attention_bias:
-            wx, wy = enc.rel_pos_x_bias.weight, enc.rel_pos_y_bias.weight
+            wx, wy = (self._table(enc.rel_pos_x_bias),
+                      self._table(enc.rel_pos_y_bias))
             cx, cy = bbox[:, :, 0], bbox[:, :, 3]
             bins, far = cfg.rel_2d_pos_bins, cfg.max_rel_2d_pos
             lut = self._static_tensor(

@@ -25,6 +25,12 @@ state).
 The text embedding sum and LayerNorm run in fp32 and only the output is cast
 to the compute dtype (the embedding tables stay fp32; see
 :meth:`LiltModel.cast`).
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) each rank holds
+``nh / tp`` heads of both streams: the q/k/v projections and the
+intermediate layers are column-parallel, the attention outputs and MLP
+outputs row-parallel, the word table vocab-parallel; the kernels run on the
+(B, nh/tp, L, d) strided views as they do at nh.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from ..ops.biacm_attention import (attention_dropout_bits, biacm_attention,
                                    biacm_attention_train,
                                    biacm_attention_train_reference)
 from ..ops.quant import QuantLinear
+from ..parallel.tensor_parallel import (COL, NO_TP, copy_to_tp,
+                                        vocab_embedding)
 from .dropout_seeds import layer_seed
 
 ACT = {
@@ -81,11 +89,17 @@ class LiltTextEmbeddings(nn.Module):
 
     def forward(self, input_ids, position_ids, dtype):
         # token_type_ids are always zeros in the PEneo pipeline
-        x = (self.word_embeddings(input_ids)
+        x = (word_lookup(self.word_embeddings, input_ids)
              + self.token_type_embeddings.weight[0]
              + self.position_embeddings(position_ids))
         x = self.LayerNorm(x.float()).to(dtype)
         return F.dropout(x, self.dropout, self.training)
+
+
+def word_lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table(ids)``, or the vocab-parallel lookup of a split table."""
+    tp = getattr(table, "tp", NO_TP)
+    return table(ids) if tp.size == 1 else vocab_embedding(ids, table, tp)
 
 
 class LiltLayoutEmbeddings(nn.Module):
@@ -122,7 +136,10 @@ class LiltLayoutEmbeddings(nn.Module):
 
 class LiltSelfAttention(nn.Module):
     """Dual-stream attention with BiACM score sharing
-    (modeling_lilt.py:328-425)."""
+    (modeling_lilt.py:328-425); under tp on this rank's ``nh / tp`` heads of
+    each stream."""
+
+    tp = NO_TP
 
     def __init__(self, cfg: LiltConfig):
         super().__init__()
@@ -143,11 +160,13 @@ class LiltSelfAttention(nn.Module):
     def forward(self, text, layout, bias, seed: int = 0):
         """``seed`` keys the attention-dropout masks of a training step."""
         B, L, _ = text.shape
+        nh = self.nh // self.tp.size
+        text, layout = copy_to_tp(text, self.tp), copy_to_tp(layout, self.tp)
 
         def heads(lin, x, d):
             # (B, L, nh, d) projection viewed as (B, nh, L, d): no copy, the
             # kernels read it through strides
-            return lin(x).view(B, L, self.nh, d).transpose(1, 2)
+            return lin(x).view(B, L, nh, d).transpose(1, 2)
 
         qkv = (heads(self.query, text, self.dh), heads(self.key, text, self.dh),
                heads(self.value, text, self.dh),
@@ -160,15 +179,15 @@ class LiltSelfAttention(nn.Module):
             fn = biacm_attention_reference if plain else biacm_attention
             ctx_t, ctx_l = fn(*qkv, bias, *scales)
         elif plain:
-            bits = (attention_dropout_bits(seed, B, self.nh, L, text.device)
+            bits = (attention_dropout_bits(seed, B, nh, L, text.device)
                     if self.dropout > 0 else None)
             ctx_t, ctx_l = biacm_attention_train_reference(
                 *qkv, bias, bits, *scales, self.dropout)
         else:
             ctx_t, ctx_l = biacm_attention_train(*qkv, bias, seed, *scales,
                                                  self.dropout)
-        return (ctx_t.transpose(1, 2).reshape(B, L, self.nh * self.dh),
-                ctx_l.transpose(1, 2).reshape(B, L, self.nh * self.dh_l))
+        return (ctx_t.transpose(1, 2).reshape(B, L, nh * self.dh),
+                ctx_l.transpose(1, 2).reshape(B, L, nh * self.dh_l))
 
 
 class ResidualOutput(nn.Module):
@@ -186,7 +205,8 @@ class ResidualOutput(nn.Module):
 
 
 class Intermediate(nn.Module):
-    """Dense + activation, the first half of the MLP (modeling_lilt.py:511-520)."""
+    """Dense + activation, the first half of the MLP (modeling_lilt.py:511-520);
+    a column-parallel dense takes its input through ``copy_to_tp``."""
 
     def __init__(self, d_in: int, d_out: int, act: str):
         super().__init__()
@@ -194,6 +214,8 @@ class Intermediate(nn.Module):
         self.act = ACT[act]
 
     def forward(self, x):
+        if self.dense.split == COL:
+            x = copy_to_tp(x, self.dense.tp)
         return self.act(self.dense(x))
 
 

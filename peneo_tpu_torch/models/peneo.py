@@ -79,6 +79,15 @@ class PEneoModel(nn.Module):
         every rank of the group runs it on the same batch."""
         self.peneo_decoder.set_sequence_parallel(index, size, group)
 
+    def set_tensor_parallel(self, index: int, size: int, group=None) -> None:
+        """Split the model Megatron-style over a tp group (``parallel/
+        tensor_parallel.py``): keep this rank's shard of each split tensor
+        of the full weights it holds now, and run ``nh / size`` heads.
+        Raises when ``size`` does not divide the heads."""
+        from ..parallel.tensor_parallel import set_tensor_parallel
+
+        set_tensor_parallel(self, index, size, group)
+
     def cast(self, dtype: torch.dtype) -> "PEneoModel":
         """Cast to the compute dtype (the backbone keeps its embeddings, the
         rel-bias families their bucket tables, the int8 layers their weights,

@@ -27,6 +27,14 @@ quantized layer keeps fp32 weights when the model is cast
 - :class:`QuantLinear` is an ``nn.Linear`` (the same ``weight`` / ``bias``
   keys) that runs :func:`int8_linear` on forwards outside training when its
   ``int8`` switch is on (:func:`set_int8`), and the float product otherwise.
+  Under tensor parallelism (``parallel/tensor_parallel.py``) it holds a
+  column or a row split of the weight. A column split is a slice of the
+  outputs: each output channel's scale and each row's are those of one
+  process. A row-parallel layer holds a slice of each row's inputs, so its
+  per-row and per-channel scales are the global absmax (one all-reduce max
+  each over the tp group, what GSPMD computes for JAX's ``Int8Dense``), and
+  the s32 products are summed over the group exactly (in fp64) before the
+  scaling: the values of one process.
 """
 
 from __future__ import annotations
@@ -34,8 +42,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.tensor_parallel import (NO_TP, ROW, TpShard, compute_dtype,
+                                       partial_linear, reduce_from_tp)
 
 MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
 
@@ -46,20 +58,29 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
     return amax / amax.new_tensor(127.0)
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _global_max(x: torch.Tensor, tp: TpShard) -> torch.Tensor:
+    if tp.size > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp.group)
+    return x
+
+
+def quantize_rows(x: torch.Tensor, tp: TpShard = NO_TP
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., K) → (xq (N, K) int8, x_scale (N, 1) fp32), N the product of
-    the leading dims: one symmetric scale per row."""
+    the leading dims: one symmetric scale per row. ``tp``: the group over
+    which the K inputs are split, whose absmax the scale takes."""
     xf = x.float().reshape(-1, x.shape[-1])
-    scale = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    scale = _scale(_global_max(xf.abs().amax(dim=-1, keepdim=True), tp))
     return torch.round(xf / torch.clamp_min(scale, 1e-12)).to(torch.int8), \
         scale
 
 
-def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(weight: torch.Tensor, tp: TpShard = NO_TP
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """torch's (F, K) weight → (wq (F, K) int8, w_scale (F,) fp32): one
-    symmetric scale per output channel."""
+    symmetric scale per output channel, over ``tp``'s split of K."""
     wf = weight.float()
-    scale = _scale(wf.abs().amax(dim=1))
+    scale = _scale(_global_max(wf.abs().amax(dim=1), tp))
     return torch.round(wf / torch.clamp_min(scale, 1e-12)[:, None]).to(
         torch.int8), scale
 
@@ -98,40 +119,57 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return int8_matmul_reference(xq, wq)
 
 
-def _out_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype a float Linear would return for ``x`` here: autocast's
-    when it is on (the trainer's eval forwards), else ``x``'s."""
-    dev = x.device.type
-    if torch.is_autocast_enabled(dev):
-        return torch.get_autocast_dtype(dev)
-    return x.dtype
-
-
 def int8_linear(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
-                quantized: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                quantized: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                row_split: TpShard = NO_TP) -> torch.Tensor:
     """``x · Wᵀ + b`` as JAX's ``Int8Dense``: (..., K) → (..., F).
     ``quantized`` passes ``quantize_rows(x)`` computed once for several
-    layers that read the same input (the pair head's five heads)."""
-    xq, x_scale = quantized if quantized is not None else quantize_rows(x)
-    wq, w_scale = quantize_weight(weight)
-    y = int8_matmul(xq, wq).float() * x_scale * w_scale
+    layers that read the same input (the pair head's five heads).
+    ``row_split``: the tp group of a row-parallel layer, whose ``x`` and
+    ``weight`` hold this rank's slice of the K inputs (see the module
+    docstring)."""
+    xq, x_scale = (quantized if quantized is not None
+                   else quantize_rows(x, row_split))
+    wq, w_scale = quantize_weight(weight, row_split)
+    acc = int8_matmul(xq, wq)
+    if row_split.size > 1:
+        acc = acc.double()  # fp64 sums of s32: exact
+        dist.all_reduce(acc, group=row_split.group)
+    y = acc.float() * x_scale * w_scale
     if bias is not None:
         y = y + bias.float()
-    return y.reshape(*x.shape[:-1], weight.shape[0]).to(_out_dtype(x))
+    return y.reshape(*x.shape[:-1], weight.shape[0]).to(compute_dtype(x))
 
 
 class QuantLinear(nn.Linear):
     """``nn.Linear`` with an int8 serving path: with ``int8`` set and the
-    module not training, :func:`int8_linear` on the fp32 weights."""
+    module not training, :func:`int8_linear` on the fp32 weights. ``split``
+    is ``"col"`` or ``"row"`` once ``parallel/tensor_parallel.py`` has cut
+    the weight for the tp group ``tp``; a row split sums its partial
+    products over the group and adds the bias once."""
 
     int8 = False
+    split: Optional[str] = None
+    tp: TpShard = NO_TP
 
     def forward(self, x, quantized=None):
+        row = self.tp if self.split == ROW else NO_TP
         if self.int8 and not self.training:
-            return int8_linear(x, self.weight, self.bias, quantized)
+            return int8_linear(x, self.weight, self.bias, quantized, row)
+        if row.size > 1:  # partial products summed in fp32, then the bias
+            y = reduce_from_tp(partial_linear(x, self.weight), row)
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(compute_dtype(x))
         return super().forward(x)
+
+    def linear(self, x, weight, bias=None):
+        """This layer's product with a ``weight`` derived from its own (a
+        slice of its rows): int8 or float as :meth:`forward` would run."""
+        if self.int8 and not self.training:
+            return int8_linear(x, weight, bias)
+        return F.linear(x, weight, bias)
 
 
 def set_int8(module: nn.Module, on: bool) -> None:

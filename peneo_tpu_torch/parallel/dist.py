@@ -23,14 +23,18 @@ axis under GSPMD there), of ``peneo_tpu/pipeline/evaluation.py:83-118``
   fills its own row of a zero buffer) or ``all_gather_object``: gloo has no
   gather of CUDA tensors.
 - :func:`gather_rows` is the eval metric's ``gather_fn``.
-- :func:`grid` lays the ranks out as a ``(dp, sp)`` grid, sp varying
-  fastest (``rank = d·sp + s``: the JAX mesh's ``reshape(dp, tp, sp)`` order,
-  ``peneo_tpu/parallel/mesh.py:31-44``, at tp = 1). The sp ranks of one dp
-  index run the same rows of the batch through a replicated backbone and
-  split the pair grid's rows (``parallel/seq_parallel.py``); their shares of
-  each loss are disjoint, so the losses are still reduced over the whole
-  world. :func:`sp_gather` gathers small tensors (the top-k spot
-  candidates) over the sp group.
+- :func:`grid` lays the ranks out as a ``(dp, tp, sp)`` grid, sp varying
+  fastest, then tp (``rank = (d·tp + t)·sp + s``: the JAX mesh's
+  ``reshape(dp, tp, sp)`` order, ``peneo_tpu/parallel/mesh.py:31-44``). The
+  sp ranks of one (dp, tp) cell run the same rows of the batch through the
+  same backbone shard and split the pair grid's rows
+  (``parallel/seq_parallel.py``); the tp ranks of one (dp, sp) cell hold
+  the shards of a Megatron-split model (``parallel/tensor_parallel.py``)
+  and compute the same logits. The ranks with one tp index ``t`` hold the
+  same shard of every parameter: their **replica group** is the group
+  DDP averages over, and the losses are reduced over it (each of its ranks
+  holds a disjoint share). :func:`sp_gather` gathers small tensors (the
+  top-k spot candidates) over the sp group.
 """
 
 from __future__ import annotations
@@ -148,64 +152,107 @@ def init_distributed(device=None, coordinator_address: Optional[str] = None,
 
 @dataclass(frozen=True)
 class ProcessGrid:
-    """The ranks as a ``(dp, sp)`` grid; ``sp_group`` and ``dp_group`` are
-    this rank's row and column of it (built for sp > 1 only; None for
-    sp = 1, where the row is the rank and the column the default group)."""
+    """The ranks as a ``(dp, tp, sp)`` grid. ``sp_group``: the ranks of
+    this rank's (d, t) cell; ``dp_group``: those of its (t, s) column;
+    ``tp_group``: those of its (d, s) cell; ``replica_group``: every rank
+    with its t (built at tp > 1 only, None meaning the default group). The
+    others are built only when they have more than one rank and differ from
+    the world (None otherwise: no collective)."""
 
     dp: int = 1
+    tp: int = 1
     sp: int = 1
     sp_group: Optional[object] = None
     dp_group: Optional[object] = None
+    tp_group: Optional[object] = None
+    replica_group: Optional[object] = None
 
 
 _grid = ProcessGrid()  # the layout of the default group, set by grid()
 
 
-def grid(dp: Optional[int] = None, sp: int = 1) -> ProcessGrid:
-    """Lay the default group's ranks out as ``dp × sp`` (``dp`` None: world
-    // sp) and, for sp > 1, build the group of each row and column (every
-    rank calls ``new_group`` for every group, in one order). A call with
-    the current sizes returns the current grid. Without a process group
-    only 1 × 1 exists."""
+def _cell_groups(members, mine: int):
+    """``dist.new_group`` of every member list (each rank calls it for every
+    group, in one order); the group whose list holds rank ``mine``."""
+    picked = None
+    for ranks in members:
+        group = dist.new_group(list(ranks))
+        if mine in ranks:
+            picked = group
+    return picked
+
+
+def grid(dp: Optional[int] = None, tp: int = 1,
+         sp: int = 1) -> ProcessGrid:
+    """Lay the default group's ranks out as ``dp × tp × sp`` (``dp`` None:
+    world // (tp·sp)) and build the groups of :class:`ProcessGrid`. A call
+    with the current sizes returns the current grid. Without a process
+    group only 1 × 1 × 1 exists."""
     global _grid
     n = world()
-    if sp < 1 or (dp is not None and dp < 1):
-        raise ValueError(f"--dp {dp} --sp {sp}: sizes must be positive")
-    dp = n // sp if dp is None else dp
-    if dp * sp != n:
+    if tp < 1 or sp < 1 or (dp is not None and dp < 1):
+        raise ValueError(f"--dp {dp} --tp {tp} --sp {sp}: sizes must be "
+                         "positive")
+    sizes = f"--tp {tp} × --sp {sp}" if dp is None else \
+        f"--dp {dp} × --tp {tp} × --sp {sp}"
+    dp = n // (tp * sp) if dp is None else dp
+    if dp < 1 or dp * tp * sp != n:
         raise ValueError(
-            f"--dp {dp} × --sp {sp} must equal the number of processes, {n} "
-            "(one rank each); launch dp·sp processes: torchrun "
-            "--nproc_per_node N ... --distributed, or --coordinator_address "
-            "host:port --num_processes N --process_id i")
-    if (_grid.dp, _grid.sp) == (dp, sp):
+            f"{sizes} does not fit the number of processes, {n} (one rank "
+            "each); launch dp·tp·sp processes: torchrun --nproc_per_node N "
+            "... --distributed, or --coordinator_address host:port "
+            "--num_processes N --process_id i")
+    if (_grid.dp, _grid.tp, _grid.sp) == (dp, tp, sp):
         return _grid
-    d, s = divmod(rank(), sp)
-    sp_group = dp_group = None
-    if sp > 1:  # with sp = 1 the rows are the ranks and the column is all
-        for row in range(dp):
-            group = dist.new_group([row * sp + j for j in range(sp)])
-            if row == d:
-                sp_group = group
-        for col in range(sp):
-            group = dist.new_group([i * sp + col for i in range(dp)])
-            if col == s:
-                dp_group = group
-    _grid = ProcessGrid(dp, sp, sp_group, dp_group)
+    me = rank()
+
+    def at(i, j, k):
+        return (i * tp + j) * sp + k
+
+    groups = {}
+    if sp > 1:
+        groups["sp_group"] = _cell_groups(
+            [[at(i, j, k) for k in range(sp)]
+             for i in range(dp) for j in range(tp)], me)
+    if dp > 1 and tp * sp > 1:
+        groups["dp_group"] = _cell_groups(
+            [[at(i, j, k) for i in range(dp)]
+             for j in range(tp) for k in range(sp)], me)
+    if tp > 1:  # DDP needs a replica group even of one rank
+        groups["tp_group"] = _cell_groups(
+            [[at(i, j, k) for j in range(tp)]
+             for i in range(dp) for k in range(sp)], me)
+        groups["replica_group"] = _cell_groups(
+            [[at(i, j, k) for i in range(dp) for k in range(sp)]
+             for j in range(tp)], me)
+    _grid = ProcessGrid(dp, tp, sp, **groups)
     return _grid
 
 
 def dp_index() -> int:
-    """This rank's row of the grid: its share of every batch."""
-    return rank() // _grid.sp
+    """This rank's d of the grid: its share of every batch."""
+    return rank() // (_grid.tp * _grid.sp)
 
 
 def dp_size() -> int:
-    return world() // _grid.sp
+    return world() // (_grid.tp * _grid.sp)
+
+
+def tp_index() -> int:
+    """This rank's t of the grid: its shard of the split parameters."""
+    return (rank() // _grid.sp) % _grid.tp
+
+
+def tp_size() -> int:
+    return _grid.tp
+
+
+def tp_group():
+    return _grid.tp_group
 
 
 def sp_index() -> int:
-    """This rank's column of the grid: its rows of the pair grid."""
+    """This rank's s of the grid: its rows of the pair grid."""
     return rank() % _grid.sp
 
 
@@ -219,6 +266,29 @@ def sp_group():
 
 def dp_group():
     return _grid.dp_group
+
+
+def replica_size() -> int:
+    """The ranks holding this rank's shard of every parameter: dp · sp."""
+    return world() // _grid.tp
+
+
+def replica_group():
+    """The group of :func:`replica_size` ranks (None: the default group,
+    which it is at tp = 1; a single rank has no collective to run)."""
+    return _grid.replica_group
+
+
+def replica_index() -> int:
+    """This rank's place in its replica group: d·sp + s."""
+    return dp_index() * _grid.sp + sp_index()
+
+
+def seed_shard() -> int:
+    """The (dp, tp) shard whose dropout masks this rank draws, d·tp + t:
+    the JAX kernels' seed fold (``peneo_tpu/ops/biacm_attention.py:193-199``).
+    The sp ranks of one cell share it."""
+    return dp_index() * _grid.tp + tp_index()
 
 
 def shutdown() -> None:
@@ -279,9 +349,9 @@ def sp_mean_grad(*tensors):
     backbone's backward runs once, on the summed gradient of all the
     shares, on every rank: the same numbers as one process, where
     separate backward passes per share would round each in bf16. Each rank
-    back-propagates ``world ×`` its share (:func:`global_losses`): the mean
-    over sp leaves ``dp ×`` its dp index's, and DDP's mean over the world
-    makes that the global gradient."""
+    back-propagates ``replica_size ×`` its share (:func:`global_losses`):
+    the mean over sp leaves ``dp ×`` its dp index's, and DDP's mean over the
+    replica group makes that the global gradient."""
     if _grid.sp == 1 or not torch.is_grad_enabled():
         return tensors
     return _SpMeanGrad.apply(*tensors)
@@ -297,6 +367,16 @@ def all_sum(tensor: torch.Tensor) -> torch.Tensor:
     out = tensor.detach().clone()
     if world() > 1:
         dist.all_reduce(out)
+    return out
+
+
+def replica_sum(tensor: torch.Tensor) -> torch.Tensor:
+    """The sum of ``tensor`` over this rank's replica group (a new tensor,
+    no gradient): the shares of a loss that the ranks of a ``dp × tp ×
+    sp`` grid hold, each tp shard's ranks counting once."""
+    out = tensor.detach().clone()
+    if replica_size() > 1:
+        dist.all_reduce(out, group=_grid.replica_group)
     return out
 
 
@@ -372,10 +452,10 @@ def ohem_stream_merge(state):
     state is then this rank's share of the global loss (the shares sum to
     it), and its gradient reaches only this rank's kept elements. One
     ``all_reduce`` (fp64, exact for counts and fp32 values)."""
-    n = world()
+    n = replica_size()
     if n == 1:
         return state
-    me = rank()
+    me = replica_index()
     keys = ("pos", "neg")
     dev = state["pos"]["count"].device
     rows = []
@@ -388,7 +468,7 @@ def ohem_stream_merge(state):
             rows.append(buf)
     counts = torch.stack([state[k]["count"] for k in keys]).double()
     packed = torch.cat([counts] + [b.reshape(-1) for b in rows])
-    dist.all_reduce(packed)
+    dist.all_reduce(packed, group=_grid.replica_group)
     every, offset = {}, len(keys)
     for key in keys:
         if "best" in state[key]:
@@ -401,13 +481,14 @@ def ohem_stream_merge(state):
 
 def global_losses(partials: torch.Tensor) -> torch.Tensor:
     """Per-head losses of the global batch from this rank's shares
-    (``partials``, (H,): the shares of all ranks sum to the global loss).
-    The value is the sum over the ranks, the same on every rank; the
-    gradient is ``world × share``, so that DDP's mean of the ranks'
-    gradients is the global loss's gradient."""
-    n = world()
+    (``partials``, (H,): the shares of the ranks of one replica group sum
+    to the global loss; the tp ranks of a cell hold the same share). The
+    value is the sum over the replica group, the same on every rank; the
+    gradient is ``replica_size × share``, so that DDP's mean over the
+    replica group is the global loss's gradient."""
+    n = replica_size()
     if n == 1:
         return partials
-    total = all_sum(partials)
+    total = replica_sum(partials)
     scaled = partials * n
     return scaled + (total - scaled).detach()

@@ -24,13 +24,16 @@ API; ``run(visualize_dir=…)`` also draws each page's predictions.
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
 GPU and no explicit device it raises.
 
-In a process group of ``dp × sp`` ranks (``InferenceService(dp=, sp=)``;
-``peneo_tpu/pipeline/infer.py:186-202,242-270``) each dp index serves every
-dp-th page of the directory; its sp ranks preprocess the same pages, run the
-same batches through the backbone, split the pair grid's rows
-(``parallel/seq_parallel.py``) and merge the spots, and only sp rank 0
-decodes. :meth:`InferenceService.run` then gathers every dp index's records
-and returns them all, on every rank, in the order one process returns them.
+In a process group of ``dp × tp × sp`` ranks (``InferenceService(dp=,
+tp=, sp=)``; ``peneo_tpu/pipeline/infer.py:186-205,242-270``) each dp index
+serves every dp-th page of the directory; its tp × sp ranks preprocess the
+same pages and run the same batches: the tp ranks through the shards of a
+Megatron-split model (``parallel/tensor_parallel.py``: the service loads
+the full weights, then keeps its shard), the sp ranks over their rows of
+the pair grid (``parallel/seq_parallel.py``), and only the rank with t = 0
+and s = 0 decodes. :meth:`InferenceService.run` then gathers every dp
+index's records and returns them all, on every rank, in the order one
+process returns them.
 """
 
 from __future__ import annotations
@@ -148,24 +151,26 @@ class InferenceService:
         device=None,
         dp: int = 1,
         sp: int = 1,
+        tp: int = 1,
     ) -> None:
         """``int8_pair_head`` None (auto) is off, as the JAX service's auto
         is off any backend but a TPU; True or ``int8_backbone`` set the
         config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
-        that sets them serves int8 already). ``dp × sp`` > 1 needs a
+        that sets them serves int8 already). ``dp × tp × sp`` > 1 needs a
         process group of that many ranks (``parallel/dist.py``
         ``init_distributed``); each rank then runs on its own device."""
-        self.dp, self.sp = dp, sp
-        if dp * sp > 1:
-            if pdist.world() != dp * sp:
+        self.dp, self.tp, self.sp = dp, tp, sp
+        n = dp * tp * sp
+        if n > 1:
+            if pdist.world() != n:
                 raise ValueError(
-                    f"dp {dp} × sp {sp} serving needs a process group of "
-                    f"{dp * sp} ranks, not {pdist.world()}: torchrun "
-                    f"--nproc_per_node {dp * sp} -m peneo_tpu_torch.serve "
-                    f"--distributed --dp {dp} --sp {sp} ..., or one "
-                    f"command per rank with --coordinator_address host:port "
-                    f"--num_processes {dp * sp} --process_id i")
-            pdist.grid(dp, sp)
+                    f"dp {dp} × tp {tp} × sp {sp} serving needs a process "
+                    f"group of {n} ranks, not {pdist.world()}: torchrun "
+                    f"--nproc_per_node {n} -m peneo_tpu_torch.serve "
+                    f"--distributed --dp {dp} --tp {tp} --sp {sp} ..., or "
+                    f"one command per rank with --coordinator_address "
+                    f"host:port --num_processes {n} --process_id i")
+            pdist.grid(dp, tp, sp)
             self.device = pdist.rank_device(device)
         else:
             self.device = resolve_device(device)
@@ -227,6 +232,8 @@ class InferenceService:
                                  "max_spots_per_head must be > 0")
             model.set_sequence_parallel(pdist.sp_index(), sp,
                                         pdist.sp_group())
+        if tp > 1:  # the full weights are loaded: keep this rank's shard
+            model.set_tensor_parallel(pdist.tp_index(), tp, pdist.tp_group())
         self.model = model.cast(self.dtype).to(self.device).eval()
         if self.device.type == "cuda":
             # build the family's kernel now: fail at construction, not mid-run
@@ -360,9 +367,10 @@ class InferenceService:
         wall time, the pages and time after the first batch's fetch (the
         warm rate), and the time the preprocessing pool took to start.
 
-        With ``dp × sp`` > 1 every rank of the process group calls it: the
-        dp indices serve every dp-th page each, and the records of all of
-        them come back on every rank (``last_run`` counts this rank's)."""
+        With ``dp × tp × sp`` > 1 every rank of the process group calls
+        it: the dp indices serve every dp-th page each, and the records of
+        all of them come back on every rank (``last_run`` counts this
+        rank's)."""
         image_paths = sorted(
             os.path.join(image_dir, f) for f in os.listdir(image_dir)) \
             if os.path.isdir(image_dir) else [image_dir]
@@ -395,8 +403,8 @@ class InferenceService:
         if self.dp > 1:  # this dp index's pages
             image_paths = image_paths[pdist.dp_index()::self.dp]
             ocr_paths = ocr_paths[pdist.dp_index()::self.dp]
-        # the sp ranks of a dp index run its batches; sp rank 0 decodes
-        decodes = pdist.sp_index() == 0
+        # the tp × sp ranks of a dp index run its batches; t = s = 0 decodes
+        decodes = pdist.sp_index() == 0 and pdist.tp_index() == 0
 
         results = {}
         pending = []  # (basename, future) in input order
@@ -474,7 +482,7 @@ class InferenceService:
                 collect()
             for name, fut in pending:
                 results[name] = fut.result()
-        if self.dp * self.sp > 1:  # every dp index's records, in page order
+        if self.dp * self.tp * self.sp > 1:  # every dp index's, in order
             merged = {}
             for part in pdist.gather_objects(results):
                 merged.update(part)

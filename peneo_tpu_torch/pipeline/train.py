@@ -38,6 +38,7 @@ import torch
 
 from ..models.dropout_seeds import StepSeeds
 from ..models.peneo import PEneoModel
+from ..parallel.tensor_parallel import reduce_from_tp
 from .loader import tree_leaves, tree_map
 
 
@@ -179,10 +180,28 @@ def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
 
 def clip_by_global_norm(params, max_norm: Optional[float]) -> torch.Tensor:
     """Global L2 norm of the gradients (fp32); scales them by
-    ``max_norm / norm`` when it is larger (no host sync)."""
+    ``max_norm / norm`` when it is larger (no host sync). Under tensor
+    parallelism the squares of the split parameters' gradients
+    (``tp_split``) are summed over their tp group and the replicated ones
+    counted once, so that the norm is the whole model's, as JAX's
+    ``optax.clip_by_global_norm`` computes it over sharded leaves."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm([g.float() for g in grads])))
+    tp = next((p.tp_shard for p in params
+               if getattr(p, "tp_split", None) is not None), None)
+    if tp is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm([g.float() for g in grads])))
+    else:
+        split = [p.grad.float() for p in params if p.grad is not None
+                 and getattr(p, "tp_split", None) is not None]
+        whole = [p.grad.float() for p in params if p.grad is not None
+                 and getattr(p, "tp_split", None) is None]
+        squares = torch.stack([
+            torch.stack(torch._foreach_norm(part)).square().sum()
+            if part else grads[0].new_zeros((), dtype=torch.float32)
+            for part in (split, whole)])
+        squares[0] = reduce_from_tp(squares[0], tp)
+        norm = squares.sum().sqrt()
     if max_norm is not None and max_norm > 0:
         scale = torch.clamp(max_norm / norm, max=1.0)
         torch._foreach_mul_(grads, scale.to(grads[0].dtype))

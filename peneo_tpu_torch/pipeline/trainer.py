@@ -49,9 +49,22 @@ backbone forward (seeds offset by the dp index, so their dropout is alike)
 and split the pair grid's rows (``parallel/seq_parallel.py``). DDP runs over
 the whole world and the losses are reduced over it. Eval runs spots and
 losses in one pass; the metric rows come from each dp index's sp rank 0
-(the other sp ranks hold the same records and decode nothing). Not ported
-(``ROADMAP.md`` §1): ``steps_per_call`` > 1 in a process group, fsdp and
-tp.
+(the other sp ranks hold the same records and decode nothing).
+
+Tensor parallelism (``tp`` > 1; ``peneo_tpu/pipeline/trainer.py:57,159``):
+the ranks form a ``dp × tp × sp`` grid; the tp ranks of one (dp, sp) cell
+hold the shards of a Megatron-split model (``parallel/tensor_parallel.py``),
+collate the same rows and compute the same logits. DDP runs over the replica
+group (the ranks that hold the same shard, ``parallel/dist.py``), never
+over the world, and the losses are reduced over it. The attention-dropout
+seeds are offset per (dp, tp) shard; the hidden dropout, which acts on
+activations every tp rank holds whole, draws alike on the tp ranks of a dp
+index. Checkpoints are sharding-agnostic, as orbax's are: every rank gathers
+the model and the AdamW moments to full tensors, rank 0 writes them, and a
+run at another tp size cuts them again on resume; ``pytorch_model.bin``
+holds the full tensors. Only the rank with t = 0 and s = 0 of each dp index
+decodes in eval. Not ported (``ROADMAP.md`` §1): ``steps_per_call`` > 1 in
+a process group, and fsdp.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from ..models.decoder import pack_spots
 from ..models.dropout_seeds import RANK_STRIDE, HostSeeds
 from ..models.peneo import PEneoModel
 from ..parallel import dist as pdist
+from ..parallel import tensor_parallel as tpar
 from . import decode as dec
 from . import evaluation as ev
 from . import train as T
@@ -114,8 +128,10 @@ class TrainingArguments:
     # the card); max_steps rounds up to a multiple of K
     steps_per_call: int = 1
     # sequence-parallel ranks: the pair grid's rows split over sp ranks of
-    # a process group of dp × sp ranks
+    # a process group of dp × tp × sp ranks
     sp: int = 1
+    # tensor-parallel ranks: the backbone and the pair head split over them
+    tp: int = 1
 
 
 class PEneoTrainer:
@@ -133,14 +149,16 @@ class PEneoTrainer:
                 "steps_per_call > 1 in a process group (data or sequence "
                 "parallel: a CUDA graph around the collectives) is not "
                 "ported yet: ROADMAP.md §1")
-        if args.sp > 1 and not self.distributed:
-            raise ValueError(
-                f"sp {args.sp} needs a process group of dp × sp ranks: "
-                "torchrun --nproc_per_node N -m peneo_tpu_torch.run_rfund "
-                f"--distributed --sp {args.sp} ..., or --coordinator_address "
-                "host:port --num_processes N --process_id i")
+        for flag, size in (("sp", args.sp), ("tp", args.tp)):
+            if size > 1 and not self.distributed:
+                raise ValueError(
+                    f"{flag} {size} needs a process group of dp × tp × sp "
+                    "ranks: torchrun --nproc_per_node N -m "
+                    f"peneo_tpu_torch.run_rfund --distributed --{flag} "
+                    f"{size} ..., or --coordinator_address host:port "
+                    "--num_processes N --process_id i")
         if self.distributed:
-            pdist.grid(sp=args.sp)
+            pdist.grid(tp=args.tp, sp=args.sp)
         # this rank's share of every batch, and the number of shares
         self.dp_rank, self.dp = pdist.dp_index(), pdist.dp_size()
         self.device = (pdist.rank_device(args.device) if self.distributed
@@ -152,6 +170,13 @@ class PEneoTrainer:
             raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
                              "take bfloat16: train with dtype='bfloat16'")
         self.model = model.to(self.device)  # fp32 master parameters
+        self.tp = tpar.NO_TP
+        if args.tp > 1:
+            self.tp = tpar.TpShard(pdist.tp_index(), args.tp,
+                                   pdist.tp_group())
+            self.model.set_tensor_parallel(self.tp.index, self.tp.size,
+                                           self.tp.group)
+        self.splits = getattr(self.model, "tp_splits", {})
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.collator = collator
@@ -174,10 +199,11 @@ class PEneoTrainer:
         # hidden dropout draws from the device's default generator; each
         # layer's attention-dropout seed from this one in an eager step (a
         # CUDA graph of K steps computes them on the card: StepSeeds); a
-        # dp index draws its own masks, its sp ranks the same ones
+        # dp index draws its own hidden masks, its tp and sp ranks the same
+        # ones; a (dp, tp) shard its own attention masks
         torch.manual_seed(args.seed + self.dp_rank * RANK_STRIDE)
         self.generator = torch.Generator().manual_seed(args.seed)
-        self.seeds = HostSeeds(self.generator, self.dp_rank)
+        self.seeds = HostSeeds(self.generator, pdist.seed_shard())
         self.optimizer, self.scheduler = T.make_optimizer(
             self.model, lr=args.learning_rate, total_steps=args.max_steps,
             warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
@@ -195,8 +221,10 @@ class PEneoTrainer:
                     pdist.sp_index(), args.sp, pdist.sp_group())
             cards = [self.device.index] if self.device.type == "cuda" \
                 else None
-            self.step_model = DistributedDataParallel(self.model,
-                                                      device_ids=cards)
+            # over the ranks that hold this rank's shards (the world at tp 1)
+            self.step_model = DistributedDataParallel(
+                self.model, device_ids=cards,
+                process_group=pdist.replica_group())
         self.ckpt = CheckpointManager(
             os.path.join(args.output_dir, "checkpoints"),
             save_total_limit=args.save_total_limit,
@@ -243,11 +271,23 @@ class PEneoTrainer:
             state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
         return state
 
+    def _full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with the split tensors gathered to full
+        ones (a collective under tp: every rank calls it)."""
+        return tpar.gather_state_dict(self.model.state_dict(), self.splits,
+                                      self.tp)
+
+    def _load_model(self, full: Dict[str, torch.Tensor]) -> None:
+        """Load a full state dict, cut to this rank's shards."""
+        self.model.load_state_dict(tpar.shard_state_dict(
+            full, self.splits, self.tp.index, self.tp.size))
+
     def _state(self) -> Dict[str, Any]:
-        """The checkpoint's state; under data parallelism every rank's RNG
-        states too (a collective: every rank calls it)."""
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
+        """The checkpoint's state, every tensor full; under data parallelism
+        every rank's RNG states too (a collective: every rank calls it)."""
+        state = {"model": self._full_model_state(),
+                 "optimizer": tpar.gather_optimizer_state(
+                     self.optimizer.state_dict(), self.splits, self.tp),
                  "scheduler": self.scheduler.state_dict(),
                  "generator": self.generator.get_state(),
                  **self._rng_state()}
@@ -262,8 +302,9 @@ class PEneoTrainer:
         pdist.barrier()
 
     def _load_state(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
-        T.load_optimizer_state(self.optimizer, state["optimizer"])
+        self._load_model(state["model"])
+        T.load_optimizer_state(self.optimizer, tpar.shard_optimizer_state(
+            state["optimizer"], self.splits, self.tp.index, self.tp.size))
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         rng = state
@@ -410,7 +451,7 @@ class PEneoTrainer:
             best = self.ckpt.best_step()
             if best is not None and best != self.step:
                 state = self.ckpt.restore(best, map_location="cpu")
-                self.model.load_state_dict(state["model"])
+                self._load_model(state["model"])
                 self.log({"event": "loaded_best", "step": best})
 
     # ------------------------------------------------------------------- eval
@@ -421,12 +462,13 @@ class PEneoTrainer:
         rank decodes its real rows, the metric rows are gathered and deduped
         by file name, and every rank returns the same metrics. Under
         sequence parallelism only sp rank 0 of each dp index decodes and
-        sends metric rows (its sp ranks hold the same spots)."""
+        sends metric rows (its sp ranks hold the same spots); under tensor
+        parallelism only tp rank 0 of each (dp, sp) cell."""
         args = self.args
         per_rank = args.per_device_eval_batch_size
         full = per_rank * self.dp
         mine = slice(self.dp_rank * per_rank, (self.dp_rank + 1) * per_rank)
-        decodes = pdist.sp_index() == 0
+        decodes = pdist.sp_index() == 0 and pdist.tp_index() == 0
         feed = DataFeed(self.eval_dataset, self.collator, batch_size=full,
                         shuffle=False, drop_last=False)
         all_pred, all_gt, all_fname = [], [], []
@@ -525,15 +567,17 @@ class PEneoTrainer:
         ``pytorch_model.bin`` (fp32, the reference's torch keys) and the
         tokenizer file(s) (reference: trainer.save_model() +
         processor.save_pretrained(), start/run_rfund.py:323-327). Under
-        data parallelism rank 0 writes it and every rank waits for it."""
+        data parallelism rank 0 writes it and every rank waits for it; under
+        tensor parallelism every rank first gathers the full tensors."""
+        state = self._full_model_state()
         if self.rank == 0:
-            self._write_model(self.args.output_dir)
+            self._write_model(self.args.output_dir, state)
         pdist.barrier()
 
-    def _write_model(self, out_dir: str) -> None:
+    def _write_model(self, out_dir: str, state) -> None:
         self.cfg.save_pretrained(out_dir)
         torch.save({k: v.detach().to("cpu", torch.float32)
-                    for k, v in self.model.state_dict().items()},
+                    for k, v in state.items()},
                    os.path.join(out_dir, "pytorch_model.bin"))
         if self.tokenizer is not None and hasattr(self.tokenizer,
                                                   "save_pretrained"):

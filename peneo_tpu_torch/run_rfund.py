@@ -49,9 +49,12 @@ meaning (``start/run_rfund.py:63-68``): ``--sp M`` splits the pair grid's
 rows over M ranks that share one slice of each batch, ``--dp`` (default:
 the number of processes // M) slices the batch; dp × sp processes, one rank
 each, e.g. ``torchrun --nproc_per_node 4 -m peneo_tpu_torch.run_rfund
---distributed --dp 2 --sp 2 ...``. ``--tp`` and ``--fsdp`` are accepted
-and refused unless 1 / off (``ROADMAP.md`` §1), as is ``--steps_per_call``
-> 1 in a process group. Left out (one attention path, one backend):
+--distributed --dp 2 --sp 2 ...``. Tensor parallelism
+(``parallel/tensor_parallel.py``): ``--tp T`` splits the backbone and the
+pair head Megatron-style over T ranks; the ranks form a ``dp × tp × sp``
+grid in the JAX mesh's order, rank = (d·T + t)·M + s. ``--fsdp`` is accepted
+and refused unless off (``ROADMAP.md`` §1), as is ``--steps_per_call`` > 1
+in a process group. Left out (one attention path, one backend):
 ``--platform`` and the ``--fused_*`` flags.
 """
 
@@ -115,9 +118,10 @@ def build_argparser() -> argparse.ArgumentParser:
     # parallelism (the JAX trainer's mesh and multi-process flags)
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks (slices of each batch); "
-                        "default: the number of processes // --sp")
+                        "default: the number of processes // (--tp x --sp)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism: not ported (1 only)")
+                   help="tensor-parallel ranks: the backbone and the pair "
+                        "head split Megatron-style over them")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks: the pair grid's rows "
                         "split over them (dp x sp processes)")
@@ -300,24 +304,23 @@ def training_arguments(args):
         metric_for_best_model=args.metric_for_best_model, seed=args.seed,
         detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
         start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
-        device=args.device, steps_per_call=args.steps_per_call, sp=args.sp)
+        device=args.device, steps_per_call=args.steps_per_call, sp=args.sp,
+        tp=args.tp)
 
 
 def check_parallel_flags(args) -> None:
     """Refuse the mesh flags that are not ported, before anything starts."""
-    for flag, value, off in (("--tp", args.tp, 1),
-                             ("--fsdp", args.fsdp, False)):
-        if value != off:
-            raise NotImplementedError(
-                f"{flag} {value}: tensor and fully sharded parallelism are "
-                "not ported yet (ROADMAP.md §1); data and sequence "
-                "parallelism are --distributed with --dp / --sp")
+    if args.fsdp:
+        raise NotImplementedError(
+            "--fsdp: fully sharded parallelism is not ported yet (ROADMAP.md "
+            "§1); data, tensor and sequence parallelism are --distributed "
+            "with --dp / --tp / --sp")
 
 
 def init_parallel(args) -> bool:
     """Join the process group the flags describe (if any) and lay its ranks
-    out as ``--dp × --sp`` (which must equal its size); True when this call
-    started the group."""
+    out as ``--dp × --tp × --sp`` (which must equal its size); True when
+    this call started the group."""
     from .parallel import dist as pdist
 
     started = False
@@ -328,7 +331,7 @@ def init_parallel(args) -> bool:
                                backend=args.dist_backend)
         started = True
     try:
-        pdist.grid(args.dp, args.sp)
+        pdist.grid(args.dp, args.tp, args.sp)
     except ValueError:
         if started:
             pdist.shutdown()

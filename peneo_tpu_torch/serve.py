@@ -12,19 +12,20 @@ the tokenizer files. ``--apply_ocr`` reads each page with tesseract instead
 of OCR JSON (needs pytesseract and the tesseract binary). Runs on the GPU
 unless ``--device cpu`` is given.
 
-Across processes, ``--dp N --sp M`` (``deploy/inference.py:39-45``): N × M
-ranks, one process each; each dp index serves every N-th page, its M sp
-ranks split each page's pair grid by rows, and rank 0 writes the one JSON:
+Across processes, ``--dp N --tp T --sp M`` (``deploy/inference.py:39-45``):
+N × T × M ranks, one process each, laid out as the JAX mesh's ``(dp, tp,
+sp)`` (rank = (d·T + t)·M + s); each dp index serves every N-th page, its T
+tp ranks hold the shards of the Megatron-split model, its M sp ranks split
+each page's pair grid by rows, and rank 0 writes the one JSON:
 
     torchrun --nproc_per_node 4 -m peneo_tpu_torch.serve --distributed \
-        --dp 2 --sp 2 --model_name_or_path M --dir_image I --dir_ocr O
+        --dp 2 --tp 2 --model_name_or_path M --dir_image I --dir_ocr O
 
 or one command per rank with ``--coordinator_address host:port
 --num_processes 4 --process_id i`` in place of ``--distributed``. Each rank
-takes its card (NCCL), or ranks share one (gloo). ``--tp`` is refused
-(``ROADMAP.md`` §1). Left out of ``deploy/inference.py``'s flags: the
-``--*fused*`` switches (the port's attention is always its CUDA kernels on
-the card).
+takes its card (NCCL), or ranks share one (gloo). Left out of
+``deploy/inference.py``'s flags: the ``--*fused*`` switches (the port's
+attention is always its CUDA kernels on the card).
 """
 
 from __future__ import annotations
@@ -82,12 +83,14 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' to run there)")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks (each serves every dp-th "
-                        "page); default: the number of processes // --sp")
+                        "page); default: the number of processes // "
+                        "(--tp × --sp)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks (each page's pair grid "
                         "split by rows over them)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism: not ported (1 only)")
+                   help="tensor-parallel ranks (the backbone and the pair "
+                        "head split Megatron-style over them)")
     p.add_argument("--distributed", action="store_true",
                    help="one process per rank, torch.distributed from "
                         "torchrun's environment")
@@ -103,10 +106,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.apply_ocr and args.dir_ocr is None:
         p.error("--dir_ocr is required unless --apply_ocr is set")
-    if args.tp != 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel serving is not ported yet "
-            "(ROADMAP.md §1); --dp / --sp split the pages and the pair grid")
 
     from .parallel import dist as pdist
 
@@ -117,12 +116,12 @@ def main(argv=None):
                                    args.num_processes, args.process_id,
                                    backend=args.dist_backend)
             started = True
-    elif (args.dp or 1) * args.sp > 1:
+    elif (args.dp or 1) * args.tp * args.sp > 1:
         raise ValueError(
-            f"--dp {args.dp} --sp {args.sp} needs one process per rank: "
-            "torchrun --nproc_per_node N -m peneo_tpu_torch.serve "
-            "--distributed --dp ... --sp ..., or one command per rank with "
-            "--coordinator_address host:port --num_processes N "
+            f"--dp {args.dp} --tp {args.tp} --sp {args.sp} needs one process "
+            "per rank: torchrun --nproc_per_node N -m peneo_tpu_torch.serve "
+            "--distributed --dp ... --tp ... --sp ..., or one command per "
+            "rank with --coordinator_address host:port --num_processes N "
             "--process_id i")
     try:
         return _serve(args, pdist)
@@ -134,8 +133,9 @@ def main(argv=None):
 def _serve(args, pdist):
     from .pipeline.infer import InferenceService
 
-    sp = args.sp
-    dp = args.dp if args.dp is not None else max(pdist.world() // sp, 1)
+    tp, sp = args.tp, args.sp
+    dp = args.dp if args.dp is not None else max(pdist.world() // (tp * sp),
+                                                 1)
     service = InferenceService(
         args.model_name_or_path,
         max_seq_len=args.max_seq_len,
@@ -148,6 +148,7 @@ def _serve(args, pdist):
         if args.bucket_lengths else None,
         device=args.device,
         dp=dp,
+        tp=tp,
         sp=sp,
     )
     results = service.run(args.dir_image,
@@ -162,7 +163,8 @@ def _serve(args, pdist):
         with open(args.dir_save, "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=1)
         print(f"[peneo] {len(results)} pages in {run['seconds']:.3f}s "
-              f"(batch_size={args.batch_size}, dp={dp}, sp={sp}); wrote "
+              f"(batch_size={args.batch_size}, dp={dp}, tp={tp}, sp={sp}); "
+              f"wrote "
               f"{args.dir_save}")
     return results
 

@@ -22,8 +22,12 @@ NEG = torch.finfo(torch.float32).min / 2
 def test_kernel_matches_plain_twin_on_card(L):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_kernel(L, B=2, nh=12)
+
+
+def _check_kernel(L, B, nh):
+    """Kernel #1 against its fp32 twin on (B, nh, L, d) views."""
     gen = torch.Generator(device="cuda").manual_seed(L)
-    B, nh = 2, 12
 
     def heads(d):  # (B, nh, L, d) views of (B, L, nh, d), as the model passes
         x = torch.randn((B, L, nh, d), generator=gen, device="cuda")
@@ -31,8 +35,8 @@ def test_kernel_matches_plain_twin_on_card(L):
 
     qkv = [heads(64) for _ in range(3)] + [heads(16) for _ in range(3)]
     bias = torch.zeros((B, L), device="cuda")
-    bias[0, : L // 2] = NEG       # leading keys padded (whole key tiles)
-    bias[1, L - L // 3:] = NEG    # trailing keys padded
+    bias[0::2, : L // 2] = NEG       # leading keys padded (whole key tiles)
+    bias[1::2, L - L // 3:] = NEG    # trailing keys padded
     before = ba.biacm_attention_cuda.launches
     got = ba.biacm_attention(*qkv, bias, 0.125, 0.25)
     want = ba.biacm_attention_reference(*(x.float() for x in qkv), bias,
@@ -44,13 +48,12 @@ def test_kernel_matches_plain_twin_on_card(L):
         assert (g.float() - w).abs().max().item() <= 2e-2
 
 
-def _train_inputs(L, seed, spread=None):
+def _train_inputs(L, seed, spread=None, B=2, nh=12):
     """q/k/v, bias and output gradients; with a ``spread``, each head's
     q/k/v rows are one shared row plus ``spread`` times noise (nearly
     collinear, as in LiLT-base's last layers), halved to keep values O(1)
     for the absolute forward gate."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    B, nh = 2, 12
 
     def heads(d, collinear=False):
         x = torch.randn((B, L, nh, d), generator=gen, device="cuda")
@@ -61,8 +64,8 @@ def _train_inputs(L, seed, spread=None):
     c = spread is not None
     qkv = [heads(64, c) for _ in range(3)] + [heads(16, c) for _ in range(3)]
     bias = torch.zeros((B, L), device="cuda")
-    bias[0, : L // 2] = NEG
-    bias[1, L - L // 3:] = NEG
+    bias[0::2, : L // 2] = NEG
+    bias[1::2, L - L // 3:] = NEG
     dctx = (heads(64), heads(16))
     return qkv, bias, dctx
 
@@ -194,7 +197,14 @@ def test_train_kernels_match_plain_twin_on_card(L, rate):
     spread = None
     if L == "512-collinear":  # dq, dk: small differences of large terms
         L, spread = 512, 0.1
-    qkv, bias, dctx = _train_inputs(L, seed=L + 7, spread=spread)
+    _check_train_kernels(L, rate, _train_inputs(L, seed=L + 7,
+                                                spread=spread))
+
+
+def _check_train_kernels(L, rate, inputs):
+    """Kernels #2/#3 against the fp32 twin on ``inputs`` (see
+    test_train_kernels_match_plain_twin_on_card)."""
+    qkv, bias, dctx = inputs
     B, nh = bias.shape[0], qkv[0].shape[1]
     seed = 1234 + L
     bits = ba.attention_dropout_bits(seed, B, nh, L, device="cuda")
@@ -243,7 +253,8 @@ def _with_stride(bias, stride):
     return out
 
 
-def _bias_inputs(L, seed, spread=None, text_masked=0, stride="natural"):
+def _bias_inputs(L, seed, spread=None, text_masked=0, stride="natural",
+                 B=2, nh=12):
     """q/k/v (B, nh, L, 64) views of (B, L, nh, 64), an fp32 (B, nh, L, L)
     bias (at the row stride ``stride`` names, see _with_stride), a key mask
     and an output gradient. ``text_masked`` = n: every key of batch row 0
@@ -252,7 +263,6 @@ def _bias_inputs(L, seed, spread=None, text_masked=0, stride="natural"):
     negative there (mask + bias would overflow without the kernel's
     clamp)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    B, nh = 2, 12
 
     def heads(collinear=False):
         x = torch.randn((B, L, nh, 64), generator=gen, device="cuda")
@@ -269,8 +279,8 @@ def _bias_inputs(L, seed, spread=None, text_masked=0, stride="natural"):
         mask[0, :n] = torch.finfo(torch.float32).min
         bias[0, :, :, :n] = -bias[0, :, :, :n].abs() - 1.0
     else:
-        mask[0, : L // 2] = NEG
-    mask[1, L - L // 3:] = NEG
+        mask[0::2, : L // 2] = NEG
+    mask[1::2, L - L // 3:] = NEG
     return qkv, _with_stride(bias, stride), mask, heads()
 
 
@@ -301,7 +311,13 @@ def test_bias_kernel_matches_plain_twin_on_card(L, stride):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     L, kw = _bias_case(L)
-    (q, k, v), bias, mask, _ = _bias_inputs(L, seed=L, stride=stride, **kw)
+    _check_bias_kernel(L, _bias_inputs(L, seed=L, stride=stride, **kw))
+
+
+def _check_bias_kernel(L, inputs):
+    """Kernel #4 against the fp32 twin on ``inputs`` (see
+    test_bias_kernel_matches_plain_twin_on_card)."""
+    (q, k, v), bias, mask, _ = inputs
     before = rb.bias_attention_cuda.launches
     got = rb.bias_attention(q, k, v, bias, mask, 0.125)
     want = rb.bias_attention_reference(q.float(), k.float(), v.float(), bias,
@@ -312,7 +328,7 @@ def test_bias_kernel_matches_plain_twin_on_card(L, stride):
     assert torch.isfinite(got).all()
     assert (got.float() - want).abs().max().item() <= 2e-2
     # a strided bias (batch-expanded) is read through its strides
-    shared = bias[:1].expand(2, -1, -1, -1)
+    shared = bias[:1].expand(bias.shape[0], -1, -1, -1)
     got = rb.bias_attention(q, k, v, shared, mask, 0.125)
     want = rb.bias_attention_reference(q.float(), k.float(), v.float(),
                                        shared, mask, 0.125)
@@ -367,7 +383,14 @@ def test_bias_train_kernels_match_plain_twin_on_card(L, rate, stride):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     L, kw = _bias_case(L)
-    qkv, bias, mask, dctx = _bias_inputs(L, seed=L + 7, stride=stride, **kw)
+    _check_bias_train_kernels(L, rate, stride, _bias_inputs(
+        L, seed=L + 7, stride=stride, **kw))
+
+
+def _check_bias_train_kernels(L, rate, stride, inputs):
+    """Kernels #5/#6 against the fp32 twin on ``inputs`` (see
+    test_bias_train_kernels_match_plain_twin_on_card)."""
+    qkv, bias, mask, dctx = inputs
     B, nh = mask.shape[0], qkv[0].shape[1]
     seed = 4321 + L
     bits = ba.element_dropout_bits(seed, B, nh, L, device="cuda")
@@ -400,6 +423,44 @@ def test_bias_train_kernels_match_plain_twin_on_card(L, rate, stride):
         outs[name] = (got, *grads)
     for a, b in zip(outs["philox"], outs["bits"]):
         assert torch.equal(a, b)
+
+
+# a tensor-parallel rank's heads (nh / tp = 6 of LiLT-base's and
+# LayoutLMv3-base's 12 at tp 2), at the main path's shapes otherwise:
+# serving B = 32, training B = 8, L = 512 (LiLT), 709 (LayoutLMv3) and
+# 561 (LayoutXLM), the bias at the model's padded stride
+TP_NH = 6
+
+
+def test_tp_heads_kernel_matches_plain_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_kernel(512, B=32, nh=TP_NH)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tp_heads_train_kernels_match_plain_twin_on_card(rate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _check_train_kernels(512, rate, _train_inputs(512, seed=519, B=8,
+                                                  nh=TP_NH))
+
+
+@pytest.mark.parametrize("L", [709, 561])
+def test_tp_heads_bias_kernel_matches_plain_twin_on_card(L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_bias_kernel(L, _bias_inputs(L, seed=L, stride="padded", B=32,
+                                       nh=TP_NH))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [709, 561])
+def test_tp_heads_bias_train_kernels_match_plain_twin_on_card(L, rate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _check_bias_train_kernels(L, rate, "padded", _bias_inputs(
+        L, seed=L + 7, stride="padded", B=8, nh=TP_NH))
 
 
 def _seed_graph_check(keep_of, seed):

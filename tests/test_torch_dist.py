@@ -19,9 +19,11 @@ global batches beside them. Checked:
 4. rank 0's saved directory loads in one process, without ``module.``
    prefixes, and holds the weights both ranks ended with;
 5. a mismatched ``output_dir`` raises on every rank;
-6. ``--tp 2``, ``--fsdp``, ``steps_per_call`` 2 under a process group and
-   ``serve --tp 2`` raise ``NotImplementedError`` (``--sp``:
-   tests/test_torch_seq_parallel.py).
+6. ``--fsdp`` and ``steps_per_call`` 2 under a process group raise
+   ``NotImplementedError``; ``--tp 2`` (run_rfund and serve) without a
+   process group raises ``ValueError`` naming the launch (``--sp``:
+   tests/test_torch_seq_parallel.py; tp itself:
+   tests/test_torch_tensor_parallel*.py).
 
 And in process: each rank's dropout seeds are offset by ``rank · 1000003``
 and reach kernel #5's (LayoutLMv3) and #2's (LiLT) plain twins; the feed
@@ -326,12 +328,14 @@ def test_steps_per_call_refused_under_dp(refused):
         assert "ROADMAP.md" in r["steps_per_call"]
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--fsdp"]],
-                         ids=["tp", "fsdp"])
-def test_unported_mesh_flags_raise(flags, tmp_path):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--tp", "2"], ValueError, "--tp 2"),
+    (["--fsdp"], NotImplementedError, "ROADMAP.md")], ids=["tp", "fsdp"])
+def test_unported_mesh_flags_raise(flags, error, match, tmp_path):
+    """fsdp is not ported; tp is, and without a process group raises."""
     from peneo_tpu_torch import run_rfund
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         run_rfund.main(["--output_dir", str(tmp_path), "--device", "cpu",
                         *flags])
     with pytest.raises(ValueError, match="--dp 2"):
@@ -340,9 +344,10 @@ def test_unported_mesh_flags_raise(flags, tmp_path):
 
 
 def test_serve_tp_raises(tmp_path):
+    """Without a process group: tp serving needs one process per rank."""
     from peneo_tpu_torch import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="--tp 2 .*torchrun"):
         serve.main(["--model_name_or_path", str(tmp_path), "--dir_image",
                     str(tmp_path), "--dir_ocr", str(tmp_path), "--device",
                     "cpu", "--tp", "2"])

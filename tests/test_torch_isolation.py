@@ -2,7 +2,8 @@
 chip_smoke.py imports jax, flax or peneo_tpu (nor msgpack or safetensors:
 the port reads those files itself), and the package, its models, its
 serving pipeline, its checkpoint readers, its training pipeline and its
-data- and sequence-parallel modules import with those modules blocked."""
+data-, tensor- and sequence-parallel modules import with those modules
+blocked."""
 
 import ast
 import os
@@ -61,6 +62,7 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.generate_peneo_weights\n"
         "import peneo_tpu_torch.parallel.dist\n"
         "import peneo_tpu_torch.parallel.seq_parallel\n"
+        "import peneo_tpu_torch.parallel.tensor_parallel\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
