@@ -219,11 +219,12 @@ count just before it and reads them just after):
    process's; kernel #2's flags at rate 0.1 differ between the ranks and
    equal the plain bits of each rank's offset seed; rank 0's saved weights
    are the ones it ended with, bit for bit, and serve the 96 pages to the
-   same records; one rank over NCCL (world 1): the one process's losses
-   within 1e-6. Any rank that fails or outlives its timeout fails the
-   script (all ranks are killed). ms/step for both backends and one
-   process: between the logged steps, and steady (5 more steps on one
-   batch after each CE run, past DDP's bucket rebuild at its second step).
+   same records (the CE run over one NCCL rank at world 1, the one
+   process's losses within 1e-6, is train_fsdp's DDP run). Any
+   rank that fails or outlives its timeout fails the script (all ranks are
+   killed). ms/step for the ranks and one process: between the logged
+   steps, and steady (5 more steps on one batch after each CE run, past
+   DDP's bucket rebuild at its second step).
 
 Sequence parallelism (after train_dp; ``parallel/seq_parallel.py``: the
 pair grid's rows over the ranks of an sp group, the backbone replicated;
@@ -266,8 +267,9 @@ process):
    and rates 0 and 0.1; #4-#6 at L' = 709 and 561 on the padded bias
    stride), each against its fp32 twin with the gates of phases 3, 4, 12
    and 13; each one's device ms.
-- serve_tp, serve_tp_v3, serve_tp_v2 — 2 gloo ranks at tp 2, the 96 pages
-   at B = 32, L = 512, bf16: LiLT-base through ``serve --tp 2``,
+- serve_tp, serve_tp_v3, serve_tp_v2 — 2 gloo ranks at tp 2, the first 32
+   pages (one batch, for the script's time) at B = 32, L = 512, bf16:
+   LiLT-base through ``serve --tp 2``,
    LayoutLMv3-base and LayoutXLM-base through ``InferenceService(tp=2)``
    (one launch). Gates: the first 4 pages' line-extraction logits within
    2e-2 (relative) of one process's, and no further from an fp32 forward
@@ -275,7 +277,7 @@ process):
    batch's spots against one process's (``spot_gate``, as serve_sp's, its
    spot counts reported: a random model puts ~10^5 spots a head above
    zero and its class probabilities crowd the argmax tie, which bf16
-   rounding in another summation order crosses); the 96 pages' records
+   rounding in another summation order crosses); the 32 pages' records
    alike on both ranks (and what ``serve`` wrote); #1 (or #4) 12 times a
    forward on each rank, fed 6 heads. Prints ms per forward, a profiled
    forward's device, GEMM and copy ms per rank beside one process's,
@@ -303,6 +305,45 @@ process):
    against its one process and fp32 run, gated as train_tp's; one batch's
    spots through ``InferenceService(tp=2, sp=2)`` against one process's
    (``spot_gate``), alike on all ranks; #1 12 times.
+
+fsdp (``parallel/fsdp.py``: FSDP2 over the dp ranks, each leaf on the dim
+JAX's ``param_shardings(fsdp=True)`` picks) and K steps per CUDA graph in
+a process group (after phase 29; each resets every kernel count just
+before it, in every process):
+
+``--fsdp`` at dp 1 is off, as JAX's fsdp at dp 1, so FSDP2 runs on the
+card only in the gloo ranks that share it. One NCCL rank (world 1) runs the
+work of train_fsdp and train_graph_dp in one launch (``nccl_world1``), each
+gated after it:
+
+- train_fsdp — ``run_rfund --distributed --fsdp`` at world 1: train_dp's
+   CE run (LiLT-base, B = 8, L = 512, bf16, dropout 0, 4 steps, an eval
+   and a save), beside the same run without ``--fsdp`` (DDP at world 1,
+   with train_dp's NCCL gate) and train_dp's one
+   process. Gates: the flag left off (dp 1), each step's loss within 1e-6
+   (relative) of one process's, the saved tensors within 1e-6 of one
+   process's (each over its own max), #1-#3 as in one process. Steady
+   ms/step and the peak (allocated, reserved) of each.
+- train_fsdp_ranks — train_dp's 2 gloo ranks (sharing the card) run its
+   CE run again at dp 2 with ``--fsdp`` after its CE and OHEM runs (gloo
+   moves FSDP2's collectives of CUDA tensors through the host): losses
+   within 1e-3 of one process's, alike on both ranks, #1-#3 as under DDP;
+   the peak per rank beside train_dp's DDP ranks' and one process's.
+- train_fsdp_v3 — (after train_tp) 2 gloo ranks sharing the card run
+   train_tp_v3's run (LayoutLMv3-base from its seeded model, L' = 709, 10
+   steps, an eval, a save) at dp 2 with ``--fsdp``: losses within 1e-3
+   of train_tp_v3's one process, alike on both ranks, #4-#6 as in one
+   process; the peak per rank.
+- train_graph_dp — ``--steps_per_call 4`` in a process group, one NCCL
+   rank, LiLT-base, the gradient mean of each step ``replica_mean_grads``
+   (at world 1 it returns before any all-reduce: no NCCL kernel is
+   captured): 4 of the trainer's K = 1 steps (DDP) against one replay from
+   the same state at dropout 0 (train_graph_parity's gates), the replays'
+   seeds the rank's (dp, tp) shard's and fresh on each replay; then 64
+   steps at dropout 0.1 through the trainer (ms/step over steps 17-64
+   beside train_graph's one process at K = 4 and train_fsdp's DDP at K =
+   1, world 1) and one profiled replay: 48 launches of each of #2/#3's
+   kernels, device busy, idle share and NCCL's ms.
 
 30. the ``kernels`` line (all six; ``launches`` sums every path's serving
    and training runs: the wrappers' counts, and for the graph runs also
@@ -417,17 +458,21 @@ def device_ms(fn, n=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total / n / 1e3
+    # now and then a profile records no device row at all (seen on this
+    # card between profiles that record them): profile again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if total > 0:
+            return total / n / 1e3
+    raise RuntimeError("the profiler recorded no device time in 3 "
+                       "profiles")
 
 
 def bound_of(n_bytes, flops, peaks):
@@ -3411,7 +3456,6 @@ def dp_worker(spec):
     parse = run_rfund.build_argparser().parse_args
     argvs = {k: v + ["--distributed"] for k, v in spec["argv"].items()}
     first = parse(argvs[spec["losses"][0]])
-    run_rfund.check_parallel_flags(first)
     run_rfund.init_parallel(first)
     me = pdist.rank()
     result = {"rank": me, "world": pdist.world(),
@@ -3534,7 +3578,9 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
     when each has its own), global B = TRAIN_B, L = 512, bf16, dropout 0,
     DP_STEPS steps of plain CE, then of OHEM 128/512, each with an eval over
     the 16 dev pages listed twice and a save; the same global batches in
-    one process (here); one NCCL rank (world 1) of the CE run."""
+    one process (here). The ranks then run the CE run under ``--fsdp``
+    (train_fsdp_ranks reads it); one NCCL rank (world 1) of the CE run is
+    train_fsdp's DDP run (``phase_nccl_world1``), gated there."""
     import torch
 
     from peneo_tpu_torch import run_rfund
@@ -3553,16 +3599,18 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
 
     per_rank = TRAIN_B // DP_WORLD
     outs = {(run, loss): os.path.join(tmp, f"dp_{run}_{loss}")
-            for run in ("solo", "ranks", "nccl") for loss in ("ce", "ohem")}
+            for run in ("solo", "ranks") for loss in ("ce", "ohem", "fsdp")}
     # the same global batches in this process
     parse = run_rfund.build_argparser().parse_args
     reset_counts(ba, rb)
+    torch.cuda.reset_peak_memory_stats()
     solo_ms = {}
     for loss in ("ce", "ohem"):
         _, trainer = run_rfund.run(parse(argv(loss, outs["solo", loss],
                                               TRAIN_B)))
         if loss == "ce":
             solo_counts = read_counts(ba, rb)
+            solo_peak = torch.cuda.max_memory_allocated()
             solo_ms = steady_ms(trainer)
             reset_counts(ba, rb)
         del trainer
@@ -3573,9 +3621,13 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
     gc.collect()
     torch.cuda.empty_cache()
 
-    spec = {"argv": {loss: argv(loss, outs["ranks", loss], per_rank)
-                     for loss in ("ce", "ohem")},
-            "losses": ["ce", "ohem"],
+    # "fsdp": the CE run with --fsdp (train_fsdp_ranks), under a name of
+    # its own: dp_worker times steady steps of "ce" only (~3.8 s each here)
+    spec = {"argv": {**{loss: argv(loss, outs["ranks", loss], per_rank)
+                        for loss in ("ce", "ohem")},
+                     "fsdp": argv("ce", outs["ranks", "fsdp"], per_rank)
+                     + ["--fsdp"]},
+            "losses": ["ce", "ohem", "fsdp"],
             "probe": argv("ce", os.path.join(tmp, "dp_probe_ranks"),
                           per_rank),
             "grads": os.path.join(tmp, "dp_grads.pt"),
@@ -3584,16 +3636,9 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
     t0 = time.perf_counter()
     ranks = launch_ranks(spec, DP_WORLD, tmp, "train_dp")
     ranks_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    nccl = launch_ranks({"argv": {"ce": argv("ce", outs["nccl", "ce"],
-                                              TRAIN_B)},
-                         "losses": ["ce"]}, 1, tmp, "train_dp_nccl")[0]
-    nccl_wall = time.perf_counter() - t0
     backend = ranks[0]["backend"]
-    if nccl["backend"] != "nccl" or any(r["backend"] != backend
-                                        for r in ranks):
-        raise RuntimeError(f"backends: ranks {[r['backend'] for r in ranks]}"
-                           f", world 1 {nccl['backend']}")
+    if any(r["backend"] != backend for r in ranks):
+        raise RuntimeError(f"backends: ranks {[r['backend'] for r in ranks]}")
 
     # losses and eval: both ranks alike, equal to the one process
     report, errors = {"backend": backend, "world": DP_WORLD,
@@ -3673,23 +3718,10 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
     if not all(same) or torch.equal(flags[0], flags[1]):
         errors.append(f"dropout flags {report['dropout_flags']}")
 
-    # world 1 over NCCL: the one-process losses bit for bit
-    nccl_steps, _ = log_records(os.path.join(outs["nccl", "ce"],
-                                             "log.jsonl"))
-    nccl_losses = [r["loss/total"] for r in nccl_steps]
-    report["nccl_world1"] = {
-        "losses": nccl_losses,
-        "ms_per_step_logged": step_ms(nccl_steps),
-        "launches": nccl["ce"]["launches"],
-        "max_memory_allocated": nccl["ce"]["max_memory_allocated"]}
     report["ms_per_step_steady"] = {
         "one_process": solo_ms,
         f"{backend}_{DP_WORLD}_ranks": ranks[0]["ce"]["steady_ms"],
-        "nccl_world1": nccl["ce"]["steady_ms"], "steps": STEADY_STEPS - 1}
-    if not rel_close(nccl_losses, report["ce"]["losses_one_process"],
-                     NCCL_LOSS_RTOL):
-        errors.append(f"NCCL world 1 losses {nccl_losses}")
-    expect_counts(nccl["ce"]["launches"], per_run, "train_dp nccl")
+        "steps": STEADY_STEPS - 1}
 
     # rank 0's save served by one process: the records of the model the
     # run ended with (rank 0 served them from its weights in memory), and
@@ -3712,17 +3744,17 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
                    "global_batch": TRAIN_B, "per_rank_batch": per_rank,
                    "L": L, "dropout": 0.0, "ohem_k": list(OHEM_K),
                    "ranks_wall_seconds": ranks_wall,
-                   "nccl_wall_seconds": nccl_wall,
                    "tol": {"loss": DP_LOSS_RTOL, "grad": DP_GRAD_TOL,
                            "nccl_loss": NCCL_LOSS_RTOL}})
     emit(report)
     if errors:
         raise RuntimeError("train_dp: " + "; ".join(errors))
-    # the main path's launches: this process's runs and every rank's
+    # the main path's launches: this process's runs and every rank's CE
+    # and OHEM runs (train_fsdp_ranks counts the fsdp run's)
     total = dict(solo_counts)
-    for r in ranks + [nccl]:
+    for r in ranks:
         for loss in ("ce", "ohem"):
-            for k, v in r.get(loss, {}).get("launches", {}).items():
+            for k, v in r[loss]["launches"].items():
                 total[k] += v
     # the one-process runs are train_sp's reference too
     reference = {"models": models, "data": data,
@@ -3730,7 +3762,15 @@ def phase_train_dp(ba, rb, tmp, train_out, img_dir, ocr_dir, smi):
                           for loss in ("ce", "ohem")},
                  "grads": solo_grads, "loss": solo_loss,
                  "probe": argv("ce", os.path.join(tmp, "sp_probe"), TRAIN_B),
-                 "ms_per_step": report["ce"]["ms_per_step_logged_one_process"]}
+                 "ms_per_step": report["ce"]["ms_per_step_logged_one_process"],
+                 # train_fsdp's and train_fsdp_ranks' references
+                 "train_out": train_out, "solo_out": outs["solo", "ce"],
+                 "solo_peak": solo_peak, "solo_steady_ms": solo_ms,
+                 "backend": backend,
+                 "ranks_peak": [r["ce"]["max_memory_allocated"]
+                                for r in ranks],
+                 "fsdp_ranks": [r["fsdp"] for r in ranks],
+                 "fsdp_ranks_out": outs["ranks", "fsdp"]}
     return total, reference
 
 
@@ -3768,7 +3808,6 @@ def sp_train_worker(spec):
     parse = run_rfund.build_argparser().parse_args
     argvs = {k: v + ["--distributed"] for k, v in spec["argv"].items()}
     first = parse(argvs[spec["losses"][0]])
-    run_rfund.check_parallel_flags(first)
     run_rfund.init_parallel(first)
     me = pdist.rank()
     result = {"rank": me, "world": pdist.world(),
@@ -4381,6 +4420,7 @@ TP_STEPS = 10
 TP_GRAD_NORM_RTOL = 1e-3
 TP_LOGIT_TOL = 2e-2  # relative error of one batch's logits, as parity's
 TP_LOGIT_PAGES = 4   # the pages of the first batch whose logits are kept
+TP_PAGES = B  # the pages serve_tp* serves: one batch
 # tp's distance from an fp32 run through the plain twins, over one
 # process's bf16 distance from it: serving logits (a norm over ~10^7
 # values) and, in training, the losses, grad norms and each step-1 gradient
@@ -4524,7 +4564,7 @@ def head_counts(model, dh=64):
 
 def tp_serve_worker(spec):
     """One rank of the ``serve_tp*`` launch (TP_WORLD gloo ranks on the
-    card, tp 2): per family of ``spec["models"]``, the 96 pages through
+    card, tp 2): per family of ``spec["models"]``, the pages through
     ``serve --tp 2`` (LiLT) or ``InferenceService(tp=2)`` (LayoutLMv3,
     LayoutXLM), the launch counts reset just before and read just after,
     with the peak allocated; then a service's batch wall ms, the attention
@@ -4662,7 +4702,8 @@ def logit_rel_err(got, want):
 
 
 def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
-    """Tensor-parallel serving at B = 32, L = 512, bf16 over the 96 pages:
+    """Tensor-parallel serving at B = 32, L = 512, bf16 over TP_PAGES of the
+    96 pages (one batch, cut for the script's 1200 s):
     TP_WORLD gloo ranks on the card at tp 2, LiLT-base through ``serve --tp
     2`` (``serve_tp``), LayoutLMv3-base (``serve_tp_v3``) and LayoutXLM-base
     (``serve_tp_v2``) through ``InferenceService(tp=2)``, one launch;
@@ -4674,6 +4715,16 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
 
+    # the first TP_PAGES pages under their own names
+    src_img, src_ocr = img_dir, ocr_dir
+    img_dir, ocr_dir = (os.path.join(tmp, "tp_img"),
+                        os.path.join(tmp, "tp_ocr"))
+    os.makedirs(img_dir)
+    os.makedirs(ocr_dir)
+    for i in range(TP_PAGES):
+        for src, dst in zip(page_paths(src_img, src_ocr, i),
+                            page_paths(img_dir, ocr_dir, i)):
+            os.symlink(src, dst)
     spec = {"worker": "tp_serve", "models": models,
             "pages": [img_dir, ocr_dir],
             "save": os.path.join(tmp, "serve_tp.json"),
@@ -4685,7 +4736,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
         written = json.loads(json.dumps(records_of(json.load(f))))
     total = {k: 0 for k in ranks[0]["lilt"]["launches"]}
     errors = []
-    n_forwards = math.ceil(N_PAGES / B)
+    n_forwards = math.ceil(TP_PAGES / B)
     for fam, model_dir in models.items():
         tag = "serve_tp" if fam == "lilt" else f"serve_tp_{fam}"
         torch.cuda.empty_cache()
@@ -4747,9 +4798,9 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
             "launches_one_process": solo_counts,
             "forward_wall_ms_ranks": [m["forward_wall_ms"] for m in mine],
             "forward_wall_ms_one_process": solo_ms,
-            "pages_per_s_ranks": [N_PAGES / m["seconds"] for m in mine],
+            "pages_per_s_ranks": [TP_PAGES / m["seconds"] for m in mine],
             "run_seconds_ranks": [m["seconds"] for m in mine],
-            "pages_per_s_one_process": N_PAGES / solo_wall,
+            "pages_per_s_one_process": TP_PAGES / solo_wall,
             "max_memory_allocated_ranks":
                 [m["max_memory_allocated"] for m in mine],
             "max_memory_allocated_one_process": solo_peak,
@@ -4771,7 +4822,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
                 written == mine[0]["records"]
             report["forward_profile_ranks"] = [m["profile"] for m in mine]
             report["forward_profile_one_process"] = solo_profile
-            if written != mine[0]["records"] or len(written) != N_PAGES:
+            if written != mine[0]["records"] or len(written) != TP_PAGES:
                 errors.append(f"{tag}: serve --tp 2 wrote other records")
         emit(report)
         if any(m["spots"] != mine[0]["spots"] or m["records"]
@@ -4783,7 +4834,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
             errors.append(f"{tag}: logits rel err {rel_err}, against fp32 "
                           f"{fp32_err}")
         for m in mine:
-            if m["heads"] != [TP_NH] or m["pages"] != N_PAGES:
+            if m["heads"] != [TP_NH] or m["pages"] != TP_PAGES:
                 errors.append(f"{tag}: heads {m['heads']}, pages "
                               f"{m['pages']}")
             expect_counts(m["launches"], {kernel: 12 * n_forwards},
@@ -5245,6 +5296,511 @@ def phase_grid_tp(ba, rb, tmp, ref, img_dir, ocr_dir, smi):
     return total
 
 
+# fsdp and K steps per call in a process group -------------------------------
+
+# --fsdp at NCCL world 1 (off: dp 1) against one process: train_dp's NCCL gate, for the
+# losses and for the saved tensors (each over its own max |value|)
+FSDP_RTOL = NCCL_LOSS_RTOL
+# train_graph_dp: the parity trainers' schedule (8 steps with 2 of warmup:
+# every one of the K steps moves the parameters); ms/step over the steps
+# after the first log (48 of GRAPH_STEPS: LiLT's feed keeps up from there)
+GRAPH_DP_PARITY_STEPS = 8
+GRAPH_DP_FROM = GRAPH_LOG
+
+
+def graph_parity(trainer, group, gen):
+    """From the trainer's state and the GRAPH_K batches of ``group``:
+    GRAPH_K of its K = 1 steps (``train_step`` on its step model, with its
+    gradient mean), then one replay of a K-step graph (``MultiTrainStep``
+    with the trainer's shard and gradient mean) from that state again,
+    every dropout 0. Returns train_graph_parity's comparison and the step
+    function."""
+    import torch
+
+    from peneo_tpu_torch.parallel import dist as pdist
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import tree_map
+
+    optimizer, scheduler = trainer.optimizer, trainer.scheduler
+    names, params = zip(*[(n, p) for n, p in trainer.model.named_parameters()
+                          if p.requires_grad])
+    start = [p.detach().clone() for p in params]
+
+    def reset():  # in place: the graph keeps these tensors
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        for state in optimizer.state.values():
+            for v in state.values():
+                v.zero_()
+        scheduler.count.zero_()
+
+    names3 = ("total", "learning_rate", "grad_norm")
+    reset()
+    rows = [T.train_step(trainer.step_model, optimizer, scheduler,
+                         tree_map(lambda t, k=k: t[k], group), 1.0, gen,
+                         torch.bfloat16, trainer.grad_sync)
+            for k in range(GRAPH_K)]
+    eager = {k: [float(m[k]) for m in rows] for k in names3}
+    reference = [p.detach().clone() for p in params]
+    step_fn = T.MultiTrainStep(trainer.step_model, optimizer, scheduler,
+                               GRAPH_K, 1.0, gen, torch.bfloat16, SEED,
+                               pdist.seed_shard(), trainer.grad_sync)
+    reset()
+    step_fn(group)  # the warm-up's eager steps, then the capture
+    reset()
+    step_fn(group)  # one replay
+    torch.cuda.synchronize()
+    graph = {k: step_fn.per_step[k].tolist() for k in names3}
+    diffs = sorted(((p - r).abs().max().item(), n)
+                   for n, p, r in zip(names, params, reference))
+    return {"eager": eager, "graph": graph,
+            "loss_max_rel_diff": max(abs(x - y) / abs(y) for x, y
+                                     in zip(graph["total"], eager["total"])),
+            "learning_rates_equal":
+                graph["learning_rate"] == eager["learning_rate"],
+            "param_max_abs_diff": diffs[-1][0],
+            "bit_identical": diffs[-1][0] == 0.0 and graph == eager}, step_fn
+
+
+def nccl_worker(spec):
+    """The one NCCL rank (world 1; ``chip_smoke.py --dp-worker``) of
+    train_fsdp and train_graph_dp, one launch for the two.
+    1. ``spec["runs"]``: each ``run_rfund``'s steps, eval and save with the
+       launch counts reset just before and read just after.
+    2. ``spec["parity"]``: per layout a K-step trainer at dropout 0 and
+       :func:`graph_parity`, the seeds of two replays, the replays' ms.
+    3. ``spec["graph_argv"]``: the K-step trainer's GRAPH_STEPS steps and
+       eval (counts reset just before), then one profiled replay of a
+       K-step graph of the model it trained.
+    Writes the results to ``spec["result"]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, REPO)
+    from peneo_tpu_torch import run_rfund
+    from peneo_tpu_torch.models.dropout_seeds import (LAYERS_PER_STEP,
+                                                      RANK_STRIDE)
+    from peneo_tpu_torch.ops import biacm_attention as ba
+    from peneo_tpu_torch.ops import bias_attention as rb
+    from peneo_tpu_torch.parallel import dist as pdist
+    from peneo_tpu_torch.pipeline import train as T
+    from peneo_tpu_torch.pipeline.loader import stack_batches, \
+        to_host_tensors, tree_map
+    from peneo_tpu_torch.pipeline.trainer import PEneoTrainer
+
+    def parse(argv):
+        return run_rfund.build_argparser().parse_args(argv + ["--distributed"])
+
+    def trainer_of(argv):
+        args = parse(argv)
+        cfg, model, train_ds, eval_ds, collator, _ = run_rfund.setup(args)
+        return PEneoTrainer(cfg, model, run_rfund.training_arguments(args),
+                            train_ds, eval_ds, collator)
+
+    def group_of(trainer):  # GRAPH_K batches of its corpus, stacked
+        items = [[trainer.train_dataset[j * TRAIN_B + i]
+                  for i in range(TRAIN_B)] for j in range(GRAPH_K)]
+        return tree_map(lambda t: t.cuda(), to_host_tensors(stack_batches(
+            [trainer.collator(x) for x in items]), pin=True))
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ba, rb)
+
+    run_rfund.init_parallel(parse(spec["graph_argv"]))
+    result = {"rank": pdist.rank(), "world": pdist.world(),
+              "backend": pdist.dist.get_backend(), "runs": {},
+              "parity": {}}
+    try:
+        for run in spec["runs"]:
+            fresh()
+            t0 = time.perf_counter()
+            _, trainer = run_rfund.run(parse(run["argv"]))
+            result["runs"][run["name"]] = {
+                "fsdp": trainer.fsdp,
+                "wall_seconds": time.perf_counter() - t0,
+                "launches": read_counts(ba, rb),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                "steady_ms": steady_ms(trainer)}
+            del trainer
+        for name, argv in spec["parity"].items():
+            fresh()
+            trainer = trainer_of(argv)
+            group = group_of(trainer)
+            report, step_fn = graph_parity(
+                trainer, group, torch.Generator().manual_seed(SEED))
+            seeds = []
+            for _ in range(2):
+                seeds.append(int(step_fn.seeds.layer(0)))
+                step_fn(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step_fn(group)
+            torch.cuda.synchronize()
+            report.update({
+                "fsdp": trainer.fsdp,
+                "grad_sync": trainer.grad_sync is not None,
+                "seed_base": step_fn.seeds.base,
+                "seed_base_expected": (SEED << 32)
+                + pdist.seed_shard() * RANK_STRIDE,
+                "layer0_seeds_of_two_replays": seeds,
+                "seed_advance_expected": GRAPH_K * LAYERS_PER_STEP,
+                "replay_ms_per_step":
+                    (time.perf_counter() - t0) / (3 * GRAPH_K) * 1e3})
+            result["parity"][name] = report
+            del trainer, group, step_fn
+        fresh()
+        trainer = trainer_of(spec["graph_argv"])
+        t0 = time.perf_counter()
+        trainer.train()
+        result["graph_run"] = {
+            "wall_seconds": time.perf_counter() - t0,
+            "grad_sync": trainer.grad_sync is not None,
+            "launches": read_counts(ba, rb),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved()}
+        # one profiled replay of a K-step graph of the trained model
+        group = group_of(trainer)
+        step_fn = T.MultiTrainStep(
+            trainer.step_model, trainer.optimizer, trainer.scheduler,
+            GRAPH_K, 1.0, None, torch.bfloat16, SEED, pdist.seed_shard(),
+            trainer.grad_sync)
+        step_fn(group)  # warm-up and capture
+        step_fn(group)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(group)
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3
+        rows, busy_ms = device_rows(prof, replay_ms, spec.get("profile"),
+                                    "train_graph_dp")
+        result["replay"] = {
+            "ms": replay_ms, "busy_ms": busy_ms,
+            "trace_launches": trace_launches(rows),
+            "nccl_ms": sum(ms for k, ms, _ in rows if "nccl" in k.lower()),
+            "top_kernels": [[k[:90], round(ms, 3), n]
+                            for k, ms, n in rows[:8]]}
+        del trainer, step_fn, group
+        pdist.barrier()
+    finally:
+        pdist.dist.destroy_process_group()
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_nccl_world1(tmp, reference, train_record, profile_dir):
+    """One NCCL rank (world 1) for train_fsdp and train_graph_dp
+    (``nccl_worker``; one launch, the kernel libraries loaded once):
+    LiLT-base at train_dp's CE run's arguments under DDP (train_dp's NCCL
+    world-1 run) and with ``--fsdp`` (off at dp 1); K = GRAPH_K steps per
+    CUDA graph: a parity trainer at dropout 0, and train's arguments for
+    GRAPH_STEPS steps at dropout 0.1. Returns the rank's results and the
+    runs' arguments."""
+    lilt, data = reference["models"]["ce"], reference["data"]
+
+    def out(name):
+        return os.path.join(tmp, name)
+
+    runs = [{"name": "ddp", "argv": dp_argv(lilt, data, out("fsdp_ddp"),
+                                            TRAIN_B)},
+            {"name": "fsdp", "argv": dp_argv(lilt, data, out("fsdp_fsdp"),
+                                             TRAIN_B, "--fsdp")}]
+    free = graph_model_dir(reference["train_out"], out("graph_dp_free"), 0.0)
+    parity = ["--synthetic_data", "--model_name_or_path", free,
+              "--data_dir", data, "--output_dir", out("graph_dp_parity"),
+              "--max_seq_len", str(L),
+              "--per_device_train_batch_size", str(TRAIN_B),
+              "--steps_per_call", str(GRAPH_K),
+              "--max_steps", str(GRAPH_DP_PARITY_STEPS),
+              "--warmup_ratio", "0.25", "--learning_rate", "5e-5",
+              "--save_steps", "0", "--seed", str(SEED), "--no_resume"]
+    graph_argv = list(train_record["argv"]) + [
+        "--output_dir", out("train_graph_dp"),
+        "--max_steps", str(GRAPH_STEPS), "--logging_steps", str(GRAPH_LOG),
+        "--eval_steps", str(GRAPH_STEPS), "--save_steps", "0",
+        "--steps_per_call", str(GRAPH_K), "--no_resume"]
+    spec = {"worker": "nccl", "runs": runs, "graph_argv": graph_argv,
+            "parity": {"dp": parity},
+            "profile": profile_dir}
+    t0 = time.perf_counter()
+    rank = launch_ranks(spec, 1, tmp, "nccl_world1")[0]
+    if rank["backend"] != "nccl" or rank["world"] != 1:
+        raise RuntimeError(f"nccl_world1: backend {rank['backend']}, world "
+                           f"{rank['world']}")
+    return {"rank": rank, "runs": {r["name"]: r for r in runs},
+            "graph_out": out("train_graph_dp"),
+            "wall_seconds": time.perf_counter() - t0}
+
+
+def check_runs(tag, nccl, names, solo_log, per_run, errors):
+    """The NCCL rank's training runs ``names`` against one process's losses
+    (``solo_log``, FSDP_RTOL) and launches (``per_run``), fsdp off (dp 1);
+    their report by name, and their launches summed."""
+    want = [r["loss/total"] for r in log_records(solo_log)[0]]
+    report, launches = {"losses_one_process": want}, {}
+    if not want or not all(map(math.isfinite, want)):
+        errors.append(f"one-process losses {want}")
+    for name in names:
+        got = nccl["rank"]["runs"][name]
+        argv = nccl["runs"][name]["argv"]
+        logged, _ = log_records(os.path.join(
+            argv[argv.index("--output_dir") + 1], "log.jsonl"))
+        losses = [x["loss/total"] for x in logged]
+        report[name] = dict(got, losses=losses,
+                            max_rel_err=max(abs(a - b) / abs(b) for a, b
+                                            in zip(losses, want)),
+                            ms_per_step_logged=step_ms(logged))
+        if got["fsdp"] or not rel_close(losses, want, FSDP_RTOL):
+            errors.append(f"{tag} {name}: fsdp {got['fsdp']}, losses "
+                          f"{losses} vs one process {want}")
+        expect_counts(got["launches"], per_run, f"{tag} {name}")
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return report, launches
+
+
+def phase_train_fsdp(ba, rb, tmp, reference, nccl, smi):
+    """``run_rfund --fsdp --distributed`` of LiLT-base at NCCL world 1
+    (train_dp's CE run: its model at dropout 0 and corpus, B=8, L=512,
+    bf16, DP_STEPS steps, an eval and a save) beside the same run without
+    the flag (DDP: train_dp's NCCL world-1 run) and train_dp's one-process
+    run. Gates: fsdp off at dp 1 (as JAX's), each step's loss within
+    FSDP_RTOL of one process's (DDP's too: train_dp's NCCL gate), the
+    ``--fsdp`` run's saved tensors within FSDP_RTOL of one process's, #1-#3
+    launched as in one process. Reports steady ms/step and the peak of
+    each."""
+    layers, n_dev = 12, 16
+    per_run = {"fwd": layers * DP_STEPS, "bwd": layers * DP_STEPS,
+               "biacm_attention": layers * 2 * n_dev // TRAIN_B}
+    errors = []
+    runs, launches = check_runs("train_fsdp", nccl, ("ddp", "fsdp"),
+                                reference["logs"]["ce"], per_run, errors)
+    saved = saved_rel_err(os.path.join(tmp, "fsdp_fsdp"),
+                          reference["solo_out"])
+    if saved > FSDP_RTOL:
+        errors.append(f"saved tensors {saved} off one process's")
+    report = {"phase": "train_fsdp", "steps": DP_STEPS,
+              "batch_size": TRAIN_B, "L": L, "dropout": 0.0,
+              "nvidia_smi": smi, "world": 1, "backend": "nccl", **runs,
+              "one_process": {
+                  "max_memory_allocated": reference["solo_peak"],
+                  "steady_ms": reference["solo_steady_ms"]},
+              "saved_max_rel_err": saved,
+              "ms_per_step_steady": {
+                  "one_process": reference["solo_steady_ms"],
+                  "ddp": runs["ddp"]["steady_ms"],
+                  "fsdp": runs["fsdp"]["steady_ms"],
+                  "steps": STEADY_STEPS - 1},
+              "tol": FSDP_RTOL}
+    emit(report)
+    if errors:
+        raise RuntimeError("train_fsdp: " + "; ".join(errors))
+    return launches, report
+
+
+def saved_rel_err(a_dir, b_dir):
+    """The largest over tensors of max |a − b| / max |b| between two saved
+    ``pytorch_model.bin`` files (compared on the card); inf when their keys
+    differ."""
+    import torch
+
+    a = torch.load(os.path.join(a_dir, "pytorch_model.bin"),
+                   weights_only=True)
+    b = torch.load(os.path.join(b_dir, "pytorch_model.bin"),
+                   weights_only=True)
+    if set(a) != set(b):
+        return float("inf")
+    worst = 0.0
+    for k in b:
+        x, y = a[k].cuda().float(), b[k].cuda().float()
+        worst = max(worst, (x - y).abs().max().item()
+                    / (y.abs().max().item() or 1.0))
+    return worst
+
+
+def phase_train_fsdp_v3(tmp, v3_data, smi):
+    """LayoutLMv3-base under FSDP2 on DP_WORLD gloo ranks sharing the card
+    (``run_rfund --fsdp`` at dp 2): train_tp_v3's run (its seeded model at
+    the decoder's own learning rate, train_v3's corpus, L' = 709, global B
+    = 8, TP_STEPS steps, an eval, a save) against its one process (run by
+    train_tp). Gates: both ranks' losses alike and within DP_LOSS_RTOL of
+    one process's, #4-#6 launched on each rank as in one process. Reports
+    the peak per rank."""
+    layers = 12
+    with open(os.path.join(v3_data, "en.val.json")) as f:
+        n_eval = math.ceil(len(json.load(f)["documents"]) / TRAIN_B)
+    per_run = {"bias_fwd": layers * TP_STEPS, "bias_bwd": layers * TP_STEPS,
+               "bias_attention": layers * n_eval}
+    out = os.path.join(tmp, "fsdp_v3")
+    argv = dp_argv(os.path.join(tmp, "tp_v3_model"), v3_data, out,
+                   TRAIN_B // DP_WORLD, "--fsdp", steps=TP_STEPS)
+    t0 = time.perf_counter()
+    ranks = launch_ranks({"argv": {"fsdp": argv}, "losses": ["fsdp"]},
+                         DP_WORLD, tmp, "train_fsdp_v3")
+    wall = time.perf_counter() - t0
+    want = [r["loss/total"] for r in log_records(os.path.join(
+        tmp, "tp_v3_solo", "log.jsonl"))[0]]
+    got = [[r["loss/total"] for r in log_records(os.path.join(
+        out, "log.jsonl" if r == 0 else f"log.rank{r}.jsonl"))[0]]
+        for r in range(DP_WORLD)]
+    emit({"phase": "train_fsdp_v3", "world": DP_WORLD,
+          "backend": ranks[0]["backend"], "nvidia_smi": smi,
+          "steps": TP_STEPS, "global_batch": TRAIN_B,
+          "per_rank_batch": TRAIN_B // DP_WORLD, "attention_length": LV,
+          "dropout": 0.0, "losses_one_process": want, "losses_ranks": got,
+          "max_rel_err": max_rel_err(got[0], want),
+          "max_memory_allocated_ranks":
+              [r["fsdp"]["max_memory_allocated"] for r in ranks],
+          "ms_per_step_logged": step_ms(log_records(os.path.join(
+              out, "log.jsonl"))[0]),
+          "launches_ranks": [r["fsdp"]["launches"] for r in ranks],
+          "ranks_wall_seconds": wall, "tol": DP_LOSS_RTOL})
+    if len(want) != TP_STEPS or any(g != got[0] for g in got) \
+            or not rel_close(got[0], want, DP_LOSS_RTOL):
+        raise RuntimeError(f"train_fsdp_v3: rank losses {got} vs one "
+                           f"process {want}")
+    total = {}
+    for i, r in enumerate(ranks):
+        expect_counts(r["fsdp"]["launches"], per_run,
+                      f"train_fsdp_v3 rank {i}")
+        for k, v in r["fsdp"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_train_fsdp_ranks(reference, smi):
+    """``run_rfund --fsdp`` on DP_WORLD gloo ranks sharing the card (run in
+    train_dp's launch, after its CE and OHEM runs; gloo moves FSDP2's
+    all-gathers and reduce-scatters of CUDA tensors through the host):
+    train_dp's CE run (global B=8, 4 a rank, DP_STEPS steps, an eval, a
+    save) with the parameters and the AdamW state sharded over dp. Gates:
+    both ranks' losses within DP_LOSS_RTOL of one process's, #1-#3 as
+    under DDP. Reports each rank's peak against train_dp's DDP ranks' and
+    one process's."""
+    ranks, out = reference["fsdp_ranks"], reference["fsdp_ranks_out"]
+    layers, n_dev = 12, 16
+    per_run = {"fwd": layers * DP_STEPS, "bwd": layers * DP_STEPS,
+               "biacm_attention": layers * 2 * n_dev // TRAIN_B}
+    want = [r["loss/total"] for r in log_records(reference["logs"]["ce"])[0]]
+    got = [[r["loss/total"] for r in log_records(os.path.join(
+        out, "log.jsonl" if r == 0 else f"log.rank{r}.jsonl"))[0]]
+        for r in range(DP_WORLD)]
+    peaks = [r["max_memory_allocated"] for r in ranks]
+    emit({"phase": "train_fsdp_ranks", "world": DP_WORLD,
+          "backend": reference["backend"], "nvidia_smi": smi,
+          "steps": DP_STEPS, "global_batch": TRAIN_B,
+          "per_rank_batch": TRAIN_B // DP_WORLD, "dropout": 0.0,
+          "losses_one_process": want, "losses_ranks": got,
+          "max_rel_err": max(abs(a - b) / abs(b)
+                             for a, b in zip(got[0], want)),
+          "max_memory_allocated_ranks": peaks,
+          "ddp_max_memory_allocated_ranks": reference["ranks_peak"],
+          "one_process_max_memory_allocated": reference["solo_peak"],
+          "peak_over_ddp": [a / b for a, b in zip(peaks,
+                                                  reference["ranks_peak"])],
+          "ms_per_step_logged": step_ms(log_records(os.path.join(
+              out, "log.jsonl"))[0]),
+          "launches_ranks": [r["launches"] for r in ranks],
+          "tol": DP_LOSS_RTOL})
+    errors = []
+    if any(g != got[0] for g in got) or not rel_close(got[0], want,
+                                                      DP_LOSS_RTOL):
+        errors.append(f"rank losses {got} vs one process {want}")
+    total = {}
+    for i, r in enumerate(ranks):
+        expect_counts(r["launches"], per_run, f"train_fsdp_ranks rank {i}")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if errors:
+        raise RuntimeError("train_fsdp_ranks: " + "; ".join(errors))
+    return total
+
+
+def phase_train_graph_dp(nccl, graph, smi):
+    """K = GRAPH_K steps per CUDA graph inside a process group (the NCCL
+    rank at world 1, LiLT-base, B=8, L=512; each step's gradient mean
+    ``replica_mean_grads`` in place of DDP, which at world 1 returns before
+    any all-reduce, so the graph holds no collective). Parity at dropout 0:
+    the trainer's GRAPH_K steps (DDP) against one replay,
+    ``train_graph_parity``'s gates; the attention seeds of the rank's (dp,
+    tp) shard, fresh on each replay. Speed at dropout 0.1:
+    ``--steps_per_call GRAPH_K`` over GRAPH_STEPS steps (logged every
+    GRAPH_LOG; ms/step over the steps after the first log) beside one
+    process at K = GRAPH_K (``train_graph``) and DDP at K = 1
+    (``train_fsdp``'s DDP run, steady), the run's wrapper calls (the first
+    call's warm-up and capture, the eval), and one profiled replay: 12
+    launches a step of each of #2/#3's kernels, busy, idle and NCCL's ms."""
+    rank = nccl["rank"]
+    errors = []
+    for name, p in rank["parity"].items():
+        if p["loss_max_rel_diff"] > GRAPH_LOSS_RTOL \
+                or not p["learning_rates_equal"] \
+                or p["param_max_abs_diff"] > GRAPH_PARAM_ATOL:
+            errors.append(f"{name}: the K-step graph differs from K eager "
+                          f"steps: {p}")
+        a, b = p["layer0_seeds_of_two_replays"]
+        if p["seed_base"] != p["seed_base_expected"] \
+                or b - a != p["seed_advance_expected"] \
+                or p["fsdp"] or not p["grad_sync"]:
+            errors.append(f"{name}: seeds or layout {p}")
+    steps, evals = log_records(os.path.join(nccl["graph_out"], "log.jsonl"))
+    logged = list(range(GRAPH_LOG, GRAPH_STEPS + 1, GRAPH_LOG))
+    losses = [r["loss/total"] for r in steps]
+    if [r["step"] for r in steps] != logged \
+            or not all(map(math.isfinite, losses)) \
+            or steps[-1]["nonfinite_loss_steps"] != 0 or len(evals) != 1 \
+            or not rank["graph_run"]["grad_sync"]:
+        errors.append(f"logged steps {[r['step'] for r in steps]}, losses "
+                      f"{losses}, evals {len(evals)}, captured gradient "
+                      f"mean {rank['graph_run']['grad_sync']}")
+    layers, n_dev = 12, 16
+    expect_counts(rank["graph_run"]["launches"],
+                  {"fwd": layers * 2 * GRAPH_K, "bwd": layers * 2 * GRAPH_K,
+                   "biacm_attention": layers * math.ceil(n_dev / TRAIN_B)},
+                  "train_graph_dp run")
+    replay = rank["replay"]
+    traced = replay["trace_launches"]
+    want = {k: (layers * GRAPH_K if k in STEP_KERNELS[""] else 0)
+            for k in traced}
+    if traced != want:
+        errors.append(f"the profiled replay launched {traced}, expected "
+                      f"{want}")
+    times = {r["step"]: r["time"] for r in steps}
+    ms_step = ((times[GRAPH_STEPS] - times[GRAPH_DP_FROM])
+               / (GRAPH_STEPS - GRAPH_DP_FROM) * 1e3
+               if GRAPH_STEPS in times and GRAPH_DP_FROM in times else None)
+    emit({"phase": "train_graph_dp", "world": 1, "backend": "nccl",
+          "nvidia_smi": smi, "steps_per_call": GRAPH_K,
+          "batch_size": TRAIN_B, "L": L, "parity": rank["parity"],
+          "dropout": DROP, "steps": GRAPH_STEPS, "ms_per_step": ms_step,
+          "ms_per_step_window": [GRAPH_DP_FROM + 1, GRAPH_STEPS],
+          "ms_per_step_one_process_k4": graph["ms_per_step"],
+          "ms_per_step_ddp_k1_world1":
+              rank["runs"]["ddp"]["steady_ms"],
+          "profiled_replay_ms_per_step": replay["ms"] / GRAPH_K,
+          "device_busy_ms_per_step": replay["busy_ms"] / GRAPH_K,
+          "device_idle_share": 1 - replay["busy_ms"] / replay["ms"],
+          "nccl_device_ms_per_step": replay["nccl_ms"] / GRAPH_K,
+          "replay_trace_launches": traced,
+          "top_kernels": replay["top_kernels"], "run": rank["graph_run"],
+          "losses": losses,
+          "tol": {"loss": GRAPH_LOSS_RTOL, "param": GRAPH_PARAM_ATOL}})
+    if errors:
+        raise RuntimeError("train_graph_dp: " + "; ".join(errors))
+    launches = dict(rank["graph_run"]["launches"])
+    launches["fwd"] += traced[STEP_KERNELS[""][1]]
+    launches["bwd"] += traced[STEP_KERNELS[""][2]]
+    return launches
+
+
 def timed(name, fn, *a, **kw):
     """Run one phase and print its seconds."""
     import torch
@@ -5274,7 +5830,8 @@ def main(argv=None):
         spec = json.loads(args.dp_worker)
         return {"dp": dp_worker, "sp_train": sp_train_worker,
                 "sp_serve": sp_serve_worker, "tp_serve": tp_serve_worker,
-                "tp_train": tp_train_worker}[spec.get("worker", "dp")](spec)
+                "tp_train": tp_train_worker,
+                "nccl": nccl_worker}[spec.get("worker", "dp")](spec)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs a GPU",
@@ -5396,6 +5953,10 @@ def main(argv=None):
         surface.append(tp_counts)
         surface.append(timed("grid_tp", phase_grid_tp, ba, rb, tmp,
                              tp_reference, img_dir, ocr_dir, smi))
+        # fsdp of LayoutLMv3 at dp 2: train_tp_v3's run over 2 gloo ranks
+        surface.append(timed(
+            "train_fsdp_v3", phase_train_fsdp_v3, tmp,
+            os.path.join(launches_v3["train_out"], "synthetic_data"), smi))
 
         # steps_per_call: K fine-tuning steps as one CUDA graph replay
         timed("kernel_seed", phase_kernel_seed, ba, rb)
@@ -5411,6 +5972,18 @@ def main(argv=None):
                 f"train_graph_{tag}", phase_train_graph, rb, ba, tmp,
                 path["train_record"]["argv"], path["train_record"], tag,
                 args.profile)
+
+        # fsdp (ZeRO-3 over dp) and K steps per CUDA graph in a process
+        # group: one NCCL rank (world 1) runs the two NCCL phases' work,
+        # each gated after it; train_dp's gloo ranks ran the fsdp one's
+        nccl = timed("nccl_world1", phase_nccl_world1, tmp, dp_reference,
+                     train_record, args.profile)
+        surface.append(timed("train_fsdp", phase_train_fsdp, ba, rb, tmp,
+                             dp_reference, nccl, smi)[0])
+        surface.append(timed("train_fsdp_ranks", phase_train_fsdp_ranks,
+                             dp_reference, smi))
+        surface.append(timed("train_graph_dp", phase_train_graph_dp, nccl,
+                             graph[""], smi))
     # launches on every path: serving, and the training runs (with their
     # eval forwards); for the K-step graph runs, the wrappers' calls (the
     # warm-up and the capture) and one profiled replay's from its trace

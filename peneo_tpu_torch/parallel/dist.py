@@ -380,6 +380,27 @@ def replica_sum(tensor: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def replica_mean_grads(params) -> None:
+    """Replace the gradients of ``params`` by their mean over the replica
+    group, as DDP averages them: one all-reduce of a flat buffer of every
+    gradient, each rank's share divided by the group's size first (DDP's
+    reducer scales its buckets before the sum). The gradient mean of K > 1
+    steps per call (``pipeline/train.py`` ``MultiTrainStep``), on the card
+    inside their CUDA graph, where DDP's reducer, which rebuilds its buckets
+    after the first step and broadcasts buffers, cannot be captured. At a
+    replica group of one rank it returns before any work."""
+    n = replica_size()
+    grads = [p.grad for p in params if p.grad is not None]
+    if n == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads]).div_(n)
+    dist.all_reduce(flat, group=_grid.replica_group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def gather_objects(obj) -> List:
     """``obj`` of every rank, in rank order, on every rank
     (``all_gather_object``)."""

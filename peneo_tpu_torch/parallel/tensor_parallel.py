@@ -38,9 +38,10 @@ collectives there; here they are the autograd ops below):
   :func:`copy_to_tp` too, so its gradient is summed over the group.
 
 :func:`set_tensor_parallel` takes a model that holds the full weights and
-keeps this rank's shard of each split tensor in place (``tp_split`` on the
-parameter names its dim and ``tp_shard`` its group; ``model.tp_splits`` maps
-every split key to its dim).
+keeps this rank's shard of each split tensor in place (``model.tp_splits``
+maps every split key to its dim, ``model.tp_shard`` is the rank's
+:class:`TpShard`; both by name, so that they outlive a parameter that fsdp
+replaces).
 Files on disk always hold the full tensors: :func:`gather_state_dict` and
 :func:`gather_optimizer_state` (collectives) rebuild them, and
 :func:`shard_state_dict` / :func:`shard_optimizer_state` cut a full state
@@ -54,7 +55,7 @@ from __future__ import annotations
 import contextlib
 import re
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -112,13 +113,19 @@ def param_splits(state: Dict[str, torch.Tensor], size: int) -> Dict[str, int]:
     divisible by ``size`` (they stay replicated, as JAX's do)."""
     if size == 1:
         return {}
+    return rule_dims({k: t.shape for k, t in state.items()}, size)
+
+
+def rule_dims(shapes: Dict[str, Sequence[int]], size: int) -> Dict[str, int]:
+    """:func:`param_splits` from full shapes, at any ``size``: at tp 1 the
+    dims JAX's specs still name ``tp`` (an axis of size 1)."""
     out = {}
-    for key, t in state.items():
+    for key, shape in shapes.items():
         kind = split_kind(key)
         if kind is None:
             continue
         dim = _SPLIT_DIM[kind]
-        if dim < t.dim() and t.shape[dim] % size == 0:
+        if dim < len(shape) and shape[dim] % size == 0:
             out[key] = dim
     return out
 
@@ -336,7 +343,6 @@ def set_tensor_parallel(model: nn.Module, index: int, size: int,
         for key, dim in splits.items():
             p = params[key]
             p.data = shard_tensor(p.data, dim, index, size)
-            p.tp_split, p.tp_shard = dim, shard
     for m in model.modules():
         if hasattr(m, "tp"):
             m.tp = shard
@@ -348,5 +354,5 @@ def set_tensor_parallel(model: nn.Module, index: int, size: int,
         else:
             module.split = kind
             module.tp = shard
-    model.tp_splits = splits
+    model.tp_splits, model.tp_shard = splits, shard
     return splits

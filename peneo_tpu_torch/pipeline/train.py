@@ -26,7 +26,8 @@ eager step computes. A visual backbone's ``image`` travels in the batch.
 :class:`MultiTrainStep` runs K steps per call over a stacked group of K
 batches (``peneo_tpu/pipeline/train.py:313``, a ``lax.scan`` under ``jit``
 there): one replay of a CUDA graph of the K steps on the card, the K
-eager steps in a loop on the CPU.
+eager steps in a loop on the CPU; in a process group too, the graph then
+holding the steps' collectives.
 """
 
 from __future__ import annotations
@@ -35,10 +36,12 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.dropout_seeds import StepSeeds
 from ..models.peneo import PEneoModel
-from ..parallel.tensor_parallel import reduce_from_tp
+from ..parallel.tensor_parallel import NO_TP, TpShard, reduce_from_tp
 from .loader import tree_leaves, tree_map
 
 
@@ -178,34 +181,46 @@ def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
     return optimizer, scheduler
 
 
-def clip_by_global_norm(params, max_norm: Optional[float]) -> torch.Tensor:
-    """Global L2 norm of the gradients (fp32); scales them by
-    ``max_norm / norm`` when it is larger (no host sync). Under tensor
-    parallelism the squares of the split parameters' gradients
-    (``tp_split``) are summed over their tp group and the replicated ones
-    counted once, so that the norm is the whole model's, as JAX's
-    ``optax.clip_by_global_norm`` computes it over sharded leaves."""
-    grads = [p.grad for p in params if p.grad is not None]
-    tp = next((p.tp_shard for p in params
-               if getattr(p, "tp_split", None) is not None), None)
-    if tp is None:
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm([g.float() for g in grads])))
-    else:
-        split = [p.grad.float() for p in params if p.grad is not None
-                 and getattr(p, "tp_split", None) is not None]
-        whole = [p.grad.float() for p in params if p.grad is not None
-                 and getattr(p, "tp_split", None) is None]
-        squares = torch.stack([
-            torch.stack(torch._foreach_norm(part)).square().sum()
-            if part else grads[0].new_zeros((), dtype=torch.float32)
-            for part in (split, whole)])
-        squares[0] = reduce_from_tp(squares[0], tp)
-        norm = squares.sum().sqrt()
-    if max_norm is not None and max_norm > 0:
-        scale = torch.clamp(max_norm / norm, max=1.0)
-        torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+def clip_by_global_norm(named, max_norm: Optional[float],
+                        splits: Optional[Dict[str, int]] = None,
+                        tp: TpShard = NO_TP,
+                        shard_group=None) -> torch.Tensor:
+    """Global L2 norm of the gradients of ``named`` ((name, parameter)
+    pairs), fp32; scales them by ``max_norm / norm`` when it is larger (no
+    host sync). The norm is the whole model's, as JAX's
+    ``optax.clip_by_global_norm`` computes it over sharded leaves: under
+    fsdp (``shard_group``, over which every parameter's disjoint shards are
+    spread) the squares of the local shards are summed over that group;
+    under tensor parallelism those of the split parameters (``splits``, by
+    name) are summed over the tp group, and the replicated ones counted
+    once."""
+    splits = splits or {}
+    with torch.no_grad():  # a sharded gradient's local tensor, in place
+        named = [(n, _local(p.grad)) for n, p in named if p.grad is not None]
+        grads = [g for _, g in named]
+        if tp.size == 1 and shard_group is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm([g.float() for g in grads])))
+        else:
+            parts = ([g.float() for n, g in named if n in splits],
+                     [g.float() for n, g in named if n not in splits])
+            squares = torch.stack([
+                torch.stack(torch._foreach_norm(part)).square().sum()
+                if part else grads[0].new_zeros((), dtype=torch.float32)
+                for part in parts])
+            if shard_group is not None:
+                dist.all_reduce(squares, group=shard_group)
+            squares[0] = reduce_from_tp(squares[0], tp)
+            norm = squares.sum().sqrt()
+        if max_norm is not None and max_norm > 0:
+            scale = torch.clamp(max_norm / norm, max=1.0)
+            torch._foreach_mul_(grads, scale.to(grads[0].dtype))
     return norm
+
+
+def _local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A sharded (fsdp) tensor's local shard, any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def autocast(device: torch.device, dtype: torch.dtype):
@@ -218,14 +233,21 @@ def autocast(device: torch.device, dtype: torch.dtype):
 
 def train_step(model: PEneoModel, optimizer, scheduler,
                batch: Dict[str, torch.Tensor], max_grad_norm: float = 1.0,
-               generator=None,
-               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+               generator=None, dtype: torch.dtype = torch.float32,
+               grad_sync: Optional[Callable[[], None]] = None
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step. Returns the five head losses, ``total``,
     ``grad_norm`` (before clipping) and ``learning_rate`` (of the backbone
     groups, as used by this step), as device tensors; reads nothing back to
-    the host. ``generator`` (a CPU generator, or a
+    the host. ``generator`` (a CPU generator, a
+    :class:`~peneo_tpu_torch.models.dropout_seeds.HostSeeds` or a
     :class:`~peneo_tpu_torch.models.dropout_seeds.StepSeeds`) gives the
-    attention-dropout seeds."""
+    attention-dropout seeds; ``grad_sync``, when given, averages the
+    gradients over the replicas after the backward (a model that DDP or
+    FSDP2 wraps averages them itself). ``model`` may be wrapped by DDP: the
+    gradient norm reads the unwrapped module's ``tp_splits``, ``tp_shard``
+    and ``fsdp_group``."""
+    module = getattr(model, "module", model)
     model.train()
     device = batch["input_ids"].device
     lrs = scheduler.apply()  # groups sort backbone first
@@ -235,9 +257,14 @@ def train_step(model: PEneoModel, optimizer, scheduler,
                        batch["attention_mask"], labels=batch["labels"],
                        generator=generator, image=batch.get("image"))
     losses["total"].backward()
+    if grad_sync is not None:
+        grad_sync()
     norm = clip_by_global_norm(
-        [p for g in optimizer.param_groups for p in g["params"]],
-        max_grad_norm)
+        [(n, p) for g in optimizer.param_groups
+         for n, p in zip(g["names"], g["params"])], max_grad_norm,
+        getattr(module, "tp_splits", None),
+        getattr(module, "tp_shard", NO_TP),
+        getattr(module, "fsdp_group", None))
     optimizer.step()
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["grad_norm"] = norm
@@ -263,20 +290,28 @@ class MultiTrainStep:
     the eager loop). Every later call copies its group into the buffers on
     the current stream and replays the graph there. The attention-dropout
     seeds are :class:`~peneo_tpu_torch.models.dropout_seeds.StepSeeds` of
-    ``seed`` and the schedule's counter, so each replay draws fresh masks.
-    A kernel wrapper counts a launch when it is called, eagerly or under
-    capture; what a replay launches shows in a trace of it. Restore a
-    checkpoint before the first call: ``optimizer.load_state_dict``
-    replaces the state tensors that a captured graph keeps reading.
+    ``seed``, the schedule's counter and the (dp, tp) ``shard``, so each
+    replay draws fresh masks, each shard its own. A kernel wrapper counts a
+    launch when it is called, eagerly or under capture; what a replay
+    launches shows in a trace of it. Restore a checkpoint before the first
+    call: ``optimizer.load_state_dict`` replaces the state tensors that a
+    captured graph keeps reading. In a process group the graph holds the
+    collectives of every step (NCCL; gloo's run on the host and cannot be
+    captured): ``grad_sync``'s gradient mean, or FSDP2's gathers and
+    reduce-scatters, the tp and sp collectives and the losses' reductions.
 
     On the CPU the K steps run eagerly in a loop, with the attention seeds
-    from ``generator``. ``scheduler`` is the :class:`LinearSchedule` of
+    from ``generator`` (a CPU generator or a
+    :class:`~peneo_tpu_torch.models.dropout_seeds.HostSeeds`). ``model``
+    is the module the steps run (in a process group FSDP2's, or the plain
+    one with ``grad_sync``); ``scheduler`` is the :class:`LinearSchedule` of
     :func:`make_optimizer`."""
 
     def __init__(self, model: PEneoModel, optimizer, scheduler,
                  steps_per_call: int, max_grad_norm: float = 1.0,
-                 generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0) -> None:
+                 generator=None, dtype: torch.dtype = torch.float32,
+                 seed: int = 0, shard: int = 0,
+                 grad_sync: Optional[Callable[[], None]] = None) -> None:
         if steps_per_call < 1:
             raise ValueError("steps_per_call must be at least 1")
         self.model = model
@@ -286,7 +321,8 @@ class MultiTrainStep:
         self.max_grad_norm = max_grad_norm
         self.generator = generator
         self.dtype = dtype
-        self.seeds = StepSeeds(seed, scheduler.count)
+        self.grad_sync = grad_sync
+        self.seeds = StepSeeds(seed, scheduler.count, shard)
         self.per_step: Dict[str, torch.Tensor] = {}
         self.graph = None
         self._static = None
@@ -295,7 +331,8 @@ class MultiTrainStep:
     def _steps(self, group, seeds):
         rows = [train_step(self.model, self.optimizer, self.scheduler,
                            tree_map(lambda t, k=k: t[k], group),
-                           self.max_grad_norm, seeds, self.dtype)
+                           self.max_grad_norm, seeds, self.dtype,
+                           self.grad_sync)
                 for k in range(self.k)]
         per_step = {name: torch.stack([r[name] for r in rows])
                     for name in rows[0]}

@@ -63,8 +63,30 @@ index. Checkpoints are sharding-agnostic, as orbax's are: every rank gathers
 the model and the AdamW moments to full tensors, rank 0 writes them, and a
 run at another tp size cuts them again on resume; ``pytorch_model.bin``
 holds the full tensors. Only the rank with t = 0 and s = 0 of each dp index
-decodes in eval. Not ported (``ROADMAP.md`` §1): ``steps_per_call`` > 1 in
-a process group, and fsdp.
+decodes in eval.
+
+Fully sharded data parallelism (``fsdp``; ``peneo_tpu/pipeline/trainer.py:
+62,239-246``): in a process group the model, cut to this rank's tp shards,
+is sharded over its dp column by FSDP2 (``parallel/fsdp.py``; HSDP at sp >
+1) instead of wrapped by DDP, before the optimizer is built, so the AdamW
+moments are sharded like the parameters. The global norm sums the local
+shards' squares over the dp group; checkpoints and ``pytorch_model.bin``
+stay full (the shards gathered before the tp gather, cut after the tp cut),
+so a run resumes at another layout, with or without fsdp. At dp 1 (and
+without a process group) ``fsdp`` changes nothing, as JAX's
+(``peneo_tpu/parallel/mesh.py:125``).
+
+``steps_per_call`` K > 1 in a process group (``peneo_tpu/pipeline/
+trainer.py:181-191``): the gradient mean of each step is one all-reduce of
+the gradients over the replica group (``parallel/dist.py``
+``replica_mean_grads``) in place of DDP, or FSDP2's own reduce-scatter. On
+the CPU the K steps run eagerly; on the card they are one CUDA graph that
+holds every collective of the K steps, which needs NCCL (with gloo on the
+card the trainer raises). The attention seeds are the (dp, tp) shard's,
+as at K = 1; the feed thread only pins host memory, and the K batches are
+copied into the graph's buffers on the main thread. FSDP2 and the K-step
+mean take every rank's model as it comes (``run_rfund`` builds it from one
+seed on every rank), where DDP's constructor broadcasts rank 0's.
 """
 
 from __future__ import annotations
@@ -87,6 +109,7 @@ from ..models.decoder import pack_spots
 from ..models.dropout_seeds import RANK_STRIDE, HostSeeds
 from ..models.peneo import PEneoModel
 from ..parallel import dist as pdist
+from ..parallel import fsdp
 from ..parallel import tensor_parallel as tpar
 from . import decode as dec
 from . import evaluation as ev
@@ -132,6 +155,8 @@ class TrainingArguments:
     sp: int = 1
     # tensor-parallel ranks: the backbone and the pair head split over them
     tp: int = 1
+    # shard the parameters and the optimizer state over dp (ZeRO-3; FSDP2)
+    fsdp: bool = False
 
 
 class PEneoTrainer:
@@ -142,13 +167,8 @@ class PEneoTrainer:
         self.cfg = cfg
         self.args = args
         self.rank, self.world = pdist.rank(), pdist.world()
-        # in a process group (any size) the steps run under DDP
+        # in a process group (any size) the steps run under DDP, or FSDP2
         self.distributed = pdist.initialized()
-        if self.distributed and args.steps_per_call > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 in a process group (data or sequence "
-                "parallel: a CUDA graph around the collectives) is not "
-                "ported yet: ROADMAP.md §1")
         for flag, size in (("sp", args.sp), ("tp", args.tp)):
             if size > 1 and not self.distributed:
                 raise ValueError(
@@ -169,6 +189,16 @@ class PEneoTrainer:
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
                              "take bfloat16: train with dtype='bfloat16'")
+        # K steps as one CUDA graph, which must hold the steps' collectives
+        graph = args.steps_per_call > 1 and self.device.type == "cuda"
+        if graph and self.distributed \
+                and pdist.dist.get_backend() != "nccl":
+            raise ValueError(
+                f"steps_per_call {args.steps_per_call} on the card in a "
+                f"process group needs NCCL, not {pdist.dist.get_backend()}: "
+                "the K steps are one CUDA graph, and gloo's collectives run "
+                "on the host, outside any graph. Give each rank a card of "
+                "its own (--dist_backend nccl), or run steps_per_call 1")
         self.model = model.to(self.device)  # fp32 master parameters
         self.tp = tpar.NO_TP
         if args.tp > 1:
@@ -177,6 +207,16 @@ class PEneoTrainer:
             self.model.set_tensor_parallel(self.tp.index, self.tp.size,
                                            self.tp.group)
         self.splits = getattr(self.model, "tp_splits", {})
+        if self.distributed:
+            self.model.set_data_parallel(self.world > 1)
+            if args.sp > 1:
+                self.model.set_sequence_parallel(
+                    pdist.sp_index(), args.sp, pdist.sp_group())
+        # fsdp: the parameters sharded before the optimizer sees them; at
+        # dp 1 nothing is sharded, and it is off (as JAX's, mesh.py:125)
+        self.fsdp = args.fsdp and self.distributed and self.dp > 1
+        if self.fsdp:
+            fsdp.apply_fsdp(self.model, self.device)
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.collator = collator
@@ -209,22 +249,28 @@ class PEneoTrainer:
             warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
             downstream_speedup_ratio=cfg.peneo_downstream_speedup_ratio)
         self.step = 0
-        # the module DDP wraps for the steps; self.model stays the plain
-        # module (state dicts without a "module." prefix, eval forwards)
+        # the module the steps run: DDP's wrapper at K = 1 (self.model
+        # stays the plain module: state dicts without a "module." prefix,
+        # eval forwards); FSDP2 averages the gradients itself, and K > 1
+        # steps average them with one all-reduce each (captured in the
+        # card's graph, where DDP's reducer cannot be)
         self.step_model = self.model
-        if self.distributed:
-            from torch.nn.parallel import DistributedDataParallel
+        self.grad_sync = None
+        if self.distributed and not self.fsdp:
+            if args.steps_per_call > 1:
+                params = [p for p in self.model.parameters()
+                          if p.requires_grad]
+                self.grad_sync = lambda: pdist.replica_mean_grads(params)
+            else:
+                from torch.nn.parallel import DistributedDataParallel
 
-            self.model.set_data_parallel(self.world > 1)
-            if args.sp > 1:
-                self.model.set_sequence_parallel(
-                    pdist.sp_index(), args.sp, pdist.sp_group())
-            cards = [self.device.index] if self.device.type == "cuda" \
-                else None
-            # over the ranks that hold this rank's shards (the world at tp 1)
-            self.step_model = DistributedDataParallel(
-                self.model, device_ids=cards,
-                process_group=pdist.replica_group())
+                cards = [self.device.index] if self.device.type == "cuda" \
+                    else None
+                # over the ranks holding this rank's shards (the world at
+                # tp 1)
+                self.step_model = DistributedDataParallel(
+                    self.model, device_ids=cards,
+                    process_group=pdist.replica_group())
         self.ckpt = CheckpointManager(
             os.path.join(args.output_dir, "checkpoints"),
             save_total_limit=args.save_total_limit,
@@ -272,14 +318,16 @@ class PEneoTrainer:
         return state
 
     def _full_model_state(self) -> Dict[str, torch.Tensor]:
-        """The model's state dict with the split tensors gathered to full
-        ones (a collective under tp: every rank calls it)."""
-        return tpar.gather_state_dict(self.model.state_dict(), self.splits,
-                                      self.tp)
+        """The model's state dict with the fsdp shards, then the tp splits,
+        gathered to full tensors (a collective under either: every rank
+        calls it)."""
+        return tpar.gather_state_dict(fsdp.full_state(
+            self.model.state_dict()), self.splits, self.tp)
 
     def _load_model(self, full: Dict[str, torch.Tensor]) -> None:
-        """Load a full state dict, cut to this rank's shards."""
-        self.model.load_state_dict(tpar.shard_state_dict(
+        """Load a full state dict, cut to this rank's tp, then fsdp,
+        shards."""
+        fsdp.load_full_state(self.model, tpar.shard_state_dict(
             full, self.splits, self.tp.index, self.tp.size))
 
     def _state(self) -> Dict[str, Any]:
@@ -287,7 +335,8 @@ class PEneoTrainer:
         every rank's RNG states too (a collective: every rank calls it)."""
         state = {"model": self._full_model_state(),
                  "optimizer": tpar.gather_optimizer_state(
-                     self.optimizer.state_dict(), self.splits, self.tp),
+                     fsdp.full_optimizer_state(self.optimizer.state_dict()),
+                     self.splits, self.tp),
                  "scheduler": self.scheduler.state_dict(),
                  "generator": self.generator.get_state(),
                  **self._rng_state()}
@@ -305,6 +354,7 @@ class PEneoTrainer:
         self._load_model(state["model"])
         T.load_optimizer_state(self.optimizer, tpar.shard_optimizer_state(
             state["optimizer"], self.splits, self.tp.index, self.tp.size))
+        fsdp.shard_optimizer_moments(self.optimizer)
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         rng = state
@@ -359,8 +409,9 @@ class PEneoTrainer:
         step_fn = None
         if k > 1:
             step_fn = T.MultiTrainStep(
-                self.model, self.optimizer, self.scheduler, k,
-                args.max_grad_norm, self.generator, self.dtype, args.seed)
+                self.step_model, self.optimizer, self.scheduler, k,
+                args.max_grad_norm, self.seeds, self.dtype, args.seed,
+                pdist.seed_shard(), self.grad_sync)
         it = None
         items: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
@@ -398,7 +449,8 @@ class PEneoTrainer:
                 if k == 1:
                     metrics = T.train_step(
                         self.step_model, self.optimizer, self.scheduler,
-                        group, args.max_grad_norm, self.seeds, self.dtype)
+                        group, args.max_grad_norm, self.seeds, self.dtype,
+                        self.grad_sync)
                     nonfinite += ~torch.isfinite(metrics["total"])
                 else:
                     metrics = step_fn(group)

@@ -23,10 +23,11 @@ on ``cuda`` (the CUDA attention kernels, bf16) unless ``--device cpu`` is
 given; without a GPU and without ``--device`` it raises.
 ``--steps_per_call K`` runs K optimizer steps per call over a group of K
 batches: on the card one replay of a CUDA graph of the K steps (a capture
-that fails raises), on the CPU the K steps in a loop; ``max_steps`` rounds
-up to a multiple of K. ``--logging_dir D`` also writes the logged scalars
-as TensorBoard events into D. ``--quantize_pair_head int8`` runs the eval
-forwards' pair head as s8×s8→s32 products (training stays full precision).
+that fails raises; in a process group it needs NCCL), on the CPU the K
+steps in a loop; ``max_steps`` rounds up to a multiple of K.
+``--logging_dir D`` also writes the logged scalars as TensorBoard events
+into D. ``--quantize_pair_head int8`` runs the eval forwards' pair head as
+s8×s8→s32 products (training stays full precision).
 
 ``--model_name_or_path`` reads, as the JAX trainer does, ``params.msgpack``,
 ``backbone_params.msgpack`` (``python -m
@@ -52,10 +53,12 @@ each, e.g. ``torchrun --nproc_per_node 4 -m peneo_tpu_torch.run_rfund
 --distributed --dp 2 --sp 2 ...``. Tensor parallelism
 (``parallel/tensor_parallel.py``): ``--tp T`` splits the backbone and the
 pair head Megatron-style over T ranks; the ranks form a ``dp × tp × sp``
-grid in the JAX mesh's order, rank = (d·T + t)·M + s. ``--fsdp`` is accepted
-and refused unless off (``ROADMAP.md`` §1), as is ``--steps_per_call`` > 1
-in a process group. Left out (one attention path, one backend):
-``--platform`` and the ``--fused_*`` flags.
+grid in the JAX mesh's order, rank = (d·T + t)·M + s. ``--fsdp``
+(``parallel/fsdp.py``) shards the parameters and the AdamW state over the
+dp ranks (ZeRO-3 through FSDP2, HSDP at ``--sp`` > 1) in place of DDP;
+at dp 1 (and without a process group) it changes nothing, as JAX's. Left
+out (one attention path, one backend): ``--platform`` and the
+``--fused_*`` flags.
 """
 
 from __future__ import annotations
@@ -126,8 +129,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="sequence-parallel ranks: the pair grid's rows "
                         "split over them (dp x sp processes)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params + optimizer state over dp: not "
-                        "ported")
+                   help="shard params + optimizer state over the dp ranks "
+                        "(ZeRO-3, FSDP2); a no-op at dp 1")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process run: torch.distributed from "
                         "torchrun's environment (RANK, WORLD_SIZE, "
@@ -250,15 +253,18 @@ def setup(args, dataset_cls_name: str = "rfund"):
         tokenizer = load_tokenizer(info, args.model_name_or_path)
         fetcher = info.tokenizer_fetcher
 
-    # the seeded init, then the directory's weights over it: a partial tree
-    # (a backbone from generate_peneo_weights) leaves the rest at its init
-    model = PEneoModel(cfg).init_weights(
-        torch.Generator().manual_seed(args.seed))
-    if args.model_name_or_path:
-        kept = load_weights(model, args.model_name_or_path, train_init=True)
-        if kept:
-            print(f"[peneo] {kept} of the model's tensors keep their seeded "
-                  "init (absent from the checkpoint)")
+    # the directory's weights over the seeded init: a partial tree (a
+    # backbone from generate_peneo_weights) leaves the rest at its init; a
+    # whole one leaves nothing of it, and the init is skipped
+    model = PEneoModel(cfg)
+    kept = (load_weights(model, args.model_name_or_path, train_init=True)
+            if args.model_name_or_path else None)
+    if kept != 0:
+        model.init_weights(torch.Generator().manual_seed(args.seed))
+    if kept:
+        load_weights(model, args.model_name_or_path, train_init=True)
+        print(f"[peneo] {kept} of the model's tensors keep their seeded "
+              "init (absent from the checkpoint)")
 
     budget = args.max_seq_len - int(info.add_cls_token) \
         - int(info.add_sep_token)
@@ -305,16 +311,7 @@ def training_arguments(args):
         detail_eval=args.detail_eval, save_eval_detail=args.save_eval_detail,
         start_eval_epoch=args.start_eval_epoch, resume=not args.no_resume,
         device=args.device, steps_per_call=args.steps_per_call, sp=args.sp,
-        tp=args.tp)
-
-
-def check_parallel_flags(args) -> None:
-    """Refuse the mesh flags that are not ported, before anything starts."""
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp: fully sharded parallelism is not ported yet (ROADMAP.md "
-            "§1); data, tensor and sequence parallelism are --distributed "
-            "with --dp / --tp / --sp")
+        tp=args.tp, fsdp=args.fsdp)
 
 
 def init_parallel(args) -> bool:
@@ -341,7 +338,6 @@ def init_parallel(args) -> bool:
 
 def main(argv=None, dataset_cls_name: str = "rfund"):
     args = build_argparser().parse_args(argv)
-    check_parallel_flags(args)
     started = init_parallel(args)
     try:
         return run(args, dataset_cls_name)[0]

@@ -19,10 +19,13 @@ global batches beside them. Checked:
 4. rank 0's saved directory loads in one process, without ``module.``
    prefixes, and holds the weights both ranks ended with;
 5. a mismatched ``output_dir`` raises on every rank;
-6. ``--fsdp`` and ``steps_per_call`` 2 under a process group raise
-   ``NotImplementedError``; ``--tp 2`` (run_rfund and serve) without a
-   process group raises ``ValueError`` naming the launch (``--sp``:
-   tests/test_torch_seq_parallel.py; tp itself:
+6. ``steps_per_call`` 2 trains under the process group (no longer
+   refused): both ranks log, call by call, the mean of the K = 1 run's two
+   losses; ``--fsdp`` in one process trains exactly as without it (fsdp
+   itself: tests/test_torch_fsdp.py; K in a group:
+   tests/test_torch_steps_per_call_dist.py); ``--tp 2`` (run_rfund and
+   serve) without a process group raises ``ValueError`` naming the launch
+   (``--sp``: tests/test_torch_seq_parallel.py; tp itself:
    tests/test_torch_tensor_parallel*.py).
 
 And in process: each rank's dropout seeds are offset by ``rank · 1000003``
@@ -62,17 +65,24 @@ from peneo_tpu_torch.parallel import dist as pdist
 from peneo_tpu_torch.pipeline.trainer import PEneoTrainer
 
 args = run_rfund.build_argparser().parse_args(argv)
-run_rfund.check_parallel_flags(args)
 run_rfund.init_parallel(args)
 cfg, model, train_ds, eval_ds, collator, tok = run_rfund.setup(args)
 targs = run_rfund.training_arguments(args)
 result = {"rank": pdist.rank(), "world": pdist.world()}
 if mode == "refuse":
     targs.steps_per_call = 2
-    try:
-        PEneoTrainer(cfg, model, targs, train_ds, eval_ds, collator)
-    except NotImplementedError as e:
-        result["steps_per_call"] = str(e)
+    trainer = PEneoTrainer(cfg, model, targs, train_ds, eval_ds, collator)
+    log = trainer.log
+    result["steps_per_call"] = []
+
+    def capture(record):
+        if "loss/total" in record:
+            result["steps_per_call"].append(record["loss/total"])
+        log(record)
+
+    trainer.log = capture
+    trainer.train()
+    del trainer
     targs.steps_per_call = 1
     targs.output_dir = os.path.join(args.output_dir, f"rank{pdist.rank()}")
     try:
@@ -323,24 +333,49 @@ def test_mismatched_output_dir_raises_on_every_rank(refused):
         assert "SAME output_dir" in r["output_dir"]
 
 
-def test_steps_per_call_refused_under_dp(refused):
+def test_steps_per_call_refused_under_dp(refused, runs):
+    """No longer refused: K = 2 trains under dp, each call logging the
+    fp32 mean of the K = 1 run's two losses (the same model and global
+    batches), alike on both ranks."""
+    k1 = runs["ce"]["dp"][0]["losses"]
+    want = [float(torch.tensor(k1[i:i + 2]).mean()) for i in (0, 2)]
     for r in refused:
-        assert "ROADMAP.md" in r["steps_per_call"]
+        assert r["steps_per_call"] == refused[0]["steps_per_call"]
+        np.testing.assert_allclose(r["steps_per_call"], want, rtol=1e-6)
 
 
-@pytest.mark.parametrize("flags,error,match", [
-    (["--tp", "2"], ValueError, "--tp 2"),
-    (["--fsdp"], NotImplementedError, "ROADMAP.md")], ids=["tp", "fsdp"])
-def test_unported_mesh_flags_raise(flags, error, match, tmp_path):
-    """fsdp is not ported; tp is, and without a process group raises."""
+@pytest.mark.parametrize("case", ["tp", "fsdp"])
+def test_unported_mesh_flags_raise(case, data_dir, tmp_path):
+    """tp without a process group raises, naming the launch; ``--fsdp``,
+    ported now, trains exactly as without it in one process (JAX's fsdp at
+    dp 1); ``--dp 2`` without a group raises."""
     from peneo_tpu_torch import run_rfund
 
-    with pytest.raises(error, match=match):
-        run_rfund.main(["--output_dir", str(tmp_path), "--device", "cpu",
-                        *flags])
+    if case == "tp":
+        with pytest.raises(ValueError, match="--tp 2"):
+            run_rfund.main(["--output_dir", str(tmp_path), "--device",
+                            "cpu", "--tp", "2"])
+    else:
+        losses, model_dir = [], _write_model(str(tmp_path / "model"))
+        for flags in ([], ["--fsdp"]):
+            out = str(tmp_path / ("fsdp" if flags else "plain"))
+            argv = _argv(model_dir, data_dir, out, 2, 2)
+            argv[argv.index("--max_steps") + 1] = "2"
+            _, trainer = run_rfund.run(
+                run_rfund.build_argparser().parse_args(
+                    argv + ["--do_train"] + flags))
+            assert not trainer.fsdp and trainer.args.fsdp == bool(flags)
+            losses.append(_log_losses(out))
+        assert len(losses[0]) == 2 and losses[1] == losses[0]
     with pytest.raises(ValueError, match="--dp 2"):
         run_rfund.main(["--output_dir", str(tmp_path), "--device", "cpu",
                         "--dp", "2"])
+
+
+def _log_losses(out):
+    with open(os.path.join(out, "log.jsonl")) as f:
+        return [r["loss/total"] for r in map(json.loads, f)
+                if "loss/total" in r]
 
 
 def test_serve_tp_raises(tmp_path):

@@ -314,7 +314,6 @@ from peneo_tpu_torch import run_rfund
 from peneo_tpu_torch.pipeline.trainer import PEneoTrainer
 
 args = run_rfund.build_argparser().parse_args(argv)
-run_rfund.check_parallel_flags(args)
 run_rfund.init_parallel(args)
 cfg, model, train_ds, eval_ds, collator, tok = run_rfund.setup(args)
 trainer = PEneoTrainer(cfg, model, run_rfund.training_arguments(args),
