@@ -394,6 +394,10 @@ class RelBiasBackbone(nn.Module):
                 getattr(self.encoder, name).float()
 
     def _static_tensor(self, key, make, device):
+        if torch.compiler.is_exporting():
+            # a constant of the exported graph: tracing neither reads nor
+            # writes the eager cache
+            return torch.from_numpy(make()).to(device)
         key = key + (str(device),)
         if key not in self._static:
             # a normal tensor even when first asked for under

@@ -13,8 +13,11 @@ Public layout is the JAX package's: q/k/v ``(B, nh, L, d)`` (any strides
 with a contiguous last dim — the LiLT layer passes transposed views of its
 ``(B, L, nh, d)`` projections), ``bias`` ``(B, L)`` fp32 additive key mask.
 
-- :func:`biacm_attention` is the entry point. On a CUDA tensor it launches
-  the hand-written kernel (``csrc/biacm_attention.cu``, built with nvcc at
+- :func:`biacm_attention` is the entry point. It calls the operator
+  ``peneo::biacm_attention`` (:func:`biacm_attention_op`, a
+  ``torch.library`` custom op with a fake, so that ``torch.export`` keeps
+  it as one node of the graph). On a CUDA tensor the operator launches the
+  hand-written kernel (``csrc/biacm_attention.cu``, built with nvcc at
   first use) and raises if the kernel cannot build or launch; on a CPU
   tensor it runs :func:`biacm_attention_reference`.
 - :func:`biacm_attention_reference` is the plain twin (einsum + softmax in
@@ -186,15 +189,77 @@ def biacm_attention_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias,
 biacm_attention_cuda.launches = 0
 
 
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """A ``(B, nh, L, d)`` view of an empty ``(B, L, nh, d)`` buffer: the
+    layout the kernel writes its outputs in."""
+    B, nh, L, d = x.shape
+    return x.new_empty((B, L, nh, d)).transpose(1, 2)
+
+
+@torch.library.custom_op("peneo::biacm_attention", mutates_args=(),
+                         device_types="cpu")
+def biacm_attention_op(q_t: torch.Tensor, k_t: torch.Tensor,
+                       v_t: torch.Tensor, q_l: torch.Tensor,
+                       k_l: torch.Tensor, v_l: torch.Tensor,
+                       bias: torch.Tensor, scale_t: float,
+                       scale_l: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #1 as the operator ``peneo::biacm_attention``, which an
+    exported program holds as one node. CPU tensors run the plain twin
+    (outputs copied into the kernel's layout, so that both devices return
+    the strides the fake gives); CUDA tensors run
+    :func:`biacm_attention_cuda`, which launches the kernel or raises."""
+    ctx_t, ctx_l = biacm_attention_reference(q_t, k_t, v_t, q_l, k_l, v_l,
+                                             bias, scale_t, scale_l)
+    return (_kernel_layout(ctx_t).copy_(ctx_t),
+            _kernel_layout(ctx_l).copy_(ctx_l))
+
+
+biacm_attention_op.register_kernel("cuda")(biacm_attention_cuda)
+
+
+@biacm_attention_op.register_fake
+def _(q_t, k_t, v_t, q_l, k_l, v_l, bias, scale_t, scale_l):
+    return _kernel_layout(q_t), _kernel_layout(q_l)
+
+
+def twin_vjp(reference, ctx, grads, *scalars):
+    """The gradients of ``reference(*saved, *scalars)`` with respect to each
+    saved tensor (the operator's inputs), from a recompute under autograd:
+    an inference operator's backward on the CPU, where its forward is that
+    twin (a backward through an eval-mode forward; training runs the
+    training operators). On the card the inference kernels have no
+    backward, as the TPU's have none: it raises."""
+    if ctx.saved_tensors[0].is_cuda:
+        raise RuntimeError("the CUDA inference attention kernels have no "
+                           "backward; a training-mode forward runs the "
+                           "training kernels")
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(x.is_floating_point())
+                  for x in ctx.saved_tensors]
+        out = reference(*leaves, *scalars)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(out, leaves, grads, allow_unused=True)
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+    ctx.scales = inputs[7:]
+
+
+biacm_attention_op.register_autograd(
+    lambda ctx, d_t, d_l: (*twin_vjp(biacm_attention_reference, ctx,
+                                     (d_t, d_l), *ctx.scales), None, None),
+    setup_context=_save_inputs)
+
+
 def biacm_attention(q_t, k_t, v_t, q_l, k_l, v_l, bias,
                     scale_t: float, scale_l: float):
-    """BiACM attention: the CUDA kernel for CUDA tensors, the plain twin for
-    CPU tensors. Returns ``(ctx_t (B, nh, L, d_t), ctx_l (B, nh, L, d_l))``."""
-    if q_t.is_cuda:
-        return biacm_attention_cuda(q_t, k_t, v_t, q_l, k_l, v_l, bias,
-                                    scale_t, scale_l)
-    return biacm_attention_reference(q_t, k_t, v_t, q_l, k_l, v_l, bias,
-                                     scale_t, scale_l)
+    """BiACM attention through ``peneo::biacm_attention``: the CUDA kernel
+    for CUDA tensors, the plain twin for CPU tensors. Returns ``(ctx_t (B,
+    nh, L, d_t), ctx_l (B, nh, L, d_l))``, views of ``(B, L, nh, d)``
+    buffers."""
+    return biacm_attention_op(q_t, k_t, v_t, q_l, k_l, v_l, bias,
+                              float(scale_t), float(scale_l))
 
 
 # ---------------------------------------------------------------------------

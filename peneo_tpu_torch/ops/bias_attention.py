@@ -19,12 +19,14 @@ LayoutLMv2; any batch/head/row strides with a contiguous last dim: rows
 requests, others in 4-byte ones), ``mask`` ``(B, L)`` fp32 additive key
 mask.
 
-- :func:`bias_attention` is the inference entry point. On a CUDA tensor it
-  launches the hand-written kernel (``csrc/bias_attention.cu``, built with
-  nvcc at first use) and raises if the kernel cannot build or launch; on a
-  CPU tensor it runs :func:`bias_attention_reference`, the plain twin
-  (einsum + softmax in fp32), which runs on the card only when a caller
-  asks for it by name.
+- :func:`bias_attention` is the inference entry point. It calls the
+  operator ``peneo::bias_attention`` (:func:`bias_attention_op`, a
+  ``torch.library`` custom op with a fake, kept by ``torch.export`` as one
+  node of the graph). On a CUDA tensor it launches the hand-written kernel
+  (``csrc/bias_attention.cu``, built with nvcc at first use) and raises if
+  the kernel cannot build or launch; on a CPU tensor it runs
+  :func:`bias_attention_reference`, the plain twin (einsum + softmax in
+  fp32), which runs on the card only when a caller asks for it by name.
 - :func:`bias_attention_train` is the training entry point (``rng`` an int
   seed or explicit mask bits). It applies :class:`BiasAttentionTrain`: on
   CUDA tensors the forward kernel and the backward kernels
@@ -53,9 +55,10 @@ import threading
 
 import torch
 
-from .biacm_attention import (_MODES, _U32, _aligned, _check, _u32,
-                              device_seed, element_dropout_bits,
-                              keep_threshold, unpack_keep_mask)
+from .biacm_attention import (_MODES, _U32, _aligned, _check,
+                              _kernel_layout, _u32, device_seed,
+                              element_dropout_bits, keep_threshold,
+                              twin_vjp, unpack_keep_mask)
 
 SOURCE = "bias_attention.cu"
 TRAIN_SOURCE = "bias_attention_train.cu"
@@ -251,12 +254,45 @@ def bias_attention_cuda(q, k, v, bias, mask, scale: float):
 bias_attention_cuda.launches = 0
 
 
+@torch.library.custom_op("peneo::bias_attention", mutates_args=(),
+                         device_types="cpu")
+def bias_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor, mask: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """Kernel #4 as the operator ``peneo::bias_attention``, which an
+    exported program holds as one node. The bias keeps its strides (the
+    padded rows of ``RelBias`` go in without a copy). CPU tensors run the
+    plain twin (its output copied into the kernel's layout, so that both
+    devices return the strides the fake gives); CUDA tensors run
+    :func:`bias_attention_cuda`, which launches the kernel or raises."""
+    ctx = bias_attention_reference(q, k, v, bias, mask, scale)
+    return _kernel_layout(ctx).copy_(ctx)
+
+
+bias_attention_op.register_kernel("cuda")(bias_attention_cuda)
+
+
+@bias_attention_op.register_fake
+def _(q, k, v, bias, mask, scale):
+    return _kernel_layout(q)
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+    ctx.scale = inputs[5]
+
+
+bias_attention_op.register_autograd(
+    lambda ctx, dctx: (*twin_vjp(bias_attention_reference, ctx, dctx,
+                                 ctx.scale), None),
+    setup_context=_save_inputs)
+
+
 def bias_attention(q, k, v, bias, mask, scale: float):
-    """Rel-bias attention: the CUDA kernel for CUDA tensors, the plain twin
-    for CPU tensors. Returns ``ctx (B, nh, L, d)``."""
-    if q.is_cuda:
-        return bias_attention_cuda(q, k, v, bias, mask, scale)
-    return bias_attention_reference(q, k, v, bias, mask, scale)
+    """Rel-bias attention through ``peneo::bias_attention``: the CUDA
+    kernel for CUDA tensors, the plain twin for CPU tensors. Returns ``ctx
+    (B, nh, L, d)``, a view of a ``(B, L, nh, d)`` buffer."""
+    return bias_attention_op(q, k, v, bias, mask, float(scale))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@ asked for, as the JAX service is off a TPU. :meth:`InferenceService.run_page`
 and :meth:`~InferenceService.run_batch` are the single-page and one-batch
 API; ``run(visualize_dir=…)`` also draws each page's predictions.
 
+The host side (preprocessing, batching, the pipelined dispatch and
+collect, the host decode) is :class:`PageServer`, which
+``inference_artifact.ArtifactInferenceService`` shares: there the forward
+is an exported program instead of the model.
+
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
 GPU and no explicit device it raises.
 
@@ -68,6 +73,16 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def load_family_kernel(device: torch.device, family: str) -> None:
+    """Register the attention operators (loading an exported program needs
+    them) and, on the card, build the family's serving kernel now: a build
+    failure shows at construction, not mid-run."""
+    from ..ops import biacm_attention, bias_attention
+
+    if device.type == "cuda":
+        (biacm_attention if family == "lilt" else bias_attention).load_kernel()
 
 
 # the files a model directory's weights are read from, in the JAX order
@@ -133,64 +148,27 @@ def load_weights(model: PEneoModel, path: str, train_init: bool = False) -> int:
     return 0
 
 
-class InferenceService:
-    """Load a trained PEneo model (LiLT, LayoutLMv3 or LayoutLMv2 backbone)
-    and run page → kv-pair extraction."""
+class PageServer:
+    """The host side of serving, shared by :class:`InferenceService` (a
+    live model) and ``inference_artifact.ArtifactInferenceService`` (an
+    exported program): page preprocessing, batching, the pipelined
+    dispatch and collect of :meth:`run`, and the host decode. A subclass
+    sets ``_packed`` and provides :meth:`_forward` on the device tensors of
+    one batch. The process grid (``dp``, ``tp``, ``sp``) is one process
+    unless a subclass sets it."""
 
-    def __init__(
-        self,
-        model_name_or_path: str,
-        tokenizer=None,
-        max_seq_len: Optional[int] = None,
-        batch_size: int = 1,
-        dtype: str = "bfloat16",
-        score_thresh: float = 0.0,
-        int8_pair_head: Optional[bool] = None,
-        int8_backbone: bool = False,
-        bucket_lengths=None,
-        device=None,
-        dp: int = 1,
-        sp: int = 1,
-        tp: int = 1,
-    ) -> None:
-        """``int8_pair_head`` None (auto) is off, as the JAX service's auto
-        is off any backend but a TPU; True or ``int8_backbone`` set the
-        config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
-        that sets them serves int8 already). ``dp × tp × sp`` > 1 needs a
-        process group of that many ranks (``parallel/dist.py``
-        ``init_distributed``); each rank then runs on its own device."""
-        self.dp, self.tp, self.sp = dp, tp, sp
-        n = dp * tp * sp
-        if n > 1:
-            if pdist.world() != n:
-                raise ValueError(
-                    f"dp {dp} × tp {tp} × sp {sp} serving needs a process "
-                    f"group of {n} ranks, not {pdist.world()}: torchrun "
-                    f"--nproc_per_node {n} -m peneo_tpu_torch.serve "
-                    f"--distributed --dp {dp} --tp {tp} --sp {sp} ..., or "
-                    f"one command per rank with --coordinator_address "
-                    f"host:port --num_processes {n} --process_id i")
-            pdist.grid(dp, tp, sp)
-            self.device = pdist.rank_device(device)
-        else:
-            self.device = resolve_device(device)
-        if dtype not in DTYPES:
-            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
-        self.dtype = DTYPES[dtype]
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
-                             "take bfloat16; serve with dtype='bfloat16'")
-        self.cfg = PEneoConfig.from_pretrained(model_name_or_path)
-        if int8_pair_head:
-            self.cfg.quantize_pair_head = "int8"
-        if int8_backbone:
-            self.cfg.quantize_backbone = "int8"
-        if max_seq_len:
-            self.cfg.max_seq_len = max_seq_len
-        self.info = get_backbone_info(self.cfg.backbone_name)
+    dp = tp = sp = 1
+
+    def __init__(self, cfg: PEneoConfig, device: torch.device, tokenizer,
+                 batch_size: int, score_thresh: float, raw_image: bool,
+                 bucket_lengths=None) -> None:
+        """``raw_image``: a visual backbone's pages travel as resized uint8
+        and are normalized on the device (else as host-normalized fp32)."""
+        self.cfg, self.device = cfg, device
+        self.info = get_backbone_info(cfg.backbone_name)
         self.max_token_len = min(
             self.info.max_token_len,
-            self.cfg.max_seq_len - int(self.info.add_cls_token)
+            cfg.max_seq_len - int(self.info.add_cls_token)
             - int(self.info.add_sep_token))
         self.score_thresh = score_thresh
         self.batch_size = batch_size
@@ -200,53 +178,30 @@ class InferenceService:
         self.bucket_lengths = None
         if bucket_lengths:
             bl = sorted({int(b) for b in bucket_lengths
-                         if 0 < int(b) <= self.cfg.max_seq_len})
+                         if 0 < int(b) <= cfg.max_seq_len})
             if not bl:
                 raise ValueError(
                     f"bucket_lengths {bucket_lengths!r} has no entry in "
-                    f"(0, max_seq_len={self.cfg.max_seq_len}]")
-            if bl[-1] != self.cfg.max_seq_len:
-                bl.append(self.cfg.max_seq_len)  # overflow bucket
+                    f"(0, max_seq_len={cfg.max_seq_len}]")
+            if bl[-1] != cfg.max_seq_len:
+                bl.append(cfg.max_seq_len)  # overflow bucket
             self.bucket_lengths = bl
-
-        if tokenizer is None:
-            from ..registry import load_tokenizer
-
-            tokenizer = load_tokenizer(self.info, model_name_or_path)
         self.tokenizer = tokenizer
-
-        # live serving ships resized uint8 pages and normalizes on the
-        # device: no host float conversion, a quarter of the upload
-        self.raw_image = self.info.has_visual_embeds
+        self.raw_image = raw_image and self.info.has_visual_embeds
         self.image_loader = None
         if self.info.has_visual_embeds:
             from ..data.image_processing import make_image_loader
 
-            self.image_loader = make_image_loader(self.cfg, raw=True)
-
-        model = PEneoModel(self.cfg)
-        load_weights(model, model_name_or_path)
-        if sp > 1:
-            if self.cfg.max_spots_per_head <= 0:
-                raise ValueError("sp serving returns compact spots: "
-                                 "max_spots_per_head must be > 0")
-            model.set_sequence_parallel(pdist.sp_index(), sp,
-                                        pdist.sp_group())
-        if tp > 1:  # the full weights are loaded: keep this rank's shard
-            model.set_tensor_parallel(pdist.tp_index(), tp, pdist.tp_group())
-        self.model = model.cast(self.dtype).to(self.device).eval()
-        if self.device.type == "cuda":
-            # build the family's kernel now: fail at construction, not mid-run
-            if self.info.family == "lilt":
-                from ..ops.biacm_attention import load_kernel
-            else:
-                from ..ops.bias_attention import load_kernel
-            load_kernel()
+            self.image_loader = make_image_loader(cfg, raw=self.raw_image)
         from ..native import load_decode_lib
 
-        load_decode_lib()  # the host decoder's g++ build, also up front
-        self._packed = self.cfg.max_spots_per_head > 0
+        load_decode_lib()  # the host decoder's g++ build, up front
         self.last_run: Dict[str, float] = {}
+
+    def _forward(self, input_ids, bbox, attention_mask, image):
+        """One batch's device outputs: the packed spots when ``_packed``,
+        else the heads' dicts."""
+        raise NotImplementedError
 
     # ------------------------------------------------------------- preprocess
     def page_preprocessor(self) -> PagePreprocessor:
@@ -323,8 +278,7 @@ class InferenceService:
                     from ..data.image_processing import device_image_normalize
 
                     image = device_image_normalize(image, self.info.family)
-            out = self.model(ids, bbox, attn, image=image)
-            return pack_spots(out) if self._packed else out
+            return self._forward(ids, bbox, attn, image)
 
     def _fetch(self, out_device):
         """Device outputs → host numpy in the decoders' format (waits)."""
@@ -497,3 +451,86 @@ class InferenceService:
             "pool_start_seconds": t_pool,  # spawning the workers, if any
         }
         return results
+
+
+class InferenceService(PageServer):
+    """Load a trained PEneo model (LiLT, LayoutLMv3 or LayoutLMv2 backbone)
+    and run page → kv-pair extraction."""
+
+    def __init__(
+        self,
+        model_name_or_path: str,
+        tokenizer=None,
+        max_seq_len: Optional[int] = None,
+        batch_size: int = 1,
+        dtype: str = "bfloat16",
+        score_thresh: float = 0.0,
+        int8_pair_head: Optional[bool] = None,
+        int8_backbone: bool = False,
+        bucket_lengths=None,
+        device=None,
+        dp: int = 1,
+        sp: int = 1,
+        tp: int = 1,
+    ) -> None:
+        """``int8_pair_head`` None (auto) is off, as the JAX service's auto
+        is off any backend but a TPU; True or ``int8_backbone`` set the
+        config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
+        that sets them serves int8 already). ``dp × tp × sp`` > 1 needs a
+        process group of that many ranks (``parallel/dist.py``
+        ``init_distributed``); each rank then runs on its own device."""
+        self.dp, self.tp, self.sp = dp, tp, sp
+        n = dp * tp * sp
+        if n > 1:
+            if pdist.world() != n:
+                raise ValueError(
+                    f"dp {dp} × tp {tp} × sp {sp} serving needs a process "
+                    f"group of {n} ranks, not {pdist.world()}: torchrun "
+                    f"--nproc_per_node {n} -m peneo_tpu_torch.serve "
+                    f"--distributed --dp {dp} --tp {tp} --sp {sp} ..., or "
+                    f"one command per rank with --coordinator_address "
+                    f"host:port --num_processes {n} --process_id i")
+            pdist.grid(dp, tp, sp)
+            device = pdist.rank_device(device)
+        else:
+            device = resolve_device(device)
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+        self.dtype = DTYPES[dtype]
+        if device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise ValueError("the CUDA attention kernels (BiACM, rel-bias) "
+                             "take bfloat16; serve with dtype='bfloat16'")
+        cfg = PEneoConfig.from_pretrained(model_name_or_path)
+        if int8_pair_head:
+            cfg.quantize_pair_head = "int8"
+        if int8_backbone:
+            cfg.quantize_backbone = "int8"
+        if max_seq_len:
+            cfg.max_seq_len = max_seq_len
+        if tokenizer is None:
+            from ..registry import load_tokenizer
+
+            tokenizer = load_tokenizer(get_backbone_info(cfg.backbone_name),
+                                       model_name_or_path)
+        # live serving ships resized uint8 pages and normalizes on the
+        # device: no host float conversion, a quarter of the upload
+        super().__init__(cfg, device, tokenizer, batch_size, score_thresh,
+                         raw_image=True, bucket_lengths=bucket_lengths)
+
+        model = PEneoModel(self.cfg)
+        load_weights(model, model_name_or_path)
+        if sp > 1:
+            if self.cfg.max_spots_per_head <= 0:
+                raise ValueError("sp serving returns compact spots: "
+                                 "max_spots_per_head must be > 0")
+            model.set_sequence_parallel(pdist.sp_index(), sp,
+                                        pdist.sp_group())
+        if tp > 1:  # the full weights are loaded: keep this rank's shard
+            model.set_tensor_parallel(pdist.tp_index(), tp, pdist.tp_group())
+        self.model = model.cast(self.dtype).to(self.device).eval()
+        load_family_kernel(self.device, self.info.family)
+        self._packed = self.cfg.max_spots_per_head > 0
+
+    def _forward(self, input_ids, bbox, attention_mask, image):
+        out = self.model(input_ids, bbox, attention_mask, image=image)
+        return pack_spots(out) if self._packed else out

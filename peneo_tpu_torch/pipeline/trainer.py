@@ -515,8 +515,16 @@ class PEneoTrainer:
         by file name, and every rank returns the same metrics. Under
         sequence parallelism only sp rank 0 of each dp index decodes and
         sends metric rows (its sp ranks hold the same spots); under tensor
-        parallelism only tp rank 0 of each (dp, sp) cell."""
+        parallelism only tp rank 0 of each (dp, sp) cell.
+
+        One batch stays in flight while the previous one is fetched and
+        decoded on a pool; ``PENEO_EVAL_SEQUENTIAL=1`` (read at each call,
+        as ``peneo_tpu/pipeline/trainer.py:507-510``) restores the strictly
+        sequential loop, fetch and decode of a batch before the next is
+        dispatched, for the A/B of ``bench_eval``. The metrics are the
+        same either way."""
         args = self.args
+        pipelined = os.environ.get("PENEO_EVAL_SEQUENTIAL") != "1"
         per_rank = args.per_device_eval_batch_size
         full = per_rank * self.dp
         mine = slice(self.dp_rank * per_rank, (self.dp_rank + 1) * per_rank)
@@ -586,8 +594,10 @@ class PEneoTrainer:
                     out = pack_spots(out)  # two device→host copies
                 in_flight.append((batch, bsz, out, losses))
                 n_eval += bsz
-                while len(in_flight) > 1:  # one batch in flight
+                while len(in_flight) > (1 if pipelined else 0):
                     collect_one()
+                if not pipelined and decode_futs:
+                    decode_futs[-1].result()  # decode inline
             while in_flight:
                 collect_one()
             for fut in decode_futs:  # in dispatch order

@@ -675,3 +675,44 @@ def test_int8_linear_on_card_equals_cpu():
     got = quant.int8_linear(x.cuda(), w.cuda(), b.cuda())
     assert got.dtype == want.dtype == torch.bfloat16
     assert torch.equal(got.cpu(), want)
+
+
+def test_custom_ops_launch_or_raise_on_card():
+    """``peneo::biacm_attention`` / ``peneo::bias_attention`` on CUDA
+    tensors: one launch each, the kernel's output layout (the fakes'), and
+    float32 inputs (which the kernels do not take) raise instead of
+    falling back to the twin, as does a backward through #1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def heads(d, dtype=torch.bfloat16):
+        x = torch.randn((2, 40, 12, d), generator=gen, device="cuda")
+        return x.to(dtype).transpose(1, 2)
+
+    mask = torch.zeros((2, 40), device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = [heads(d, dtype) for d in (64, 64, 64, 16, 16, 16)]
+        bias = torch.randn((12, 2, 40, 40), generator=gen,
+                           device="cuda").permute(1, 0, 2, 3)
+        calls = (lambda: ba.biacm_attention_op(*qkv, mask, 0.125, 0.25),
+                 lambda: rb.bias_attention_op(*qkv[:3], bias, mask, 0.125))
+        counters = (ba.biacm_attention_cuda, rb.bias_attention_cuda)
+        for call, counter in zip(calls, counters):
+            before = counter.launches
+            if dtype == torch.float32:
+                with pytest.raises(ValueError, match="bfloat16"):
+                    call()
+                assert counter.launches == before
+                continue
+            out = call()
+            out = out[0] if isinstance(out, tuple) else out
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert out.stride() == (40 * 12 * 64, 64, 12 * 64, 1)
+    # the inference kernels have no backward (training runs #2/#3, #5/#6)
+    qkv = [heads(d).detach().requires_grad_(True)
+           for d in (64, 64, 64, 16, 16, 16)]
+    out = ba.biacm_attention_op(*qkv, mask, 0.125, 0.25)[0]
+    with pytest.raises(RuntimeError, match="no backward"):
+        out.float().sum().backward()

@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: nothing in peneo_tpu_torch/ or
 chip_smoke.py imports jax, flax or peneo_tpu (nor msgpack or safetensors:
 the port reads those files itself), and the package, its models, its
-serving pipeline, its checkpoint readers, its training pipeline and its
-data-, tensor- and sequence-parallel modules import with those modules
-blocked."""
+serving pipeline, its checkpoint readers, its training pipeline, its
+data-, tensor- and sequence-parallel modules, the serving artifact, the
+profiling utilities and the benches import with those modules blocked."""
 
 import ast
 import os
@@ -63,6 +63,11 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.parallel.dist\n"
         "import peneo_tpu_torch.parallel.seq_parallel\n"
         "import peneo_tpu_torch.parallel.tensor_parallel\n"
+        "import peneo_tpu_torch.export_artifact\n"
+        "import peneo_tpu_torch.inference_artifact\n"
+        "import peneo_tpu_torch.check_run_artifact\n"
+        "import peneo_tpu_torch.utils.profiling\n"
+        "import peneo_tpu_torch.bench_serving, peneo_tpu_torch.bench_eval\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
