@@ -17,6 +17,8 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
    80 keys masked); max abs error ≤ 2e-2. Median of 20 launches (CUDA
    events) of the kernel, the twin and ``F.scaled_dot_product_attention``
    on the head_dim-80 concatenation (same function; a yardstick only).
+   And one page of L = 4096 (B = 1, the last 300 keys masked: the long
+   pages of serve_sp_long) against the twin, with its time and bound.
 4. kernel_train — kernels #2 (training forward, attention dropout) and #3
    (backward) against the fp32 twin and its autograd gradients on the same
    bf16 inputs and output gradients, at B=8, nh=12 and L = 512 (the
@@ -257,9 +259,10 @@ each phase resets every kernel count just before it, in every process):
    times a step and #1 12 times an eval forward on each rank; kernel #2's
    flags at rate 0.1 under each rank's dp-index seed identical on both
    ranks and equal to that seed's bits. ms/step, peak per rank.
-- serve_sp — 2 gloo ranks of ``InferenceService(dp=1, sp=2)``, LiLT-base,
-   L = 512, B = 32, bf16, the first 32 pages (#1 12 times a forward on each
-   rank, a record per page); one batch's merged spots against one
+- serve_sp — 2 gloo ranks of ``InferenceService(dp=1, sp=2)``, LiLT-base
+   at CUT_LAYERS, L = 512, B = 32, bf16, the first 32 pages (#1 4 times a
+   forward on each rank, a record per page); one batch's merged spots
+   against one
    process's (``spot_gate``: ``spot_count`` equal, the tags equal and the
    scores within 2e-2 where both keep a position, the k sorted scores
    within 2e-2, every spot clear of the k-th score by more than 2e-2 kept
@@ -269,9 +272,11 @@ each phase resets every kernel count just before it, in every process):
    the other rank waits), the decoder's device and wall ms with both ranks
    on the card and one batch's wall ms, beside one process's decoder and
    its grid whole and split in two shards in turns.
-- serve_sp_long — LiLT-base widths and depth at 2050 positions, random
-   pages of L = 2048, B = 2: one process against the 2 sp ranks (run in
-   serve_sp's launch); spots gated as serve_sp's; the same device ms and
+- serve_sp_long — LiLT-base widths and depth at 4098 positions, one
+   random page of L = 4096 (B = 1): one process against the 2 sp ranks (run
+   in serve_sp's launch); spots gated as serve_sp's, each head's
+   ``spot_count`` within 1e-6 (relative: bf16 rounding on near-ties of a
+   random model, ``SP_LONG_COUNT_RTOL``); the same device ms and
    the forward's peak memory above the weights beside one process's.
 
 Tensor parallelism (``parallel/tensor_parallel.py``: the backbones and
@@ -285,7 +290,8 @@ process):
    stride), each against its fp32 twin with the gates of phases 3, 4, 12
    and 13; each one's device ms.
 - serve_tp, serve_tp_v3, serve_tp_v2 — 2 gloo ranks at tp 2, the first 32
-   pages (one batch, for the script's time) at B = 32, L = 512, bf16:
+   pages (one batch, for the script's time) at B = 32, L = 512, bf16, each
+   family's serving model cut to CUT_LAYERS (one process's too):
    LiLT-base through ``serve --tp 2``,
    LayoutLMv3-base and LayoutXLM-base through ``InferenceService(tp=2)``
    (one launch). Gates: the first 4 pages' line-extraction logits within
@@ -295,7 +301,7 @@ process):
    spot counts reported: a random model puts ~10^5 spots a head above
    zero and its class probabilities crowd the argmax tie, which bf16
    rounding in another summation order crosses); the 32 pages' records
-   alike on both ranks (and what ``serve`` wrote); #1 (or #4) 12 times a
+   alike on both ranks (and what ``serve`` wrote); #1 (or #4) 4 times a
    forward on each rank, fed 6 heads. Prints ms per forward, a profiled
    forward's device, GEMM and copy ms per rank beside one process's,
    pages/s over the run and the peak per rank beside one process's; v3,
@@ -361,6 +367,25 @@ gated after it:
    beside train_graph's one process at K = 4 and train_fsdp's DDP at K =
    1, world 1) and one profiled replay: 48 launches of each of #2/#3's
    kernels, device busy, idle share and NCCL's ms.
+
+The port's benches, driven in process (``bench`` after kernel_tp,
+``sp_pair`` after serve_sp_long; each resets every kernel count just
+before it and reads them just after):
+
+- bench — ``python -m peneo_tpu_torch.bench`` (the counterpart of
+   ``bench.py``) for LiLT-base, LayoutLMv3-base and LayoutXLM-base at B =
+   32, L = 512, bf16, 16 iterations with one batch in flight: each prints
+   the device, the run (forward wall ms, pages/s, launches a forward, the
+   host syncs inside one forward) and JAX's last line; #1 (LiLT) or #4 12
+   times a forward over every forward of the run, the other never; the
+   last line's keys and metric name JAX's.
+- sp_pair — ``python -m peneo_tpu_torch.bench_sp_pair`` (the counterpart
+   of ``tools/bench_sp_pair.py``) at L = 2048 and 4096, B = 1, hidden 768,
+   k 256, 8 iterations (the tool's 16, halved for the script's time): one
+   sp rank's pair grid at size 1 with the bf16 and the int8 pair head, ms
+   per batch and the int8 speed-up; the bf16 spots against the same
+   decoder's one-process grid (``spot_gate``), the int8 spots' agreement
+   with bf16 reported.
 
 30. the ``kernels`` line (all six; ``launches`` sums every path's serving
    and training runs: the wrappers' counts, and for the graph runs also
@@ -610,14 +635,58 @@ def phase_kernel(ba, peaks):
             "library_device_ms": device_ms(library),
             "sdpa_max_abs_err": sdpa_err,
         }
-    # least time for one serving-shape call: each input read once, each
-    # output written once, vs the bf16 tensor-core FLOPs of the 4 products
-    bound = bound_of(B * NH * L * (3 * 64 + 3 * 16) * 2 + B * L * 4
-                     + B * NH * L * (64 + 16) * 2,
-                     4 * B * NH * L * L * (64 + 16), peaks)
+    bound = biacm_bound(B, L, peaks)
+    long = kernel_long(ba, gen, peaks)
+    errs[KERNEL_LONG_L] = long["max_abs_err"]
     emit({"phase": "kernel", "max_abs_err": errs, "tol": KERNEL_TOL,
-          "shape": [B, NH, L, 64, 16], **timing, **bound})
+          "shape": [B, NH, L, 64, 16], **timing, **bound,
+          "long": long})
     return max(errs.values()), timing, bound
+
+
+def biacm_bound(batch, length, peaks):
+    """The least time of one kernel #1 call at (batch, NH, length): each
+    input read once, each output written once, against the bf16
+    tensor-core FLOPs of the 4 products."""
+    return bound_of(batch * NH * length * (3 * 64 + 3 * 16) * 2
+                    + batch * length * 4
+                    + batch * NH * length * (64 + 16) * 2,
+                    4 * batch * NH * length * length * (64 + 16), peaks)
+
+
+# kernel #1 at the long pages serve_sp_long serves: one page of 4096 tokens,
+# its last 300 keys masked (in-head offsets up to 4096 rows of nh·d = 768)
+KERNEL_LONG_B, KERNEL_LONG_L = 1, 4096
+
+
+def kernel_long(ba, gen, peaks):
+    """Kernel #1 at (KERNEL_LONG_B, NH, KERNEL_LONG_L) with a masked tail
+    against its fp32 twin (KERNEL_TOL); its events and device ms beside
+    its bound."""
+    import torch
+
+    st, sl = 1.0 / 8.0, 1.0 / 4.0
+    n = KERNEL_LONG_L
+    qkv, bias = attention_inputs(KERNEL_LONG_B, n,
+                                 [(0, slice(n - 300, n))], gen)
+    args = (*qkv, bias, st, sl)
+    ct, cl = ba.biacm_attention_cuda(*args)
+    rt, rl = ba.biacm_attention_reference(*(x.float() for x in qkv), bias,
+                                          st, sl)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ct).all() and torch.isfinite(cl).all()):
+        raise RuntimeError(f"non-finite kernel output at L={n}")
+    err = max((ct.float() - rt).abs().max().item(),
+              (cl.float() - rl).abs().max().item())
+    del rt, rl
+    if err > KERNEL_TOL:
+        raise RuntimeError(f"kernel vs plain twin at L={n}: max abs err "
+                           f"{err:.3e} > {KERNEL_TOL}")
+    return {"shape": [KERNEL_LONG_B, NH, n, 64, 16], "max_abs_err": err,
+            "masked_keys": 300,
+            "ms": time_ms(lambda: ba.biacm_attention_cuda(*args)),
+            "device_ms": device_ms(lambda: ba.biacm_attention_cuda(*args)),
+            **biacm_bound(KERNEL_LONG_B, n, peaks)}
 
 
 def write_model(wdir):
@@ -3058,6 +3127,50 @@ def graph_model_dir(model_dir, dst, dropout, **cfg_keys):
     return dst
 
 
+# the depth of the gloo-rank serving phases (serve_tp*, serve_sp): 4 of the
+# 12 layers at full width, their one-process references alike (12 before the
+# bench phases came, for the 1200 s). A cut pays there: gloo's host sums of
+# each layer take most of a tp rank's forward, and the reference runs in the
+# phase anyway. train_dp (with train_fsdp_ranks and the NCCL world-1 runs),
+# grid_tp and train_fsdp_v3 stay at full depth: cut, each needed a
+# reference of its own at that depth (train_tp's and train_dp's are full),
+# and the whole script measured 24, 4 and 3 s slower; train_tp and
+# train_sp, whose bf16 gates have little headroom, stay at full depth too.
+CUT_LAYERS = 4
+LAYER_KEY = re.compile(r"(?:^|\.)encoder\.layer\.(\d+)\.")
+
+
+def cut_model(tmp, name, model_dir):
+    """``model_dir``'s model cut to its first CUT_LAYERS backbone layers,
+    every other weight and the tokenizer as they are (its config with
+    ``num_hidden_layers`` = CUT_LAYERS, its ``pytorch_model.bin`` without
+    the deeper layers' tensors): written once under ``tmp`` as
+    ``cut_<name>`` and shared by the phases that run it."""
+    import torch
+
+    dst = os.path.join(tmp, f"cut_{name}")
+    if os.path.isdir(dst):
+        return dst
+    os.makedirs(dst)
+    for f in os.listdir(model_dir):
+        src = os.path.join(model_dir, f)
+        if f not in ("config.json", "pytorch_model.bin") \
+                and os.path.isfile(src):
+            os.symlink(os.path.realpath(src), os.path.join(dst, f))
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["backbone_config"]["num_hidden_layers"] = CUT_LAYERS
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    state = torch.load(os.path.join(model_dir, "pytorch_model.bin"),
+                       weights_only=True)
+    torch.save({k: v for k, v in state.items()
+                if not (m := LAYER_KEY.search(k))
+                or int(m.group(1)) < CUT_LAYERS},
+               os.path.join(dst, "pytorch_model.bin"))
+    return dst
+
+
 def graph_setup(data_dir, model_dir):
     """The model of ``model_dir`` on the card, its optimizer, a group of
     GRAPH_K training batches (leading axis K) from the synthetic corpus
@@ -3200,33 +3313,40 @@ def profiled_replay(step_fn, group, family, profile_dir, name, layers=12):
     torch.profiler, expected to trace ``layers · GRAPH_K`` launches of each
     of ``family``'s kernels and none of the port's others. A trace has been
     seen to miss a replay's first kernels (47 of 48) when the replay began
-    as the window opened, so the window holds PROFILE_MARGIN_S of idle host
-    time before and after the replay, and up to 3 replays are profiled,
-    until one traces what is expected. Returns (device rows,
-    busy ms, replay ms, each profiled replay's traced launches, the
-    expected launches)."""
+    as the window opened, with 50 ms of idle host time before it too, so
+    each window records the second of two replays (the profiler's warm-up
+    step runs the first), with PROFILE_MARGIN_S of idle host time around
+    each, and up to 3 windows are profiled, until one traces what is
+    expected. Returns (device rows, busy ms, replay ms, each profiled
+    replay's traced launches, the expected launches)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     traces = []
     for _ in range(3):
+        replay_ms, got = [], []
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # the profiler drops device events it places outside its
-            # window: idle host time at both ends keeps the replay inside
-            time.sleep(PROFILE_MARGIN_S)
-            t0 = time.perf_counter()
-            step_fn(group)
-            torch.cuda.synchronize()
-            replay_ms = (time.perf_counter() - t0) * 1e3
-            time.sleep(PROFILE_MARGIN_S)
-        rows, busy_ms = device_rows(prof, replay_ms, profile_dir, name)
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.append(device_rows(
+                         p, replay_ms[-1], profile_dir, name))) as prof:
+            for _ in range(2):
+                # the profiler drops device events it places outside its
+                # window: idle host time at both ends keeps the replay in
+                time.sleep(PROFILE_MARGIN_S)
+                t0 = time.perf_counter()
+                step_fn(group)
+                torch.cuda.synchronize()
+                replay_ms.append((time.perf_counter() - t0) * 1e3)
+                time.sleep(PROFILE_MARGIN_S)
+                prof.step()
+        rows, busy_ms = got[0]
         traces.append(trace_launches(rows))
         want = {k: (layers * GRAPH_K if k in family else 0)
                 for k in traces[-1]}
         if traces[-1] == want:
             break
-    return rows, busy_ms, replay_ms, traces, want
+    return rows, busy_ms, replay_ms[-1], traces, want
 
 
 def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
@@ -4022,7 +4142,17 @@ SP_QK_TOL = 5e-2
 SP_QK = re.compile(r"backbone\.encoder\.layer\.11\.attention\.self\."
                    r"(query|key)\.weight")
 SP_SCORE_TOL = 2e-2  # spot scores, one process against the sp ranks
-LONG_L, LONG_B = 2048, 2  # serve_sp_long: the pages sp exists for
+# serve_sp_long: the pages sp exists for (2048 × 2 before the long pages of
+# the sp pair bench came)
+LONG_L, LONG_B = 4096, 1
+# serve_sp_long's spot counts, one process against the sp ranks, relative.
+# Exact at 2048 × 2; at 4096 two heads' counts of 3.4 M and 7.4 M nonzero
+# tags differed by 2 and 1: a random model's class probabilities crowd the
+# argmax tie, and the ranks' row blocks (64 rows of a strided shard) run
+# other GEMM shapes than one process's (128 rows), so bf16 rounding flips a
+# few near-tie positions. A fault of the split (a row lost or counted
+# twice) moves a count by one row's ~4095 cells, over 1e-4 of the grid.
+SP_LONG_COUNT_RTOL = 1e-6
 
 
 def sp_train_worker(spec):
@@ -4235,10 +4365,12 @@ def long_model(sp_index=0, sp=1, group=None):
             pad_token_id=0, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0).to_dict(),
         max_seq_len=LONG_L)
-    model = PEneoModel(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    # drawn on the card: the same weights in every process that builds it
+    model = PEneoModel(cfg).cuda().init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED))
     if sp > 1:
         model.set_sequence_parallel(sp_index, sp, group)
-    return model.cast(torch.bfloat16).cuda().eval()
+    return model.cast(torch.bfloat16).eval()
 
 
 def long_inputs():
@@ -4509,15 +4641,15 @@ def spot_gate(ref, got, k, tol=SP_SCORE_TOL, count_rtol=0.0):
 
 
 def phase_serve_sp(ba, rb, tmp, img_dir, ocr_dir, smi):
-    """Sequence-parallel serving of LiLT-base (L = 512, B = 32, bf16, the
-    first 32 pages): two gloo ranks on the card at sp 2 (the ranks also run
-    serve_sp_long's part: one launch), against this process's
-    ``InferenceService`` on the same model directory."""
+    """Sequence-parallel serving of LiLT-base at CUT_LAYERS (L = 512, B =
+    32, bf16, the first 32 pages): two gloo ranks on the card at sp 2 (the
+    ranks also run serve_sp_long's part, at full depth: one launch), against
+    this process's ``InferenceService`` on the same model directory."""
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
 
-    model_dir = os.path.join(tmp, "model")
+    model_dir = cut_model(tmp, "lilt", os.path.join(tmp, "model"))
     img_dir, ocr_dir = first_pages(tmp, img_dir, ocr_dir, SP_PAGES, "sp")
     spec = {"worker": "sp_serve", "model": model_dir,
             "pages": [img_dir, ocr_dir]}
@@ -4547,12 +4679,13 @@ def phase_serve_sp(ba, rb, tmp, img_dir, ocr_dir, smi):
     n_forwards = math.ceil(SP_PAGES / B)
     for r in ranks:
         expect_counts(r["serve"]["launches"],
-                      {"biacm_attention": 12 * n_forwards},
+                      {"biacm_attention": CUT_LAYERS * n_forwards},
                       f"serve_sp rank {r['rank']}")
         if r["serve"]["pages"] != SP_PAGES:
             errors.append(f"rank {r['rank']}: {r['serve']['pages']} pages")
     report = {
         "phase": "serve_sp", "nvidia_smi": smi, "sp": SP_WORLD,
+        "layers": CUT_LAYERS,
         "backend": ranks[0]["backend"], "batch_size": B, "L": L,
         "max_spots_per_head": k, "spots": summary,
         "launches_ranks": [r["serve"]["launches"] for r in ranks],
@@ -4605,12 +4738,13 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
     counts = read_counts(ba, rb)
     del out
     device, dec_wall, top = decoder_device_ms(model, ids, bbox, attn)
-    split = split_device_ms(model, ids, bbox, attn)
+    split = split_device_ms(model, ids, bbox, attn, repeats=1)
     k = model.cfg.max_spots_per_head
     del model
     torch.cuda.empty_cache()
 
-    errors, summary = spot_gate(spots, ranks[0]["long"]["spots"], k)
+    errors, summary = spot_gate(spots, ranks[0]["long"]["spots"], k,
+                                count_rtol=SP_LONG_COUNT_RTOL)
     if any(r["long"]["spots"] != ranks[0]["long"]["spots"] for r in ranks):
         errors.append("the ranks' merged spots differ")
     for r in [{"rank": "one process", "long": {"launches": counts}}] + ranks:
@@ -4644,6 +4778,109 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
         for key, v in r["long"]["launches"].items():
             total[key] += v
     return total
+
+
+# ------------------------------------------------------------------------
+# the port's benches: the batched forward (peneo_tpu_torch/bench.py) and
+# the sp pair path (peneo_tpu_torch/bench_sp_pair.py), driven in process
+# ------------------------------------------------------------------------
+BENCH_ITERS = 16  # bench.py's
+# the bench's forwards: 2 warm calls, 3 timed alone, 1 under the sync
+# check, then the iterations with one batch in flight
+BENCH_EXTRA_FORWARDS = 6
+SP_PAIR_LENGTHS = (2048, 4096)
+SP_PAIR_ITERS = 8  # tools/bench_sp_pair.py's 16, halved for the 1200 s
+
+
+def phase_bench(ba, rb, smi):
+    """``python -m peneo_tpu_torch.bench`` for LiLT-base, LayoutLMv3-base
+    and LayoutXLM-base at B = 32, L = 512, bf16, BENCH_ITERS iterations
+    (each prints its lines). Gates: the family's kernel (#1, or #4)
+    launched 12 times a forward and the other never, over every forward of
+    the run and over the timed ones; no host sync inside a forward; the
+    JAX tool's last-line keys and metric name. Returns the launches."""
+    import torch
+
+    from peneo_tpu_torch import bench
+
+    total, report, errors = {}, {}, []
+    for family, kernel in (("lilt", "biacm_attention"),
+                           ("layoutlmv3", "bias_attention"),
+                           ("layoutlmv2", "bias_attention")):
+        reset_counts(ba, rb)
+        t0 = time.perf_counter()
+        run, line = bench.run(["--backbone", family, "--iters",
+                               str(BENCH_ITERS)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(ba, rb)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_forwards = BENCH_ITERS + BENCH_EXTRA_FORWARDS
+        expect_counts(counts, {kernel: 12 * n_forwards}, f"bench {family}")
+        tag = "" if family == "lilt" else f"_{family}"
+        want = f"pages_per_sec_per_chip{tag}_L{L}_bf16_batch_inference"
+        if set(line) != {"metric", "value", "unit", "vs_baseline"} \
+                or line["metric"] != want or not line["value"] > 0:
+            errors.append(f"{family}: last line {line}")
+        if run["host_syncs_per_forward"] != 0 \
+                or run["launches_per_forward"][kernel] != 12:
+            errors.append(f"{family}: {run['host_syncs_per_forward']} host "
+                          f"syncs ({run['host_sync_sites']}), launches "
+                          f"{run['launches_per_forward']} a timed forward")
+        report[family] = {"line": line, "seconds": seconds,
+                          "launches": counts,
+                          "forward_wall_ms": run["forward_wall_ms"],
+                          "ms_per_batch_in_flight":
+                              run["ms_per_batch_in_flight"]}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "bench", "nvidia_smi": smi, "batch_size": B, "L": L,
+          "iters": BENCH_ITERS, **report})
+    if errors:
+        raise RuntimeError("bench: " + "; ".join(errors))
+    return total
+
+
+def phase_sp_pair(ba, rb, smi):
+    """``python -m peneo_tpu_torch.bench_sp_pair`` at L = 2048 and 4096, B
+    = 1, hidden 768, k 256 (each prints its lines): one sp rank's pair grid
+    at size 1 (``sp_partials``, ``merge_spots``), bf16 then int8 pair head.
+    Gate: the bf16 spots against the same decoder's one-process grid on
+    the same a, b (``spot_gate``); the int8 spots' agreement with bf16 is
+    reported, not gated. No attention kernel runs here."""
+    import torch
+
+    from peneo_tpu_torch import bench_sp_pair
+
+    reset_counts(ba, rb)
+    report, errors = {}, []
+    for length in SP_PAIR_LENGTHS:
+        t0 = time.perf_counter()
+        out = bench_sp_pair.main(["--L", str(length), "--iters",
+                                  str(SP_PAIR_ITERS)], reference=True)
+        seconds = time.perf_counter() - t0
+        k = 256
+        err, summary = spot_gate(out["one_process"], out["bf16"][1], k)
+        int8_err, int8_summary = spot_gate(out["bf16"][1], out["int8"][1],
+                                           k, count_rtol=None)
+        errors += [f"L={length}: {e}" for e in err]
+        report[str(length)] = {
+            "bf16": out["bf16"][0], "int8": out["int8"][0],
+            "int8_speedup": out["speedup"]["int8_speedup"],
+            "spots_bf16_vs_one_process": summary,
+            "spots_int8_vs_bf16": dict(int8_summary,
+                                       outside_gate=len(int8_err)),
+            "seconds": seconds}
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = read_counts(ba, rb)
+    emit({"phase": "sp_pair", "nvidia_smi": smi, "batch_size": 1,
+          "hidden": 768, "k": 256, "iters": SP_PAIR_ITERS,
+          "launches": counts, **report})
+    if errors:
+        raise RuntimeError("sp_pair: " + "; ".join(errors[:10]))
+    return counts
 
 
 # ------------------------------------------------------------------------
@@ -4941,7 +5178,8 @@ def logit_rel_err(got, want):
 
 def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
     """Tensor-parallel serving at B = 32, L = 512, bf16 over TP_PAGES of the
-    96 pages (one batch, cut for the script's 1200 s):
+    96 pages (one batch, cut for the script's 1200 s), the serving phases'
+    models (``models``) cut to CUT_LAYERS:
     TP_WORLD gloo ranks on the card at tp 2, LiLT-base through ``serve --tp
     2`` (``serve_tp``), LayoutLMv3-base (``serve_tp_v3``) and LayoutXLM-base
     (``serve_tp_v2``) through ``InferenceService(tp=2)``, one launch;
@@ -4953,6 +5191,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
 
+    models = {fam: cut_model(tmp, fam, d) for fam, d in models.items()}
     img_dir, ocr_dir = first_pages(tmp, img_dir, ocr_dir, TP_PAGES, "tp")
     spec = {"worker": "tp_serve", "models": models,
             "pages": [img_dir, ocr_dir],
@@ -5014,6 +5253,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
         errors += [f"{tag}: {e}" for e in spot_errors]
         report = {
             "phase": tag, "nvidia_smi": smi, "tp": TP_WORLD,
+            "layers": CUT_LAYERS,
             "backend": ranks[0]["backend"], "batch_size": B, "L": L,
             "spots": summary,
             "pages_with_records_equal_one_process":
@@ -5066,7 +5306,7 @@ def phase_serve_tp(ba, rb, tmp, img_dir, ocr_dir, models, smi):
             if m["heads"] != [TP_NH] or m["pages"] != TP_PAGES:
                 errors.append(f"{tag}: heads {m['heads']}, pages "
                               f"{m['pages']}")
-            expect_counts(m["launches"], {kernel: 12 * n_forwards},
+            expect_counts(m["launches"], {kernel: CUT_LAYERS * n_forwards},
                           f"{tag} rank")
             for k, v in m["launches"].items():
                 total[k] += v
@@ -6113,6 +6353,8 @@ def main(argv=None):
     bias_train_err, bias_train_timing, bias_train_bounds, _ = timed(
         "kernel_bias_train", phase_kernel_bias_train, rb, ba, peaks)
     timed("kernel_tp", phase_kernel_tp, ba, rb, peaks)  # nh / tp heads
+    # the port's flagship forward bench, three families
+    bench_counts = timed("bench", phase_bench, ba, rb, smi)
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke-", dir=BUILD_DIR) as tmp:
         svc, img_dir, ocr_dir, docs, launches = timed(
@@ -6154,6 +6396,7 @@ def main(argv=None):
         surface.append(sp_counts)
         surface.append(timed("serve_sp_long", phase_serve_sp_long, ba, rb,
                              sp_ranks, smi))
+        surface.append(timed("sp_pair", phase_sp_pair, ba, rb, smi))
 
         launches_v3 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v3")
@@ -6223,8 +6466,8 @@ def main(argv=None):
                                                           launches_v2))
                            + graph["v3"][k] + graph["v2"][k]
                            for k in ("fwd", "bwd")}
-    # and the checkpoint, int8 and serving-surface phases'
-    for counts in surface:
+    # and the checkpoint, int8, serving-surface and bench phases'
+    for counts in surface + [bench_counts]:
         launches += counts["biacm_attention"]
         bias_launches += counts["bias_attention"]
         for k in ("fwd", "bwd"):

@@ -68,6 +68,7 @@ def test_imports_with_jax_flax_and_peneo_tpu_blocked():
         "import peneo_tpu_torch.check_run_artifact\n"
         "import peneo_tpu_torch.utils.profiling\n"
         "import peneo_tpu_torch.bench_serving, peneo_tpu_torch.bench_eval\n"
+        "import peneo_tpu_torch.bench, peneo_tpu_torch.bench_sp_pair\n"
         "peneo_tpu_torch.run_rfund.setup\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
