@@ -23,10 +23,9 @@ The last line is the JAX tool's: ``{"metric", "value", "unit",
 its power limit, the baseline's source, the forward's wall ms, the attention
 kernels' launches per forward and the host syncs of one forward (on the
 card, under ``torch.cuda.set_sync_debug_mode``). ``vs_baseline`` divides by
-the original PyTorch PEneo's pages/s on a CPU: read from
-``BASELINE_measured.json`` beside the package, else measured when the
-reference checkout (``--reference_dir`` or ``$PENEO_REFERENCE_DIR``)
-imports, else 1.0. Runs on the GPU unless ``--device cpu`` is given.
+the original PyTorch PEneo's pages/s on a CPU, read from
+``BASELINE_measured.json`` beside the package (``--baseline_cache``), else
+1.0. Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ import argparse
 import json
 import os
 import statistics
-import sys
 import time
 import warnings
 
@@ -62,91 +60,12 @@ def make_inputs(rng, batch, seq_len, vocab):
     return input_ids, bbox, attn
 
 
-def _reference_imports(root):
-    """Make the reference checkout importable: its vendored LayoutLMv3
-    needs only ``timm``'s ``to_2tuple``, and it targets transformers 4.40,
-    whose ``modeling_utils`` still held three helpers since moved."""
-    import importlib.machinery
-    import types
-
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    if "timm" not in sys.modules:
-        def module(name):
-            mod = types.ModuleType(name)
-            mod.__spec__ = importlib.machinery.ModuleSpec(name, loader=None)
-            mod.__version__ = "0.0.0"
-            sys.modules[name] = mod
-            return mod
-
-        timm, models, layers = (module(n) for n in
-                                ("timm", "timm.models", "timm.models.layers"))
-        layers.to_2tuple = lambda x: x if isinstance(x, tuple) else (x, x)
-        models.layers, timm.models = layers, models
-    import transformers.modeling_utils as mu
-    import transformers.pytorch_utils as ptu
-
-    for name in ("find_pruneable_heads_and_indices", "prune_linear_layer",
-                 "apply_chunking_to_forward"):
-        if not hasattr(mu, name) and hasattr(ptu, name):
-            setattr(mu, name, getattr(ptu, name))
-
-
-def measure_reference_cpu(root) -> float:
-    """Pages/s of the reference PEneoModel (LiLT-base geometry, L = 512,
-    batch 2, inference) on the CPU, as ``bench.py`` measures it."""
-    import torch
-
-    _reference_imports(root)
-    from model.configuration_peneo import PEneoConfig as RefConfig
-    from model.modeling_peneo import PEneoModel as RefModel
-
-    torch.manual_seed(0)
-    cfg = RefConfig(
-        backbone_name="lilt-infoxlm-base",
-        backbone_config=dict(
-            vocab_size=250002, hidden_size=768, num_hidden_layers=12,
-            num_attention_heads=12, intermediate_size=3072,
-            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-            max_position_embeddings=L + 2, channel_shrink_ratio=4,
-            max_2d_position_embeddings=1024, pad_token_id=1,
-            model_type="lilt", layer_norm_eps=1e-5),
-        inference_mode=True)
-    model = RefModel(cfg).eval()
-    ref_b, n = 2, 3
-    ids, bbox, attn = (torch.tensor(x) for x in
-                       make_inputs(np.random.default_rng(0), ref_b, L,
-                                   250002))
-    with torch.no_grad():
-        kw = dict(input_ids=ids, bbox=bbox, orig_bbox=bbox,
-                  attention_mask=attn)
-        model(**kw)  # warm
-        t0 = time.perf_counter()
-        for _ in range(n):
-            model(**kw)
-        dt = time.perf_counter() - t0
-    return ref_b * n / dt
-
-
-def reference_pages_per_sec(cache=CACHE, reference_dir=None):
+def reference_pages_per_sec(cache=CACHE):
     """(pages/s of the original PyTorch PEneo on a CPU, where it came
-    from): the cache file, else a live measurement (written to the cache),
-    else the fallback."""
+    from): the cache file, else the fallback."""
     if os.path.exists(cache):
         with open(cache) as f:
             return json.load(f)["reference_cpu_pages_per_sec"], "cache"
-    if reference_dir and os.path.isfile(os.path.join(
-            reference_dir, "model", "modeling_peneo.py")):
-        try:
-            value = measure_reference_cpu(reference_dir)
-        except Exception as e:  # a checkout this code cannot drive
-            print(f"# reference measurement failed ({e!r}); using the "
-                  "fallback", file=sys.stderr)
-        else:
-            with open(cache, "w") as f:
-                json.dump({"reference_cpu_pages_per_sec": value,
-                           "batch": 2, "seq_len": L}, f, indent=2)
-            return value, "measured"
     return FALLBACK_REF_PAGES_PER_SEC, "fallback"
 
 
@@ -261,10 +180,6 @@ def build_argparser():
                    help="layoutlmv3/v2: no page image (text only)")
     p.add_argument("--baseline_cache", default=CACHE,
                    help="the reference's cached CPU pages/s")
-    p.add_argument("--reference_dir",
-                   default=os.environ.get("PENEO_REFERENCE_DIR"),
-                   help="a checkout of the original PyTorch PEneo, measured "
-                        "when the cache is missing")
     p.add_argument("--device", type=str, default=None,
                    help="cpu to run on the CPU (default: the GPU)")
     return p
@@ -288,8 +203,7 @@ def run(argv=None, geometry=None):
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)  # no GPU, no --device cpu: raise
     on_card = device.type == "cuda"
-    ref_pps, ref_source = reference_pages_per_sec(args.baseline_cache,
-                                                  args.reference_dir)
+    ref_pps, ref_source = reference_pages_per_sec(args.baseline_cache)
     emit({"device": device_name(device), "torch": torch.__version__,
           "baseline": {"source": ref_source, "pages_per_s": ref_pps}})
 
@@ -314,7 +228,11 @@ def run(argv=None, geometry=None):
             (args.B, 3, s, s)).astype(np.float32)).to(device)
     setup_s = time.perf_counter() - t0
 
+    forwards = 0  # every forward of the run, warm and timed
+
     def run_once():
+        nonlocal forwards
+        forwards += 1
         with torch.inference_mode():
             return pack_spots(model(ids, bbox, attn, image=image))
 
@@ -382,6 +300,7 @@ def run(argv=None, geometry=None):
         "forward_wall_ms": statistics.median(wall),
         "forward_wall_ms_runs": wall,
         "ms_per_batch_in_flight": dt / args.iters * 1e3,
+        "forwards": forwards,
         "pages_per_s": pages_per_sec, "launches": launches,
         "launches_per_forward": {k: v / args.iters
                                  for k, v in launches.items()},
