@@ -18,7 +18,8 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
    events) of the kernel, the twin and ``F.scaled_dot_product_attention``
    on the head_dim-80 concatenation (same function; a yardstick only).
    And one page of L = 4096 (B = 1, the last 300 keys masked: the long
-   pages of serve_sp_long) against the twin, with its time and bound.
+   pages of serve_sp_long) against the twin, with its time, the SDPA
+   call's and its bound.
 4. kernel_train — kernels #2 (training forward, attention dropout) and #3
    (backward) against the fp32 twin and its autograd gradients on the same
    bf16 inputs and output gradients, at B=8, nh=12 and L = 512 (the
@@ -197,10 +198,12 @@ the last two after phase 18):
    kernel #4 12 times behind the int8 projections, the int8 launches, the
    logits against bf16's within the backbone gate.
 
-The serving artifact (after serve_api, and in the LayoutLMv3 path after
-breakdown_v3; each resets every kernel count just before it):
+The serving artifact (after serve_api, and in the LayoutLMv3 and
+LayoutXLM paths after their breakdown; each resets every kernel count just
+before it):
 
-- serve_artifact, serve_artifact_v3 — the family's operator
+- serve_artifact, serve_artifact_v3, serve_artifact_v2 — the family's
+   operator
    (``peneo::biacm_attention`` or ``peneo::bias_attention``) on the card's
    tensors at the main path's shape passes ``torch.library.opcheck``'s
    schema and fake-tensor tests; the serving phase's model directory
@@ -213,6 +216,19 @@ breakdown_v3; each resets every kernel count just before it):
    export, save and load seconds, the ``.pt2`` bytes, warm pages/s and one
    batch's forward wall ms beside the live service's, and the operator's
    host ms per call in one batch of each traced by ``utils/profiling.trace``.
+
+Streaming spot extraction (``spot_streaming``, after serve_artifact; it
+resets every kernel count just before its run):
+
+- serve_stream — ``InferenceService(spot_streaming=True)`` on the serve
+   phase's model over the 96 pages (#1 12 times a forward, the dense
+   service's records on every page); one batch's backbone output through
+   the decoder streamed (each row block reduced to its top-k candidate
+   keys, no (B, L, L) map) and with its dense maps, whose top k
+   ``compact_spots`` takes in the spot-key order (score descending, then
+   the lower flat index): ``spot_count`` equal and the live slots bit for
+   bit (``streamed_gate``). The forward's peak memory above the weights
+   and the decoder's device ms, dense and streamed.
 
 OHEM and data parallelism (after phase 11; each resets every kernel
 count just before it and reads them just after):
@@ -268,8 +284,8 @@ each phase resets every kernel count just before it, in every process):
    process's (``spot_gate``: ``spot_count`` equal, the tags equal and the
    scores within 2e-2 where both keep a position, the k sorted scores
    within 2e-2, every spot clear of the k-th score by more than 2e-2 kept
-   by both; at the k-th score sp keeps the lowest flat indices, one
-   process's ``torch.topk`` an unspecified subset) and alike on both
+   by both; at the k-th score both keep the lowest flat indices) and
+   alike on both
    ranks; each rank's shard of the pair grid (device ms, profiled while
    the other rank waits), the decoder's device and wall ms with both ranks
    on the card and one batch's wall ms, beside one process's decoder and
@@ -280,7 +296,10 @@ each phase resets every kernel count just before it, in every process):
    ``spot_count`` apart by at most the positions whose two largest class
    probabilities in one process are within 1e-4 (bf16 rounding on
    near-ties of a random model, ``close_calls``); the same device ms and
-   the forward's peak memory above the weights beside one process's.
+   the forward's peak memory above the weights beside one process's. One
+   process also runs the page streamed (``spot_streaming``): #1 12 times,
+   serve_stream's ``streamed_gate``, the forward's peak and the decoder's
+   device ms beside the dense ones.
 
 Tensor parallelism (``parallel/tensor_parallel.py``: the backbones and
 the pair head split Megatron-style, each rank on nh / tp = 6 heads; after
@@ -385,7 +404,7 @@ before it and reads them just after):
    last line's keys and metric name JAX's.
 - sp_pair — ``python -m peneo_tpu_torch.bench_sp_pair`` (the counterpart
    of ``tools/bench_sp_pair.py``) at L = 2048 and 4096, B = 1, hidden 768,
-   k 256, 8 iterations (the tool's 16, halved for the script's time): one
+   k 256, 4 iterations (the tool's 16, cut for the script's time): one
    sp rank's pair grid at size 1 with the bf16 and the int8 pair head, ms
    per batch and the int8 speed-up; the bf16 spots against the same
    decoder's one-process grid (``spot_gate``), the int8 spots' agreement
@@ -399,6 +418,7 @@ before it and reads them just after):
 Every phase also prints its seconds.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -591,7 +611,6 @@ def attention_inputs(batch, length, masked, gen, nh=NH):
 
 def phase_kernel(ba, peaks):
     import torch
-    import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     st, sl = 1.0 / 8.0, 1.0 / 4.0
@@ -620,17 +639,9 @@ def phase_kernel(ba, peaks):
                                f"err {err:.3e} > {KERNEL_TOL}")
         if length != L:
             continue
-        q80 = torch.cat([qt * st, ql * sl], -1)
-        k80 = torch.cat([kt, kl], -1)
-        v80 = torch.cat([vt, vl], -1)
-        mask = bias[:, None, None, :].to(torch.bfloat16)
-        sdpa = F.scaled_dot_product_attention(q80, k80, v80, attn_mask=mask,
-                                              scale=1.0)
-        sdpa_err = (sdpa.float() - torch.cat([rt, rl], -1)).abs().max().item()
-        def library():
-            return F.scaled_dot_product_attention(q80, k80, v80,
-                                                  attn_mask=mask, scale=1.0)
-
+        library = biacm_library(args)
+        sdpa_err = (library().float()
+                    - torch.cat([rt, rl], -1)).abs().max().item()
         timing = {
             "ms": time_ms(lambda: ba.biacm_attention_cuda(*args)),
             "plain_ms": time_ms(lambda: ba.biacm_attention_reference(*args)),
@@ -646,6 +657,22 @@ def phase_kernel(ba, peaks):
           "shape": [B, NH, L, 64, 16], **timing, **bound,
           "long": long})
     return max(errs.values()), timing, bound
+
+
+def biacm_library(args):
+    """Kernel #1's function as one ``F.scaled_dot_product_attention`` call
+    on the head_dim-80 concatenation of its two streams (the scales folded
+    into q, the key mask as a bf16 additive mask): a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt, ql, kl, vl, bias, st, sl = args
+    q80 = torch.cat([qt * st, ql * sl], -1)
+    k80 = torch.cat([kt, kl], -1)
+    v80 = torch.cat([vt, vl], -1)
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    return lambda: F.scaled_dot_product_attention(q80, k80, v80,
+                                                  attn_mask=mask, scale=1.0)
 
 
 def biacm_bound(batch, length, peaks):
@@ -686,10 +713,13 @@ def kernel_long(ba, gen, peaks):
     if err > KERNEL_TOL:
         raise RuntimeError(f"kernel vs plain twin at L={n}: max abs err "
                            f"{err:.3e} > {KERNEL_TOL}")
+    library = biacm_library(args)
     return {"shape": [KERNEL_LONG_B, NH, n, 64, 16], "max_abs_err": err,
             "masked_keys": 300,
             "ms": time_ms(lambda: ba.biacm_attention_cuda(*args)),
             "device_ms": device_ms(lambda: ba.biacm_attention_cuda(*args)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
             **biacm_bound(KERNEL_LONG_B, n, peaks)}
 
 
@@ -990,6 +1020,11 @@ def phase_breakdown(svc, img_dir, ocr_dir, profile_dir, tag=""):
           "top_kernels": [[k[:90], round(ms, 3), n] for k, ms, n in rows[:12]]})
 
 
+# calls of LayoutXLM's tower a device-time profile holds (5 until the
+# streaming and LayoutXLM artifact phases came, for the 1200 s)
+TOWER_CALLS = 2
+
+
 def v2_breakdown(svc, pages):
     """LayoutXLM's serving forward in parts, device time each: the visual
     tower with its pooling (NCHW, the model's layout, and the same weights
@@ -1006,7 +1041,7 @@ def v2_breakdown(svc, pages):
     out = {}
     with torch.inference_mode():
         out["tower_device_ms"] = device_ms(
-            lambda: backbone.visual_features(image), n=5)
+            lambda: backbone.visual_features(image), n=TOWER_CALLS)
         hidden = backbone(ids, bbox, attn, image=image)[
             "last_hidden_state"][:, 1:L]
         out["pair_head_device_ms"] = device_ms(
@@ -1016,7 +1051,7 @@ def v2_breakdown(svc, pages):
         try:
             nhwc = image.contiguous(memory_format=torch.channels_last)
             out["tower_channels_last_device_ms"] = device_ms(
-                lambda: backbone.visual_features(nhwc), n=5)
+                lambda: backbone.visual_features(nhwc), n=TOWER_CALLS)
             same = (backbone.visual_features(nhwc).float()
                     - backbone.visual_features(image).float()).abs().max()
             out["tower_channels_last_max_abs_diff"] = same.item()
@@ -1635,8 +1670,10 @@ def phase_train_breakdown(model, batch, profile_dir, tag=""):
             return torch.autograd.grad(tower_fwd(), tower, upstream)
 
         with torch.no_grad():
-            extra["tower_fwd_device_ms"] = device_ms(tower_fwd, n=5)
-        extra["tower_fwd_bwd_device_ms"] = device_ms(tower_step, n=5)
+            extra["tower_fwd_device_ms"] = device_ms(tower_fwd,
+                                                     n=TOWER_CALLS)
+        extra["tower_fwd_bwd_device_ms"] = device_ms(tower_step,
+                                                     n=TOWER_CALLS)
         del upstream
     emit({"phase": f"train_breakdown_{tag}" if tag else "train_breakdown",
           "batch_size": TRAIN_B, "L": L, **extra,
@@ -2260,8 +2297,8 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
 
 def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
     """A rel-bias family's main path at full width and depth (``tag`` "v3":
-    LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown (v3: then
-    serve_artifact_v3), then train, train_parity and train_breakdown.
+    LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown, the family's
+    serve_artifact, then train, train_parity and train_breakdown.
     Returns its launch counts, the train phase's line and its output
     directory."""
     import torch
@@ -2272,10 +2309,9 @@ def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
     timed(f"parity_{tag}", phase_parity, svc, img_dir, ocr_dir, tag)
     timed(f"breakdown_{tag}", phase_breakdown, svc, img_dir, ocr_dir,
           profile_dir, tag)
-    artifact = None
-    if not v2:  # the LayoutLMv3 artifact against this live service
-        artifact = timed("serve_artifact_v3", phase_serve_artifact, ba, rb,
-                         tmp, svc, wdir, img_dir, ocr_dir, "v3")
+    # the family's artifact against this live service
+    artifact = timed(f"serve_artifact_{tag}", phase_serve_artifact, ba, rb,
+                     tmp, svc, wdir, img_dir, ocr_dir, tag)
     del svc
     torch.cuda.empty_cache()
     train_launches, train_out, train_record = timed(
@@ -2798,8 +2834,9 @@ def op_fake_check(ba, rb, tag):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     masked = [(1, slice(L - 100, L))]
-    if tag == "v3":
-        qkv, bias, mask = bias_inputs(B, LV, masked, gen)
+    if tag:  # LayoutLMv3 (L' 709) or LayoutXLM (L' 561)
+        qkv, bias, mask = bias_inputs(B, LV if tag == "v3" else LV2, masked,
+                                      gen)
         args = (rb.bias_attention_op, (*qkv, relbias_layout(bias), mask,
                                        0.125))
     else:
@@ -2810,17 +2847,19 @@ def op_fake_check(ba, rb, tag):
 
 
 def phase_serve_artifact(ba, rb, tmp, svc, wdir, img_dir, ocr_dir, tag=""):
-    """``serve_artifact`` (LiLT-base, kernel #1) or ``serve_artifact_v3``
-    (LayoutLMv3-base, kernel #4): the serving phase's model directory
-    exported on the card (``export_artifact``: B = 32, L = 512, bf16), then
-    loaded back into ``ArtifactInferenceService``, which serves the 96
-    pages (v3: fp32 page images normalized on the host, as the artifact
-    takes them). Gates: the export launches no kernel and its graph holds
-    the family's operator; the artifact's run launches the kernel 12 times
-    a forward and nothing else; its records equal the live service's
-    (``svc``) on every page, and one batch's spots are bit-identical to the
-    live forward's (if not, each output's largest difference is printed and
-    the spots go through ``spot_gate``); ``check_run_artifact`` ends with
+    """``serve_artifact`` (LiLT-base, kernel #1), ``serve_artifact_v3``
+    (LayoutLMv3-base, kernel #4 at L' 709) or ``serve_artifact_v2``
+    (LayoutXLM-base with its tower, kernel #4 at L' 561): the serving
+    phase's model directory exported on the card (``export_artifact``: B =
+    32, L = 512, bf16), then loaded back into ``ArtifactInferenceService``,
+    which serves the 96 pages (v3, v2: uint8 page images normalized on
+    the card, as the live service ships them). Gates: the export launches
+    no kernel and its graph holds the family's operator; the artifact's
+    run launches the kernel 12 times a forward and nothing else; its
+    records equal the live service's (``svc``) on every page, and one
+    batch's spots are bit-identical to the live forward's (if not, each
+    output's largest difference is printed and the spots go through
+    ``spot_gate``); ``check_run_artifact`` ends with
     ``End``. Prints the seconds to export, save and load, the ``.pt2``
     bytes, warm pages/s and one batch's forward wall ms beside the live
     service's, and, from one batch of each under ``utils/profiling.trace``
@@ -4693,9 +4732,9 @@ def batch_wall_ms(svc, pages, n=3):
 def spot_gate(ref, got, k, tol=SP_SCORE_TOL, count_rtol=0.0, close=None):
     """One process's compact spots (``ref``) against the sp ranks' merged
     ones (``got``), both as ``pack_spots`` lists. The tie rule: where scores
-    tie at the k-th place, the sp merge keeps the lowest flat indices (the
-    JAX order, score descending then flat index ascending) and
-    ``torch.topk`` in one process an unspecified subset. So per head and
+    tie at the k-th place, both keep the lowest flat indices (the JAX
+    order, score descending then flat index ascending), but rounding may
+    move a score across the k-th on one side. So per head and
     sample: ``spot_count`` equal (within ``count_rtol`` relative; None:
     reported only, where the logits differ by rounding and a random
     model's positions crowd the tie of two classes, so that some take the
@@ -4762,9 +4801,8 @@ def spot_gate(ref, got, k, tol=SP_SCORE_TOL, count_rtol=0.0, close=None):
                "common_spots": common, "differing_at_boundary": differ,
                "clear_of_boundary": clear, "max_score_diff": max_diff,
                "common_scores_bit_identical": bool(bit_equal),
-               "tie_rule": "sp keeps the lowest flat indices among spots "
-                           "tied at the k-th score; one process's "
-                           "torch.topk an unspecified subset",
+               "tie_rule": "both keep the lowest flat indices among "
+                           "spots tied at the k-th score",
                "score_tol": tol}
     return errors[:10], summary
 
@@ -4866,6 +4904,136 @@ def close_calls(out):
     return close
 
 
+@contextlib.contextmanager
+def streaming(model, on):
+    """The model's ``spot_streaming`` set to ``on`` inside the block."""
+    cfg = model.peneo_decoder.cfg
+    was, cfg.spot_streaming = cfg.spot_streaming, on
+    try:
+        yield
+    finally:
+        cfg.spot_streaming = was
+
+
+def forward_peak(model, ids, bbox, attn, on):
+    """One forward with ``spot_streaming`` ``on``: its spots
+    (:func:`packed_spots`) and its peak allocated bytes above what was
+    allocated before it (the weights and the inputs)."""
+    import torch
+
+    with streaming(model, on):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = model(ids, bbox, attn)
+        spots = packed_spots(out)
+        del out
+        return spots, torch.cuda.max_memory_allocated() - base
+
+
+def streamed_gate(model, ids, bbox, attn):
+    """One batch's backbone output through the decoder twice: streamed
+    (``spot_streaming``: each row block reduced to its top-k candidate
+    keys) and with the dense maps (``return_logits``), whose top k
+    ``compact_spots`` takes on the card in the spot-key order (score
+    descending, then the lower flat index). Gates, per head: ``spot_count``
+    equal, the live slots (score >= 0) at the same places and bit for bit
+    equal. Returns (errors, summary)."""
+    import torch
+
+    from peneo_tpu_torch.models.decoder import HEAD_NAMES, compact_spots
+
+    dec = model.peneo_decoder
+    k = dec.cfg.max_spots_per_head
+    with torch.inference_mode(), streaming(model, True):
+        hidden = model.backbone(ids, bbox, attn)["last_hidden_state"]
+        hidden = hidden[:, 1:ids.shape[1]]
+        streamed = dec(hidden)
+        maps = dec(hidden, return_logits=True)
+        dense = {}
+        for name in HEAD_NAMES:
+            dense[name] = compact_spots(maps[name]["tags"],
+                                        maps[name]["scores"], k)
+            del maps[name]
+    errors, live, over_k, counts = [], 0, 0, {}
+    for name in HEAD_NAMES:
+        got, want = streamed[name], dense[name]
+        counts[name] = want["spot_count"].tolist()
+        if not torch.equal(got["spot_count"], want["spot_count"]):
+            errors.append(f"{name}: spot_count {got['spot_count'].tolist()}"
+                          f" vs {counts[name]}")
+        keep = want["spot_score"] >= 0
+        if not torch.equal(got["spot_score"] >= 0, keep):
+            errors.append(f"{name}: the live slots differ")
+            continue
+        for key in ("spot_idx", "spot_tag", "spot_score"):
+            g, w = got[key][keep], want[key][keep]
+            if key == "spot_score":
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                errors.append(f"{name}: {key} differs on the live slots")
+        live += int(keep.sum())
+        over_k += int((want["spot_count"] > k).sum())
+    return errors[:10], {"max_spots_per_head": k, "live_slots": live,
+                         "samples_over_k": over_k, "spot_count": counts,
+                         "bit_identical_live_slots": not errors}
+
+
+def phase_serve_stream(ba, rb, svc, tmp, img_dir, ocr_dir, smi):
+    """Streaming spot extraction on the serve phase's LiLT-base (L = 512,
+    B = 32, bf16): ``InferenceService(spot_streaming=True)`` over the 96
+    pages (#1 12 times a forward, a record per page, the dense service's
+    records, ``svc``); one batch through :func:`streamed_gate`; the
+    forward's peak memory above the weights and the decoder's device ms,
+    dense and streamed."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    stream = InferenceService(os.path.join(tmp, "model"), batch_size=B,
+                              dtype="bfloat16", spot_streaming=True)
+    reset_counts(ba, rb)
+    results = stream.run(img_dir, ocr_dir)
+    counts = read_counts(ba, rb)
+    n_forwards = math.ceil(N_PAGES / B)
+    expect_counts(counts, {"biacm_attention": 12 * n_forwards},
+                  "serve_stream")
+    run = stream.last_run
+    dense = svc.run(img_dir, ocr_dir)
+    ours, theirs = records_of(results), records_of(dense)
+    if len(ours) != N_PAGES or ours != theirs:
+        differ = sum(ours.get(p) != r for p, r in theirs.items())
+        raise RuntimeError(f"serve_stream: {len(ours)} records, {differ} of "
+                           f"{len(theirs)} unlike the dense service's")
+    pages = [stream.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+             for i in range(B)]
+    ids, bbox, attn, _ = batch_tensors(stream, pages)
+    errors, gate = streamed_gate(stream.model, ids, bbox, attn)
+    ways, spots = {}, {}
+    for way, on in (("dense", False), ("streamed", True)):
+        spots[way], peak = forward_peak(stream.model, ids, bbox, attn, on)
+        with streaming(stream.model, on):
+            device, wall, top = decoder_device_ms(stream.model, ids, bbox,
+                                                  attn)
+        ways[way] = {"forward_peak_bytes": peak, "decoder_device_ms": device,
+                     "decoder_wall_ms": wall, "decoder_top_kernels": top}
+    emit({"phase": "serve_stream", "nvidia_smi": smi, "batch_size": B,
+          "L": L, "pages": run["pages"], "forwards": n_forwards,
+          "launches": counts, "records_equal_dense": True,
+          "pages_per_s": run["pages"] / run["seconds"],
+          "warm_pages_per_s": run["warm_pages"] / run["warm_seconds"],
+          "dense_warm_pages_per_s": svc.last_run["warm_pages"]
+          / svc.last_run["warm_seconds"],
+          "gate": gate, "packed_spots_equal_dense_forward":
+              spots["streamed"] == spots["dense"], **ways})
+    if errors:
+        raise RuntimeError("serve_stream: " + "; ".join(errors))
+    del stream
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_serve_sp_long(ba, rb, ranks, smi):
     """The long pages sp exists for: LiLT-base widths and depth at
     L = LONG_L, B = LONG_B, one process here against serve_sp's two sp
@@ -4881,19 +5049,19 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
     reset_counts(ba, rb)
     model = long_model()
     ids, bbox, attn = long_inputs()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        out = model(ids, bbox, attn)
-    spots = packed_spots(out)
-    peak = torch.cuda.max_memory_allocated() - base
+    spots, peak = forward_peak(model, ids, bbox, attn, False)
     counts = read_counts(ba, rb)
-    del out
+    reset_counts(ba, rb)
+    stream_spots, stream_peak = forward_peak(model, ids, bbox, attn, True)
+    stream_counts = read_counts(ba, rb)
+    stream_errors, stream_gate = streamed_gate(model, ids, bbox, attn)
     with torch.inference_mode():  # the dense logits of the same forward
         close = close_calls(model(ids, bbox, attn, return_logits=True))
     shards = shard_spots(model, ids, bbox, attn)
     device, dec_wall, top = decoder_device_ms(model, ids, bbox, attn)
+    with streaming(model, True):
+        stream_device, stream_wall, stream_top = decoder_device_ms(
+            model, ids, bbox, attn)
     split = split_device_ms(model, ids, bbox, attn, repeats=1)
     k = model.cfg.max_spots_per_head
     del model
@@ -4906,9 +5074,12 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
     if ranks[0]["long"]["spots"] != shards:
         errors.append("the ranks' merged spots differ from the same two "
                       "shards merged in one process")
-    for r in [{"rank": "one process", "long": {"launches": counts}}] + ranks:
+    for r in [{"rank": "one process", "long": {"launches": counts}},
+              {"rank": "one process streamed",
+               "long": {"launches": stream_counts}}] + ranks:
         expect_counts(r["long"]["launches"], {"biacm_attention": 12},
                       f"serve_sp_long {r['rank']}")
+    errors += [f"streamed: {e}" for e in stream_errors]
     report = {
         "phase": "serve_sp_long", "nvidia_smi": smi, "sp": SP_WORLD,
         "batch_size": LONG_B, "L": LONG_L, "max_spots_per_head": k,
@@ -4930,11 +5101,18 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
         "forward_peak_bytes_ranks": [r["long"]["forward_peak_bytes"]
                                      for r in ranks],
         "forward_peak_bytes_one_process": peak,
+        "streamed": {"gate": stream_gate, "forward_peak_bytes": stream_peak,
+                     "decoder_device_ms": stream_device,
+                     "decoder_wall_ms": stream_wall,
+                     "decoder_top_kernels": stream_top,
+                     "launches": stream_counts,
+                     "packed_spots_equal_dense_forward":
+                         stream_spots == spots},
         "launches_ranks": [r["long"]["launches"] for r in ranks]}
     emit(report)
     if errors:
         raise RuntimeError("serve_sp_long: " + "; ".join(errors))
-    total = dict(counts)
+    total = {key: v + stream_counts[key] for key, v in counts.items()}
     for r in ranks:
         for key, v in r["long"]["launches"].items():
             total[key] += v
@@ -4947,7 +5125,8 @@ def phase_serve_sp_long(ba, rb, ranks, smi):
 # ------------------------------------------------------------------------
 BENCH_ITERS = 16  # bench.py's
 SP_PAIR_LENGTHS = (2048, 4096)
-SP_PAIR_ITERS = 8  # tools/bench_sp_pair.py's 16, halved for the 1200 s
+SP_PAIR_ITERS = 4  # tools/bench_sp_pair.py's 16: 8 until the streaming
+# and LayoutXLM artifact phases came, for the 1200 s
 
 
 def phase_bench(ba, rb, smi):
@@ -6444,7 +6623,9 @@ def timed(name, fn, *a, **kw):
 
 def main(argv=None):
     import argparse
+    import faulthandler
 
+    faulthandler.enable()  # a crash in a library prints where it happened
     # the run uses one card: the device count printed last is the cards
     # it used (unless the caller chose the visible cards)
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -6539,7 +6720,9 @@ def main(argv=None):
             timed("serve_api", phase_serve_api, ba, rb, svc, tmp, img_dir,
                   ocr_dir),
             timed("serve_artifact", phase_serve_artifact, ba, rb, tmp, svc,
-                  os.path.join(tmp, "model"), img_dir, ocr_dir)]
+                  os.path.join(tmp, "model"), img_dir, ocr_dir),
+            timed("serve_stream", phase_serve_stream, ba, rb, svc, tmp,
+                  img_dir, ocr_dir, smi)]
         del svc
         train_launches, train_out, train_record = timed(
             "train", phase_train, ba, tmp)
@@ -6575,6 +6758,7 @@ def main(argv=None):
                              tmp, img_dir, ocr_dir))
         launches_v2 = run_rel_path(rb, ba, tmp, img_dir, ocr_dir,
                                    args.profile, "v2")
+        surface.append(launches_v2["artifact"])
 
         # tensor parallelism: the backbones and the pair head over 2 ranks
         surface.append(timed(

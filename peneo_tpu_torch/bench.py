@@ -173,7 +173,10 @@ def build_argparser():
     p.add_argument("--int8_backbone", action="store_true",
                    help="the backbone's projections and MLPs in int8 too")
     p.add_argument("--spot_streaming", action="store_true", default=False,
-                   help="kept in the config (the port's spot path is one)")
+                   help="reduce each pair-grid row block to its top-k spot "
+                        "candidates as it is produced, instead of writing "
+                        "the dense (B, L, L) tag/score maps "
+                        "(config.spot_streaming; default off, as JAX's)")
     p.add_argument("--no_spot_streaming", dest="spot_streaming",
                    action="store_false")
     p.add_argument("--no_image", action="store_true",
@@ -296,6 +299,7 @@ def run(argv=None, geometry=None):
         "attention": "kernel" if fused else "plain",
         "int8_pair_head": args.int8_pair_head,
         "int8_backbone": args.int8_backbone,
+        "spot_streaming": args.spot_streaming,
         "setup_seconds": setup_s, "first_call_seconds": first_s,
         "forward_wall_ms": statistics.median(wall),
         "forward_wall_ms_runs": wall,

@@ -5,9 +5,8 @@ wire-compatible with the reference's HF-style ``config.json`` (reference:
 model/configuration_peneo.py:6-37 and tools/generate_peneo_weights.py:63-74 —
 nested ``backbone_config`` dict). Every field of the JAX package's config is
 kept, so one ``config.json`` is read and written identically by both
-packages; fields the port does not act on yet (the TPU kernel switches,
-``spot_streaming``, ``spot_topk`` — the port's top-k is always exact)
-round-trip unchanged.
+packages; fields the port does not act on (the TPU kernel switches,
+``spot_topk`` — the port's top-k is always exact) round-trip unchanged.
 """
 
 from __future__ import annotations
@@ -187,6 +186,10 @@ class PEneoConfig:
     max_spots_per_head: int = 512
     # "approx" | "exact"; the port's top-k (torch.topk) is always exact
     spot_topk: str = "approx"
+    # streaming spot extraction: each pair-grid row block reduced to its
+    # own top-k candidates as it is produced and merged once
+    # (models/decoder.py StreamedSpots), the dense (B, L, L) tag/score
+    # maps never written; off by default, as the JAX package's
     spot_streaming: bool = False
     # None | "int8": the pair head's hidden layers / the backbone's
     # projections and MLPs as s8×s8→s32 products outside training

@@ -6,8 +6,14 @@ preprocessor, batching, the pipelined dispatch and collect, the host
 decode) is :class:`~peneo_tpu_torch.pipeline.infer.PageServer`, shared with
 the live :class:`~peneo_tpu_torch.pipeline.infer.InferenceService`. As the
 JAX artifact, the program returns the heads' compact-spot dicts (no packed
-transport), takes host-normalized fp32 page images and runs at its one
-exported (batch, max_seq_len): no length buckets.
+transport), takes normalized fp32 page images and runs at its one exported
+(batch, max_seq_len): no length buckets. The pages travel as the live
+service ships them, resized uint8 normalized on the device
+(``device_image_normalize``): the program then gets the live forward's
+image tensor, values and strides alike. (On the card an exported graph's
+roundings depend on the image's strides: LayoutXLM's artifact on
+host-normalized NCHW images left the live forward's spots by bf16
+rounding, on the device-normalized ones it gives them bit for bit.)
 
     python -m peneo_tpu_torch.inference_artifact --artifact_dir ART \\
         --dir_image IMGS --dir_ocr OCR --dir_save out.json \\
@@ -40,7 +46,7 @@ class ArtifactInferenceService(PageServer):
             tokenizer = load_tokenizer(get_backbone_info(cfg.backbone_name),
                                        artifact_dir)
         super().__init__(cfg, torch.device(meta["device"]), tokenizer,
-                         meta["batch_size"], score_thresh, raw_image=False)
+                         meta["batch_size"], score_thresh, raw_image=True)
         self._call = call
         self._packed = False
 

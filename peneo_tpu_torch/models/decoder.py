@@ -4,7 +4,7 @@ compaction and packing (inference) and the losses (training and eval):
 class-weighted CE or streaming OHEM, over one process's batch or, under
 data parallelism, the global batch's.
 
-Counterpart of ``peneo_tpu/models/decoder.py`` (``:34-364, 426-504``).
+Counterpart of ``peneo_tpu/models/decoder.py`` (``:34-504``).
 Parameter names are the reference's torch keys (model/peneo_decoder.py):
 ``shrink_projection.{0,3}``, ``handshaking_kernel.combine_fc`` and
 ``{head}_fc.{0,3}`` (Sequential indices of Linear → SiLU → Dropout →
@@ -18,6 +18,14 @@ computed once (O(L·H²)) and each row block's pair features are
 triangle's columns, never the (B, L, L, 2H) concat. In training each row
 block's pair bank runs under ``torch.utils.checkpoint`` (the JAX package's
 ``nn.remat(PairBlockBank)``), so the pair features stay O(L·H) in memory.
+
+The spots are each head's top k nonzero upper-triangle cells in
+``jax.lax.top_k``'s order (score descending, then the lower flat index),
+by one int64 key a cell (``parallel/seq_parallel.py`` ``spot_keys``).
+With ``spot_streaming`` (``:247-262, 322-423`` there) each row block's
+tags and scores are reduced to their top-k keys while the block is live
+(one top k over the five heads) and merged once: the five dense (B, L, L)
+tag and score maps are never written.
 
 Labels are per head either compact ``(B, S, 3)`` spot arrays, scattered
 into dense matrices on the device, or dense int8 ``(B, Ld, Ld)`` matrices;
@@ -130,9 +138,10 @@ class PEneoDecoder(nn.Module):
     """Pair-extraction head stack.
 
     - ``labels`` None: per head the compact top-k spots
-      (``max_spots_per_head > 0``) or the dense ``tags``/``scores``
-      (B, Ld, Ld) maps; ``return_logits=True`` adds the dense ``logits``
-      (B, Ld, Ld, C) (lower triangle zero) and keeps the dense maps.
+      (``max_spots_per_head > 0``; streamed with ``spot_streaming``) or the
+      dense ``tags``/``scores`` (B, Ld, Ld) maps; ``return_logits=True``
+      adds the dense ``logits`` (B, Ld, Ld, C) (lower triangle zero) and
+      keeps the dense maps.
     - ``labels`` given: the five head losses and ``total`` (reference
       model/peneo_decoder.py:375-428); with ``also_decode`` the pair
       ``(losses, outputs)`` from one pass over the grid.
@@ -285,6 +294,12 @@ class PEneoDecoder(nn.Module):
                                 label_row_mask)
 
         dev = a.device
+        if self._streams(return_logits):
+            spots = StreamedSpots(cfg.max_spots_per_head, Ld)
+            for r0 in range(0, Lp, bs):
+                out = self.pair_block(a[:, r0:r0 + bs], b[:, r0:])
+                spots.add(tuple(out[name] for name in HEAD_NAMES), r0)
+            return spots.result()
         tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
                 for n in HEAD_NAMES}
         scores = {n: torch.zeros((B, Lp, Lp), dtype=torch.float32, device=dev)
@@ -297,19 +312,24 @@ class PEneoDecoder(nn.Module):
             # triangle stays zero (never read: decode keeps i <= j)
             out = self.pair_block(a[:, r0:r0 + bs], b[:, r0:])
             for name in HEAD_NAMES:
-                lg = out[name].float()
-                p = torch.softmax(lg, dim=-1)
-                s_blk, t_blk = torch.max(p, dim=-1)
+                t_blk, s_blk = block_argmax(out[name])
                 tags[name][:, r0:r0 + bs, r0:] = t_blk.to(torch.int32)
                 scores[name][:, r0:r0 + bs, r0:] = s_blk
                 if return_logits:
-                    logits[name][:, r0:r0 + bs, r0:] = lg
+                    logits[name][:, r0:r0 + bs, r0:] = out[name]
 
         result = self._spot_outputs(tags, scores, Ld, return_logits)
         if return_logits:
             for name in HEAD_NAMES:
                 result[name]["logits"] = logits[name][:, :Ld, :Ld]
         return result
+
+    def _streams(self, dense: bool = False) -> bool:
+        """Whether the spots are streamed (``spot_streaming``, compact
+        spots, no dense maps asked for): each row block reduced to its own
+        top-k candidates, merged once; no (B, L, L) map is allocated."""
+        return (self.cfg.spot_streaming and self.cfg.max_spots_per_head > 0
+                and not dense)
 
     def _spot_outputs(self, tags, scores, Ld, dense: bool = False):
         k = self.cfg.max_spots_per_head
@@ -397,7 +417,10 @@ class PEneoDecoder(nn.Module):
         rowm = (None if label_row_mask is None
                 else (label_row_mask > 0)[:, None, None])
         B = a.shape[0]
-        if also_decode:
+        streamed = (StreamedSpots(self.cfg.max_spots_per_head, Ld)
+                    if also_decode and self._streams() else None)
+        dense = also_decode and streamed is None
+        if dense:
             tags = {n: torch.zeros((B, Lp, Lp), dtype=torch.int32, device=dev)
                     for n in HEAD_NAMES}
             scores = {n: torch.zeros((B, Lp, Lp), dtype=torch.float32,
@@ -408,15 +431,18 @@ class PEneoDecoder(nn.Module):
                                    device=dev)[None]
             if rowm is not None:
                 mask = mask & rowm
+            if streamed is not None:
+                streamed.add(blk, r0)
             for name, lg in zip(HEAD_NAMES, blk):
-                if also_decode:
-                    s_blk, t_blk = torch.max(
-                        torch.softmax(lg.float(), dim=-1), dim=-1)
+                if dense:
+                    t_blk, s_blk = block_argmax(lg)
                     tags[name][:, r0:r0 + bs, r0:] = t_blk.to(torch.int32)
                     scores[name][:, r0:r0 + bs, r0:] = s_blk
                 self._fold_loss(acc, name, lg, lbl[name][:, r0:r0 + bs, r0:],
                                 mask)
         losses = self._finish_losses(acc, dev, self.data_parallel)
+        if streamed is not None:
+            return losses, streamed.result()
         if also_decode:
             return losses, self._spot_outputs(tags, scores, Ld)
         return losses
@@ -507,21 +533,35 @@ class PEneoDecoder(nn.Module):
         return (losses, out) if also_decode else losses
 
 
+def block_argmax(logits: torch.Tensor):
+    """One block's (…, C) logits of one head → (argmax tags, max softmax
+    probabilities), as every spot path reads them."""
+    scores, tags = torch.max(torch.softmax(logits.float(), dim=-1), dim=-1)
+    return tags, scores
+
+
 def compact_spots(tags: torch.Tensor, scores: torch.Tensor, k: int):
     """Dense (B, L, L) argmax maps → the top-k nonzero upper-triangle spots
-    of each sample (exact ``torch.topk``). Empty slots score -1; the host
-    restores row-major spot order by sorting the flat indices
-    (pipeline/decode.py); ``spot_count`` flags overflow."""
+    of each sample, in ``jax.lax.top_k``'s order: score descending, ties
+    to the lower flat index (one int64 key a cell, ``seq_parallel.
+    spot_keys``, so ``torch.topk``'s own tie order never shows). Empty
+    slots score -1 and take the lowest flat indices that hold no spot, with
+    their tags, as JAX's do; the host restores row-major spot order by
+    sorting the flat indices (pipeline/decode.py); ``spot_count`` flags
+    overflow."""
     B, L, _ = tags.shape
+    sq.check_flat(L)
     dev = tags.device
+    flat = torch.arange(L * L, device=dev).view(L, L)
     triu = torch.ones((L, L), dtype=torch.bool, device=dev).triu()
-    valid = triu[None] & (tags != 0)
     k = min(k, L * L)
-    flat_scores = torch.where(valid, scores,
-                              torch.full_like(scores, -1.0)).reshape(B, L * L)
-    top_scores, top_idx = torch.topk(flat_scores, k, dim=1)
+    keys = sq.spot_keys(scores, tags, flat, triu, empty=-1 - flat)
+    top = torch.topk(keys.reshape(B, L * L), k, dim=1).values
+    del keys
+    idx, _, top_scores = sq.decode_keys(top)
+    top_idx = torch.where(top >= 0, idx.long(), -1 - top)
     top_tags = torch.gather(tags.reshape(B, L * L), 1, top_idx)
-    count = valid.reshape(B, L * L).sum(dim=1)
+    count = ((tags != 0) & triu[None]).reshape(B, L * L).sum(dim=1)
     return {
         "spot_idx": top_idx.to(torch.int32),        # flat i*L + j
         "spot_tag": top_tags.to(torch.int8),
@@ -529,6 +569,78 @@ def compact_spots(tags: torch.Tensor, scores: torch.Tensor, k: int):
         "spot_count": count.to(torch.int32),
         "seq_len": torch.full((B,), L, dtype=torch.int32, device=dev),
     }
+
+
+def block_spot_candidates(tags: torch.Tensor, scores: torch.Tensor,
+                          row0: int, col0: int, valid_len: int, k: int):
+    """One row block of the pair grid → its top-k spot candidates
+    (``spot_streaming``; ``peneo_tpu/models/decoder.py``
+    ``block_spot_candidates``). ``tags``/``scores`` (…, bs, W): the argmax
+    tags and max probabilities of rows from ``row0`` and columns from
+    ``col0``, any leading dims (the decoder stacks the five heads: one top
+    k for all). Returns (the top min(k, bs·W) keys (…, kb) int64 of
+    ``seq_parallel.spot_keys``, unsorted; the block's count of nonzero tags
+    in the upper triangle below ``valid_len`` (…)). A spot of the global
+    top k (score descending, then the lower flat index ``i·valid_len + j``)
+    is in its own block's top k, so merging the blocks' candidates
+    (:func:`merge_spot_candidates`) gives the dense top k exactly, ties
+    included."""
+    bs, W = tags.shape[-2:]
+    dev = tags.device
+    ok = triu_valid_mask(row0, bs, W, valid_len, col0, device=dev)
+    rows = row0 + torch.arange(bs, device=dev)
+    cols = col0 + torch.arange(W, device=dev)
+    flat = rows[:, None] * valid_len + cols[None, :]
+    n = bs * W
+    keys = sq.spot_keys(scores, tags, flat, ok).reshape(*tags.shape[:-2], n)
+    top = torch.topk(keys, min(k, n), dim=-1, sorted=False).values
+    count = ((tags != 0) & ok).reshape(*tags.shape[:-2], n).sum(-1)
+    return top, count
+
+
+def merge_spot_candidates(cands, count: torch.Tensor, k: int,
+                          valid_len: int) -> Dict[str, torch.Tensor]:
+    """The blocks' candidate keys (a list of (…, kb)) and their summed
+    counts (…) → ``compact_spots``' contract with the same leading dims:
+    the top k of all candidates (k slots, empty ones padded as JAX's
+    ``merge_spot_candidates`` pads them: score -1, here index 0 and tag
+    0)."""
+    keys = torch.cat(list(cands), dim=-1)
+    if keys.shape[-1] < k:  # tiny grids: fewer candidates than slots
+        keys = F.pad(keys, (0, k - keys.shape[-1]), value=sq.EMPTY)
+    idx, tag, score = sq.decode_keys(torch.topk(keys, k, dim=-1).values)
+    return {"spot_idx": idx, "spot_tag": tag, "spot_score": score,
+            "spot_count": count.to(torch.int32),
+            "seq_len": torch.full(count.shape, valid_len, dtype=torch.int32,
+                                  device=count.device)}
+
+
+class StreamedSpots:
+    """The five heads' spots streamed over the row blocks of one pass
+    (``spot_streaming``): each block's tags and scores are reduced to its
+    candidate keys while it is live, with one top k over the five heads;
+    :meth:`result` merges them once. No (B, L, L) map is written."""
+
+    def __init__(self, k: int, valid_len: int) -> None:
+        sq.check_flat(valid_len)
+        self.k, self.valid_len = k, valid_len
+        self.cands, self.count = [], 0
+
+    def add(self, logits, row0: int) -> None:
+        """One row block's logits (B, bs, W, C), a tuple in ``HEAD_NAMES``
+        order, of the rows and columns from ``row0``."""
+        tags, scores = zip(*(block_argmax(lg) for lg in logits))
+        keys, count = block_spot_candidates(
+            torch.stack(tags), torch.stack(scores), row0, row0,
+            self.valid_len, self.k)
+        self.cands.append(keys)
+        self.count = self.count + count
+
+    def result(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        out = merge_spot_candidates(self.cands, self.count, self.k,
+                                    self.valid_len)
+        return {name: {key: v[hi] for key, v in out.items()}
+                for hi, name in enumerate(HEAD_NAMES)}
 
 
 def pack_spots(out):

@@ -91,16 +91,29 @@ def local_labels(m: torch.Tensor, valid_len: int, sp: int,
     return m[:, s:valid_len:sp, :valid_len].long()
 
 
+def check_flat(valid_len: int) -> None:
+    """Raise unless the flat indices of a ``valid_len`` grid fit a key."""
+    if valid_len * valid_len > _FLAT_MAX:
+        raise ValueError(f"spot keys hold flat indices below 2^30; Ld = "
+                         f"{valid_len} is too long")
+
+
 def spot_keys(scores: torch.Tensor, tags: torch.Tensor, flat: torch.Tensor,
-              ok: torch.Tensor) -> torch.Tensor:
+              ok: torch.Tensor, empty=EMPTY) -> torch.Tensor:
     """int64 sort keys of candidate spots: the fp32 score's bits (positive,
     so ordered as the scores), then ``_FLAT_MAX - flat`` (ties go to the
-    lower flat index), then the tag in the two lowest bits; ``EMPTY`` where
-    ``ok`` is false or the tag is 0."""
-    bits = scores.float().contiguous().view(torch.int32).long()
-    low = ((_FLAT_MAX - flat) << 2) | tags.long()
-    return torch.where(ok & (tags != 0), (bits << 32) | low,
-                       torch.full_like(low, EMPTY))
+    lower flat index), then the tag in the two lowest bits; ``empty`` (a
+    number, or negative keys that broadcast) where ``ok`` is false or the
+    tag is 0. Built in place: one int64 tensor of the maps' size, and one
+    more for a tensor ``empty``."""
+    keys = scores.float().contiguous().view(torch.int32).long()
+    keys <<= 32
+    keys |= (_FLAT_MAX - flat) << 2
+    keys |= tags
+    keep = ok & (tags != 0)
+    if isinstance(empty, torch.Tensor):
+        return torch.where(keep, keys, empty)
+    return keys.masked_fill_(~keep, empty)
 
 
 def decode_keys(keys: torch.Tensor):
@@ -122,9 +135,7 @@ class SpotCandidates:
     grid itself."""
 
     def __init__(self, batch: int, k: int, valid_len: int, device) -> None:
-        if valid_len * valid_len > _FLAT_MAX:
-            raise ValueError(f"sp spot keys hold flat indices below 2^30; "
-                             f"Ld = {valid_len} is too long")
+        check_flat(valid_len)
         self.k = min(k, valid_len * valid_len)
         self.valid_len = valid_len
         # an empty block of k: a rank with fewer candidates still has k

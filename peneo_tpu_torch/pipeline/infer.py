@@ -472,11 +472,15 @@ class InferenceService(PageServer):
         dp: int = 1,
         sp: int = 1,
         tp: int = 1,
+        spot_streaming: Optional[bool] = None,
     ) -> None:
         """``int8_pair_head`` None (auto) is off, as the JAX service's auto
         is off any backend but a TPU; True or ``int8_backbone`` set the
         config's ``quantize_pair_head`` / ``quantize_backbone`` (a config
-        that sets them serves int8 already). ``dp × tp × sp`` > 1 needs a
+        that sets them serves int8 already). ``spot_streaming`` is set on
+        the config (None: off, as JAX's): each row block of the pair grid
+        reduced to its top-k spot candidates, no dense (B, L, L) maps;
+        the sp path does not read it. ``dp × tp × sp`` > 1 needs a
         process group of that many ranks (``parallel/dist.py``
         ``init_distributed``); each rank then runs on its own device."""
         self.dp, self.tp, self.sp = dp, tp, sp
@@ -507,6 +511,7 @@ class InferenceService(PageServer):
             cfg.quantize_backbone = "int8"
         if max_seq_len:
             cfg.max_seq_len = max_seq_len
+        cfg.spot_streaming = bool(spot_streaming)
         if tokenizer is None:
             from ..registry import load_tokenizer
 

@@ -132,7 +132,10 @@ def _bench_lines(capsys):
      "pages_per_sec_per_chip_layoutlmv3_textonly_L64_bf16_batch_inference"),
     ("lilt", ["--L", "512", "--no_fused_biacm", "--int8_pair_head"], TINY,
      "pages_per_sec_per_chip_L512_bf16_batch_inference"),
-], ids=["lilt", "v3", "v2", "v3_textonly", "lilt_L512_plain_int8"])
+    ("lilt", ["--spot_streaming"], TINY,
+     "pages_per_sec_per_chip_L64_bf16_batch_inference"),
+], ids=["lilt", "v3", "v2", "v3_textonly", "lilt_L512_plain_int8",
+        "lilt_spot_streaming"])
 def test_bench_prints_the_jax_line(backbone, extra, geometry, metric,
                                    tmp_path, capsys):
     """The last line has JAX's four keys and JAX's metric name; the
@@ -160,6 +163,7 @@ def test_bench_prints_the_jax_line(backbone, extra, geometry, metric,
     assert run["attention"] == ("plain" if "--no_fused_biacm" in extra
                                 else "kernel")
     assert run["int8_pair_head"] == ("--int8_pair_head" in extra)
+    assert run["spot_streaming"] == ("--spot_streaming" in extra)
     # CPU tensors run the twins: no kernel is launched, no sync is checked
     assert run["launches"] == {"biacm_attention": 0, "bias_attention": 0}
     assert run["host_syncs_per_forward"] is None

@@ -409,6 +409,46 @@ def test_int8_config_exports_int8(tmp_path):
             assert torch.equal(out[name][key], w), (name, key)
 
 
+def test_streaming_config_exports_the_streamed_spots(tmp_path_factory):
+    """A LiLT config with ``spot_streaming`` (k = 256 of the 127² cells)
+    exports the streamed path, as the JAX export does: no (B, L, L) tag or
+    score map in the graph, the live streaming model's spots, and on the
+    live slots the dense model's."""
+    cfg = _lilt_cfg()
+    cfg.spot_streaming, cfg.max_spots_per_head = True, 256
+    f = _family(tmp_path_factory, "lilt_streaming", cfg)
+    got, _ = _run_artifact(f["art"], "lilt")
+    live = _live(f["dir"])
+    assert live.cfg.spot_streaming
+    _assert_equal_to_live(got, live, "lilt")
+    program = torch.export.load(os.path.join(f["art"], "forward.pt2"))
+    # the decoder's nodes (the backbone's MLP is 128 = L wide)
+    maps = [n for n in program.graph.nodes
+            if "peneo_decoder" in str(n.meta.get("nn_module_stack"))
+            and isinstance(n.meta.get("val"), torch.Tensor)
+            and n.meta["val"].dim() == 3
+            and n.meta["val"].dtype in (torch.int32, torch.float32)
+            and n.meta["val"].shape[1:] in ((L - 1, L - 1), (L, L))]
+    assert not maps, maps[:3]
+    live.peneo_decoder.cfg.spot_streaming = False
+    inputs, _ = _tensors("lilt")
+    with torch.inference_mode():
+        dense = live(*inputs)
+    for name in HEAD_NAMES:
+        g = {k: v.numpy() for k, v in got[name].items()}
+        d = {k: v.numpy() for k, v in dense[name].items()}
+        np.testing.assert_array_equal(g["spot_count"], d["spot_count"])
+        assert (g["spot_count"] > 256).all(), name  # ties decide the cut
+        for b in range(B):
+            keep = d["spot_score"][b] >= 0
+            assert (g["spot_score"][b] >= 0).sum() == keep.sum()
+            for key in ("spot_idx", "spot_tag", "spot_score"):
+                np.testing.assert_allclose(g[key][b][:keep.sum()],
+                                           d[key][b][keep], rtol=0,
+                                           atol=1e-6 if key == "spot_score"
+                                           else 0, err_msg=(name, key))
+
+
 # ---------------------------------------------------------------- the cache
 def test_export_neither_reads_nor_writes_the_eager_cache():
     """Eager then export: the cache is the same dict of the same tensors
@@ -475,7 +515,8 @@ def test_artifact_service_serves_the_live_services_records(fam, request,
     f = request.getfixturevalue(fam)
     img_dir, ocr_dir = _pages(tmp_path)
     svc = ArtifactInferenceService(f["art"], device="cpu")
-    assert not svc._packed and not svc.raw_image and svc.batch_size == B
+    assert not svc._packed and svc.batch_size == B
+    assert svc.raw_image == (fam != "lilt")  # the live service's transport
     got = svc.run(img_dir, ocr_dir)
     want = InferenceService(f["dir"], dtype="float32", batch_size=B,
                             device="cpu").run(img_dir, ocr_dir)

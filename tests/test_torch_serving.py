@@ -288,6 +288,22 @@ def test_port_batch_and_depth_invariance(serving_setup, port_results,
     assert svc.last_run["pages"] == 5
 
 
+def test_streaming_service_serves_the_dense_records(serving_setup,
+                                                   port_results):
+    """``spot_streaming=True`` (each row block reduced to its top-k
+    candidates, no dense maps) returns the dense service's records; None
+    leaves it off, as JAX's service does."""
+    wdir, img_dir, ocr_dir, tok = serving_setup
+    svc = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu", spot_streaming=True)
+    assert svc.cfg.spot_streaming and svc.model.cfg.spot_streaming
+    got = svc.run(img_dir, ocr_dir)
+    assert _kv_and_lines(got) == _kv_and_lines(port_results)
+    off = InferenceService(wdir, tokenizer=tok, dtype="float32",
+                           batch_size=2, device="cpu")
+    assert not off.cfg.spot_streaming
+
+
 def test_dispatch_and_collect_match_run(serving_setup, port_results):
     """The two halves of the pipelined loop, called by hand on one padded
     tail batch (one page for batch_size 2), give run()'s records."""
