@@ -11,7 +11,7 @@ as ``params.msgpack`` by the port's own writer) and the toy tokenizer.
 
     python -m peneo_tpu_torch.bench_serving [--pages 256] [--batch 32] \\
         [--L 512] [--backbone lilt|layoutlmv3|layoutlmv2] [--workers 4] \\
-        [--preprocess_procs N] [--profile_host] [--device cpu]
+        [--preprocess_procs N] [--device cpu]
 
 It prints one JSON line: the JAX tool's keys (``metric``, ``value`` =
 whole-run pages/s, ``unit``, ``pages``, ``batch``, ``L``, ``workers``,
@@ -149,9 +149,6 @@ def build_argparser():
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--keep_dir", type=str, default=None,
                    help="reuse/keep the assets here instead of a temp dir")
-    p.add_argument("--profile_host", action="store_true",
-                   help="cProfile the serving loop and print the top host "
-                        "costs")
     p.add_argument("--inflight_depth", type=int, default=2)
     p.add_argument("--device", type=str, default=None,
                    help="cpu to run on the CPU (default: the GPU)")
@@ -219,22 +216,11 @@ def _bench(args, pdist):
     else:
         svc.run(warm_img, warm_ocr)
 
-    prof = None
-    if args.profile_host:
-        import cProfile
-
-        prof = cProfile.Profile()
-        prof.enable()
     t0 = time.perf_counter()
     results = svc.run(img_dir, ocr_dir, workers=args.workers,
                       preprocess_procs=args.preprocess_procs,
                       inflight_depth=args.inflight_depth)
     dt = time.perf_counter() - t0
-    if prof is not None:
-        prof.disable()
-        import pstats
-
-        pstats.Stats(prof).sort_stats("cumulative").print_stats(25)
     run = svc.last_run
     n = len(results)
     tag = "" if args.backbone == "lilt" else f"_{args.backbone}"

@@ -125,6 +125,21 @@ def dense_labels_from_spots(spots: torch.Tensor, seq_len: int) -> torch.Tensor:
     return dense[:, :seq_len, :seq_len]
 
 
+def grid_blocks(Ld: int, block_size: int):
+    """(row block, padded length) of the pair grid over ``Ld`` positions:
+    row block ``r0`` computes rows ``r0 .. r0 + bs`` against columns
+    ``r0 .. Lp``."""
+    bs = min(block_size, max(Ld, 8))
+    return bs, ((Ld + bs - 1) // bs) * bs
+
+
+def pair_grid_cells(Ld: int, block_size: int) -> int:
+    """Pair cells one batch row's grid computes in one process (the upper
+    triangle's row blocks, each a full rectangle from its diagonal)."""
+    bs, Lp = grid_blocks(Ld, block_size)
+    return sum(bs * (Lp - r0) for r0 in range(0, Lp, bs))
+
+
 def triu_valid_mask(row0: int, bs: int, n_cols: int, valid_len: int,
                     col0: int = 0, device=None) -> torch.Tensor:
     """(bs, n_cols) bool: upper-triangular and within the first valid_len.
@@ -284,8 +299,7 @@ class PEneoDecoder(nn.Module):
         """The whole pair grid in one process (or one tp cell)."""
         cfg = self.cfg
         B = a.shape[0]
-        bs = min(cfg.pair_block_size, max(Ld, 8))
-        Lp = ((Ld + bs - 1) // bs) * bs
+        bs, Lp = grid_blocks(Ld, cfg.pair_block_size)
         if Lp != Ld:
             a = F.pad(a, (0, 0, 0, Lp - Ld))
             b = F.pad(b, (0, 0, 0, Lp - Ld))

@@ -29,6 +29,7 @@ import numpy as np
 
 from ..data.box_utils import merge_bbox
 from ..data.tagging import matrix_to_spots
+from ..utils import tracing
 
 HEAD_NAMES = (
     "line_extraction",
@@ -209,7 +210,9 @@ def spot_arrays_from_device_outputs(
 ) -> Optional[Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]]:
     """Compact device outputs → per-head ``(i, j, tag, score)`` numpy arrays
     in row-major (flat-index) order, restricted to ``seq_len``. Returns None
-    for dense tag/score maps (those take the python path)."""
+    for dense tag/score maps (those take the python path). Spots past
+    ``max_spots_per_head`` were dropped on the device: :func:`count_spots`
+    counts them."""
     if "spot_idx" not in head_outputs[HEAD_NAMES[0]]:
         return None
     out = {}
@@ -219,13 +222,6 @@ def spot_arrays_from_device_outputs(
         tag = np.asarray(head["spot_tag"][sample_idx])
         score = np.asarray(head["spot_score"][sample_idx])
         grid = int(np.asarray(head["seq_len"][sample_idx]))
-        count = int(np.asarray(head["spot_count"][sample_idx]))
-        if count > len(idx):
-            import warnings
-
-            warnings.warn(
-                f"{name}: {count} spots exceed max_spots_per_head="
-                f"{len(idx)}; lowest-scoring spots dropped")
         keep = score >= 0
         idx, tag, score = idx[keep], tag[keep], score[keep]
         ii = idx // grid
@@ -239,6 +235,43 @@ def spot_arrays_from_device_outputs(
             np.ascontiguousarray(score[in_range][order], np.float32),
         )
     return out
+
+
+def count_spots(head_outputs: Dict[str, Dict[str, np.ndarray]], rows,
+                total: Dict[str, List[int]]) -> None:
+    """Add, per head, [spots the device found, spots it dropped past
+    ``max_spots_per_head``] over batch rows ``rows`` of compact outputs into
+    ``total``, and to the counters ``decode.spots_found.<head>`` and
+    ``decode.spots_dropped.<head>``. Dense maps drop nothing."""
+    if "spot_count" not in head_outputs[HEAD_NAMES[0]]:
+        return
+    for name in HEAD_NAMES:
+        head = head_outputs[name]
+        k = np.asarray(head["spot_idx"]).shape[-1]
+        found = np.asarray(head["spot_count"])[rows].astype(np.int64)
+        n_found = int(found.sum())
+        n_dropped = int(np.maximum(found - k, 0).sum())
+        tracing.count(f"decode.spots_found.{name}", n_found)
+        tracing.count(f"decode.spots_dropped.{name}", n_dropped)
+        acc = total.setdefault(name, [0, 0])
+        acc[0] += n_found
+        acc[1] += n_dropped
+
+
+def warn_spots_dropped(counts: Dict[str, List[int]], pages: int,
+                       max_spots: int) -> None:
+    """One warning with the totals that :func:`count_spots` gathered over a
+    call, if any head dropped spots."""
+    dropped = {name: d for name, (_, d) in counts.items() if d}
+    if dropped:
+        import warnings
+
+        heads = ", ".join(f"{name} {d} of {counts[name][0]}"
+                          for name, d in dropped.items())
+        warnings.warn(
+            f"{sum(dropped.values())} spots over {pages} page(s) exceed "
+            f"max_spots_per_head={max_spots}; lowest-scoring spots dropped "
+            f"(dropped of found, per head: {heads})")
 
 
 def spots_from_device_outputs(

@@ -43,6 +43,7 @@ process returns them.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from collections import deque
@@ -53,14 +54,21 @@ import numpy as np
 import torch
 
 from ..config import PEneoConfig
-from ..models.decoder import pack_spots
+from ..models.decoder import pack_spots, pair_grid_cells
 from ..models.peneo import PEneoModel
 from ..parallel import dist as pdist
 from ..registry import get_backbone_info
+from ..utils import tracing
 from . import decode as dec
 from .preprocess import PagePreprocessor
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the counters of utils/tracing.py that PageServer.run reports in last_run
+RUN_COUNTERS = ("serve.tokens_real", "serve.token_slots",
+                "serve.pair_cells_real", "serve.pair_cells_computed",
+                "preprocess.pages_cut") + tuple(
+    f"decode.spots_{kind}.{head}" for kind in ("found", "dropped")
+    for head in dec.HEAD_NAMES)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -280,8 +288,13 @@ class PageServer:
                     image = device_image_normalize(image, self.info.family)
             return self._forward(ids, bbox, attn, image)
 
-    def _fetch(self, out_device):
-        """Device outputs → host numpy in the decoders' format (waits)."""
+    def _fetch(self, out_device, done=None):
+        """Device outputs → host numpy in the decoders' format (waits).
+        ``done``: a CUDA event recorded after this batch's forward, waited
+        for first (span ``serve.fetch.own``) when spans are recorded."""
+        if done is not None:
+            with tracing.span("serve.fetch.own"):
+                done.synchronize()
         if self._packed:
             big, small = out_device
             return dec.unpack_spots(big.cpu().numpy(), small.cpu().numpy())
@@ -292,6 +305,10 @@ class PageServer:
         """Fetch a dispatched forward and host-decode its pages (padded rows
         are discarded). Returns [(kv_pairs, lines)] per page."""
         out = self._fetch(out_device)
+        spots = {}
+        dec.count_spots(out, slice(0, len(page_inputs)), spots)
+        dec.warn_spots_dropped(spots, len(page_inputs),
+                               self.cfg.max_spots_per_head)
         results = []
         for i, (_, texts, orig_bbox, seq_len) in enumerate(page_inputs):
             kv_pairs, lines, *_ = dec.decode_pred_sample(
@@ -299,6 +316,19 @@ class PageServer:
                 score_thresh=self.score_thresh)
             results.append((kv_pairs, lines))
         return results
+
+    def _count_batch(self, pages, L: int) -> None:
+        """The dispatch counters of one batch of ``batch_size`` rows at
+        sequence length ``L``, ``pages`` real (see ``utils/tracing.py``)."""
+        add_cls = int(self.info.add_cls_token)
+        seq = [p[3] for p in pages]
+        tracing.count("serve.tokens_real", sum(n + add_cls for n in seq))
+        tracing.count("serve.token_slots", self.batch_size * L)
+        tracing.count("serve.pair_cells_real",
+                      sum(n * (n + 1) // 2 for n in seq))
+        tracing.count("serve.pair_cells_computed", self.batch_size
+                      * pair_grid_cells(L - add_cls,
+                                        self.cfg.pair_block_size))
 
     def run(self, image_dir: str, ocr_dir: Optional[str] = None,
             visualize_dir: Optional[str] = None, workers: int = 4,
@@ -319,7 +349,14 @@ class PageServer:
         per-page decode runs on its own pool so it never blocks the next
         dispatch. Afterwards ``self.last_run`` holds the page count, the
         wall time, the pages and time after the first batch's fetch (the
-        warm rate), and the time the preprocessing pool took to start.
+        warm rate), the time the preprocessing pool took to start, and
+        what the job added to the counters of ``utils/tracing.py`` (tokens
+        and pair cells, real and computed; pages cut; spots found and
+        dropped per head), under the counters' names. Spots dropped past
+        ``max_spots_per_head`` give one warning a call, with the totals.
+        Its spans (``serve.*``, ``utils/tracing.py``) are recorded when a
+        ``tracing.recording()`` block is open or a torch profiler is active
+        on the calling thread, as decided at the call's start.
 
         With ``dp × tp × sp`` > 1 every rank of the process group calls
         it: the dp indices serve every dp-th page each, and the records of
@@ -360,10 +397,26 @@ class PageServer:
         # the tp × sp ranks of a dp index run its batches; t = s = 0 decodes
         decodes = pdist.sp_index() == 0 and pdist.tp_index() == 0
 
+        rec = tracing.recorder()  # decided once, on the serving thread
+        job = tracing.new_job()
+        with rec.span("serve.run", job=job, pages=len(image_paths),
+                      batch_size=self.batch_size, L=self.cfg.max_seq_len):
+            return self._run_pages(rec, job, image_paths, ocr_paths,
+                                   all_paths, decodes, visualize_dir, workers,
+                                   decode_workers, preprocess_procs,
+                                   inflight_depth)
+
+    def _run_pages(self, rec, job, image_paths, ocr_paths, all_paths,
+                   decodes, visualize_dir, workers, decode_workers,
+                   preprocess_procs, inflight_depth):
+        """:meth:`run` once its pages are known; ``rec`` records the spans
+        of job ``job`` or is the no-op."""
+        counted = tracing.counters()
         results = {}
         pending = []  # (basename, future) in input order
-        inflight = deque()  # (device_out, pages, paths, t_dispatch)
+        inflight = deque()  # (device_out, pages, paths, ids, batch, done, t)
         bufs: Dict[Optional[int], tuple] = {}
+        spots: Dict[str, list] = {}
         t_first_fetch, n_first = None, 0
         t_start = time.perf_counter()
         if preprocess_procs > 0:
@@ -382,52 +435,76 @@ class PageServer:
         else:
             pool = ThreadPoolExecutor(max_workers=workers)
             prep = self.page_preprocessor()
+
+            def prep_page(pid, pair):
+                with rec.span("serve.preprocess", job=job, page=pid):
+                    return prep(*pair)
+
             prep_map = lambda pairs: pool.map(  # noqa: E731
-                lambda pair: prep(*pair), pairs)
+                prep_page, itertools.count(), pairs)
         t_pool = time.perf_counter() - t_start
+        batches = itertools.count()
         with pool, ThreadPoolExecutor(max_workers=decode_workers) as dpool:
 
             def collect():
                 nonlocal t_first_fetch, n_first
-                out_dev, pages, paths, t0 = inflight.popleft()
+                out_dev, pages, paths, ids, batch, done, t0 = \
+                    inflight.popleft()
                 if not decodes:
                     t_first_fetch = t_first_fetch or time.perf_counter()
                     return
-                out = self._fetch(out_dev)
+                with rec.span("serve.fetch", job=job, batch=batch):
+                    out = self._fetch(out_dev, done)
                 now = time.perf_counter()
                 if t_first_fetch is None:
                     t_first_fetch, n_first = now, len(pages)
+                dec.count_spots(out, slice(0, len(pages)), spots)
                 dt = (now - t0) / len(pages)
-                for i, (img, page) in enumerate(zip(paths, pages)):
+                for i, (img, page, pid) in enumerate(zip(paths, pages, ids)):
                     _, texts, orig_bbox, seq_len = page
-                    fut = dpool.submit(dec.decode_page_record, texts, out, i,
-                                       seq_len, dt, img, visualize_dir,
-                                       self.score_thresh, orig_bbox)
+                    fut = dpool.submit(
+                        _in_span, rec.span("serve.decode", job=job, page=pid,
+                                           batch=batch),
+                        dec.decode_page_record, texts, out, i, seq_len, dt,
+                        img, visualize_dir, self.score_thresh, orig_bbox)
                     pending.append((os.path.basename(img), fut))
 
             def flush(bucket):
                 # launch this batch, then fetch the oldest in-flight one
                 # while the device works
-                pages, paths = bufs.get(bucket, ((), ()))
+                pages, paths, ids = bufs.get(bucket, ((), (), ()))
                 if not pages:
                     return
-                out_dev = self.dispatch_batch(pages, bucket=bucket)
-                inflight.append((out_dev, list(pages), list(paths),
-                                 time.perf_counter()))
+                batch = next(batches)
+                L = bucket or self.cfg.max_seq_len
+                with rec.span("serve.dispatch", job=job, batch=batch,
+                              pages=len(pages), L=L):
+                    self._count_batch(pages, L)
+                    out_dev = self.dispatch_batch(pages, bucket=bucket)
+                done = None
+                if rec.on and self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+                inflight.append((out_dev, list(pages), list(paths), list(ids),
+                                 batch, done, time.perf_counter()))
                 pages.clear()
                 paths.clear()
+                ids.clear()
                 if len(inflight) > max(1, inflight_depth):
                     collect()
 
             add_cls = int(self.info.add_cls_token)
-            prepped = prep_map(zip(image_paths, ocr_paths))
-            for img, page in zip(image_paths, prepped):
+            prepped = iter(prep_map(zip(image_paths, ocr_paths)))
+            for pid, img in enumerate(image_paths):
+                with rec.span("serve.wait_page", job=job, page=pid):
+                    page = next(prepped)
                 # page[3] is seq_len (CLS excluded) — real rows add the CLS
                 bucket = (self._bucket_for(page[3] + add_cls)
                           if self.bucket_lengths else None)
-                pages, paths = bufs.setdefault(bucket, ([], []))
+                pages, paths, ids = bufs.setdefault(bucket, ([], [], []))
                 pages.append(page)
                 paths.append(img)
+                ids.append(pid)
                 if len(pages) == self.batch_size:
                     flush(bucket)
             for bucket in sorted(bufs, key=lambda b: b or 0):
@@ -443,14 +520,24 @@ class PageServer:
             results = {os.path.basename(p): merged[os.path.basename(p)]
                        for p in all_paths}
         t_end = time.perf_counter()
+        dec.warn_spots_dropped(spots, len(image_paths),
+                               self.cfg.max_spots_per_head)
+        now = tracing.counters()
         self.last_run = {
             "pages": len(image_paths),
             "seconds": t_end - t_start,
             "warm_pages": len(image_paths) - n_first,
             "warm_seconds": t_end - t_first_fetch if t_first_fetch else 0.0,
             "pool_start_seconds": t_pool,  # spawning the workers, if any
+            **{k: now.get(k, 0) - counted.get(k, 0) for k in RUN_COUNTERS},
         }
         return results
+
+
+def _in_span(span, fn, *args):
+    """``fn(*args)`` inside the recorded ``span`` (on a pool thread)."""
+    with span:
+        return fn(*args)
 
 
 class InferenceService(PageServer):

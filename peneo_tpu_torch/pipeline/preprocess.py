@@ -29,6 +29,7 @@ import numpy as np
 
 from ..data.box_utils import box_two_point_convert, normalize_bbox, \
     sort_boxes, string_f2h
+from ..utils import tracing
 
 _DEPLOY_REPLACEMENTS = (
     ("☐", ""), ("☑", ""), ("", ""), ("", ""),
@@ -148,60 +149,66 @@ class PagePreprocessor:
     def __call__(self, image_path: str, ocr_path: Optional[str]):
         from PIL import Image
 
-        with Image.open(image_path) as im:
-            image_w, image_h = im.size
-        if ocr_path is None:
-            line_texts, line_boxes = tesseract_ocr(image_path)
-        else:
-            line_texts, line_boxes = read_ocr_json(ocr_path)
+        with tracing.span("serve.preprocess.read"):
+            with Image.open(image_path) as im:
+                image_w, image_h = im.size
+            if ocr_path is None:
+                line_texts, line_boxes = tesseract_ocr(image_path)
+            else:
+                line_texts, line_boxes = read_ocr_json(ocr_path)
+            loader = self.image_loader()
+            img = loader(image_path) if loader is not None else None
 
-        order = sort_boxes(line_boxes)
+        with tracing.span("serve.preprocess.order"):
+            order = sort_boxes(line_boxes)
         texts: List[str] = []
         input_ids: List[int] = []
         bbox: List[List[int]] = []
         orig_bbox: List[List[float]] = []
         cursor = 0
-        for idx in order:
-            text = deploy_text_cleanup(line_texts[idx])
-            tokens = self.tokenizer.tokenize(text)
-            if len(tokens) == 0:
-                continue
-            n = len(tokens)
-            if cursor + n > self.max_token_len:  # deploy uses strict >
-                break
-            cursor += n
-            fetched = self.fetcher(text, tokens) if self.fetcher else tokens
-            norm = normalize_bbox(line_boxes[idx], (image_w, image_h))
-            orig_bbox.extend([list(line_boxes[idx])] * n)
-            bbox.extend([norm] * n)
-            texts.extend(fetched)
-            input_ids.extend(self.tokenizer.convert_tokens_to_ids(tokens))
+        with tracing.span("serve.preprocess.tokenize"):
+            for idx in order:
+                text = deploy_text_cleanup(line_texts[idx])
+                tokens = self.tokenizer.tokenize(text)
+                if len(tokens) == 0:
+                    continue
+                n = len(tokens)
+                if cursor + n > self.max_token_len:  # deploy uses strict >
+                    tracing.count("preprocess.pages_cut")
+                    break
+                cursor += n
+                fetched = (self.fetcher(text, tokens) if self.fetcher
+                           else tokens)
+                norm = normalize_bbox(line_boxes[idx], (image_w, image_h))
+                orig_bbox.extend([list(line_boxes[idx])] * n)
+                bbox.extend([norm] * n)
+                texts.extend(fetched)
+                input_ids.extend(self.tokenizer.convert_tokens_to_ids(tokens))
 
-        if self.add_cls_token:
-            input_ids.insert(0, self.tokenizer.cls_token_id)
-            bbox.insert(0, [0, 0, 0, 0])
-            orig_bbox.insert(0, [0, 0, 0, 0])
-        if self.add_sep_token:
-            input_ids.append(self.tokenizer.sep_token_id)
-            bbox.append([0, 0, 0, 0])
-            orig_bbox.append([0, 0, 0, 0])
+        with tracing.span("serve.preprocess.pack"):
+            if self.add_cls_token:
+                input_ids.insert(0, self.tokenizer.cls_token_id)
+                bbox.insert(0, [0, 0, 0, 0])
+                orig_bbox.insert(0, [0, 0, 0, 0])
+            if self.add_sep_token:
+                input_ids.append(self.tokenizer.sep_token_id)
+                bbox.append([0, 0, 0, 0])
+                orig_bbox.append([0, 0, 0, 0])
 
-        L = self.max_seq_len
-        n = len(input_ids)
-        pad_id = self.tokenizer.pad_token_id or 0
-        ids_arr = np.full((L,), pad_id, dtype=np.int32)
-        ids_arr[:n] = input_ids
-        bbox_arr = np.zeros((L, 4), dtype=np.int32)
-        bbox_arr[:n] = bbox
-        attn_arr = np.zeros((L,), dtype=np.int32)
-        attn_arr[:n] = 1
-        arrays = {"input_ids": ids_arr, "bbox": bbox_arr,
-                  "attention_mask": attn_arr}
-        loader = self.image_loader()
-        if loader is not None:
-            img = loader(image_path)
-            arrays["image"] = (img if self.raw_image
-                               else img.astype(np.float32))
+            L = self.max_seq_len
+            n = len(input_ids)
+            pad_id = self.tokenizer.pad_token_id or 0
+            ids_arr = np.full((L,), pad_id, dtype=np.int32)
+            ids_arr[:n] = input_ids
+            bbox_arr = np.zeros((L, 4), dtype=np.int32)
+            bbox_arr[:n] = bbox
+            attn_arr = np.zeros((L,), dtype=np.int32)
+            attn_arr[:n] = 1
+            arrays = {"input_ids": ids_arr, "bbox": bbox_arr,
+                      "attention_mask": attn_arr}
+            if img is not None:
+                arrays["image"] = (img if self.raw_image
+                                   else img.astype(np.float32))
         seq_len = n - int(self.add_cls_token)
         return arrays, texts, orig_bbox[1 if self.add_cls_token else 0:], \
             seq_len

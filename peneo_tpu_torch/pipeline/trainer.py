@@ -540,6 +540,7 @@ class PEneoTrainer:
         t0 = time.time()
         in_flight: deque = deque()
         decode_futs = []
+        spots: Dict[str, list] = {}  # per head: found, dropped
         pool = ThreadPoolExecutor(max_workers=2,
                                   thread_name_prefix="eval-decode")
 
@@ -559,6 +560,7 @@ class PEneoTrainer:
                        for name, head in packed.items()}
             # this rank's real rows of the global batch
             rows = range(mine.start, min(mine.stop, bsz))
+            dec.count_spots(out, slice(0, len(rows)), spots)
             decode_futs.append(pool.submit(
                 dec.decode_batch, [batch.texts[i] for i in rows], out,
                 {k: v[rows.start:rows.stop]
@@ -607,6 +609,8 @@ class PEneoTrainer:
                 all_fname.extend(fnames)
         finally:
             pool.shutdown(wait=True)
+        dec.warn_spots_dropped(spots, len(all_pred),
+                               self.cfg.max_spots_per_head)
         calc = (ev.calculate_detail_kvpe_metric if args.detail_eval
                 else ev.calculate_kvpe_metric)
         summary, detail = calc(all_pred, all_gt, all_fname,

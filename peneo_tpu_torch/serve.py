@@ -26,11 +26,18 @@ or one command per rank with ``--coordinator_address host:port
 takes its card (NCCL), or ranks share one (gloo). Left out of
 ``deploy/inference.py``'s flags: the ``--*fused*`` switches (the port's
 attention is always its CUDA kernels on the card).
+
+``--trace_out PATH`` records the serving loop's spans (``utils/tracing.py``:
+each page's wait, preprocess and decode, each batch's dispatch and fetch,
+with their CPU time) and writes them as a chrome trace; the printed line
+carries the run's counters (real and padded tokens and pair cells, pages
+cut at the token limit, spots found and dropped per head) either way.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 
@@ -81,6 +88,13 @@ def main(argv=None):
                         "max_seq_len is always the overflow bucket")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' to run there)")
+    p.add_argument("--trace_out", type=str, default=None,
+                   help="record the serving loop's spans (page waits, "
+                        "dispatch, fetch, each page's preprocess and "
+                        "decode; utils/tracing.py) and write them to this "
+                        "file as a chrome trace (chrome://tracing, "
+                        "Perfetto); with more than one rank, rank r writes "
+                        "PATH.r")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks (each serves every dp-th "
                         "page); default: the number of processes // "
@@ -131,7 +145,8 @@ def main(argv=None):
 
 
 def _serve(args, pdist):
-    from .pipeline.infer import InferenceService
+    from .pipeline.infer import RUN_COUNTERS, InferenceService
+    from .utils import tracing
 
     tp, sp = args.tp, args.sp
     dp = args.dp if args.dp is not None else max(pdist.world() // (tp * sp),
@@ -151,21 +166,29 @@ def _serve(args, pdist):
         tp=tp,
         sp=sp,
     )
-    results = service.run(args.dir_image,
-                          None if args.apply_ocr else args.dir_ocr,
-                          visualize_dir=args.dir_visualize,
-                          workers=args.workers,
-                          decode_workers=args.decode_workers,
-                          preprocess_procs=args.preprocess_procs,
-                          inflight_depth=args.inflight_depth)
+    with (tracing.recording() if args.trace_out
+          else contextlib.nullcontext()):
+        results = service.run(args.dir_image,
+                              None if args.apply_ocr else args.dir_ocr,
+                              visualize_dir=args.dir_visualize,
+                              workers=args.workers,
+                              decode_workers=args.decode_workers,
+                              preprocess_procs=args.preprocess_procs,
+                              inflight_depth=args.inflight_depth)
     run = service.last_run
+    if args.trace_out:
+        path = (args.trace_out if pdist.world() == 1
+                else f"{args.trace_out}.{pdist.rank()}")
+        tracing.write_chrome_trace(path)
     if pdist.rank() == 0:
         with open(args.dir_save, "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=1)
+        counts = {k: run[k] for k in RUN_COUNTERS}
         print(f"[peneo] {len(results)} pages in {run['seconds']:.3f}s "
               f"(batch_size={args.batch_size}, dp={dp}, tp={tp}, sp={sp}); "
-              f"wrote "
-              f"{args.dir_save}")
+              f"wrote {args.dir_save}"
+              + (f"; spans in {args.trace_out}" if args.trace_out else "")
+              + f"; counters {json.dumps(counts)}")
     return results
 
 

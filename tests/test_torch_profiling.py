@@ -1,34 +1,15 @@
-"""``peneo_tpu_torch/utils/profiling.py`` against
-``peneo_tpu/utils/profiling.py``: ``StepTimer`` gives the JAX timer's
-ticks, mean and throughput on the same clock; ``trace`` writes a trace
-file on the CPU (and nothing when disabled); ``device_memory_stats`` is
-``{}`` without a card (one entry per card with one)."""
+"""``peneo_tpu_torch/utils/profiling.py``: ``trace`` writes a trace file
+on the CPU (and nothing when disabled); ``device_memory_stats`` is ``{}``
+without a card (one entry per card with one)."""
 
 import json
 import os
-import time
 
 import torch
 
-from peneo_tpu.utils.profiling import StepTimer as JaxStepTimer
-from peneo_tpu_torch.utils.profiling import StepTimer, device_memory_stats, \
-    trace
+from peneo_tpu_torch.utils.profiling import device_memory_stats, trace
 
 torch.set_num_threads(1)
-
-
-def test_step_timer_equals_jax_on_the_same_clock(monkeypatch):
-    clock = [0.0, 0.5, 1.25, 1.5, 3.0, 3.1]
-    runs = []
-    for cls in (StepTimer, JaxStepTimer):
-        ticks = iter(clock)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = cls(window=3)
-        assert timer.mean == 0.0 and timer.throughput(8) == 0.0
-        got = [timer.tick() for _ in clock]
-        runs.append((got, timer.mean, timer.throughput(8)))
-    assert runs[0] == runs[1]
-    assert runs[0][0][0] is None and runs[0][0][1] == 0.5
 
 
 def test_trace_writes_a_trace_file(tmp_path):
