@@ -39,7 +39,11 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
    with seeded random weights, saved as config.json / pytorch_model.bin /
    toy_tokenizer.json; 96 synthetic pages (3 batches of 32, L=512, bf16)
    through ``InferenceService.run``. Every page must return a record and
-   kernel #1 must launch exactly 12 times per forward. The warm rate
+   kernel #1's wrapper must count 12 launches per forward it sees: on the
+   card a forward of 32 rows replays CUDA graphs (``pipeline/graphs.py``),
+   and a wrapper counts an eager forward once, one that captures twice (its
+   warm-up and its capture) and a replay not at all (``served_forwards``;
+   the serving phases below gate on the same count). The warm rate
    (pages after the first batch's fetch over the time to the last decoded
    page) is the median of SERVE_REPEATS runs.
 6. parity  — one batch through the model with the kernel and with
@@ -220,6 +224,16 @@ before it):
 Streaming spot extraction (``spot_streaming``, after serve_artifact; it
 resets every kernel count just before its run):
 
+- serve_graph — the serving forward as CUDA-graph replays against the
+   eager forward of the same model (B = 32, L = 512): the serve phase's
+   service, one with ``spot_streaming`` and one with ``int8_pair_head``
+   (and in the v3 and v2 paths, ``serve_graph_v3`` / ``serve_graph_v2``
+   after their breakdown, the family's service): packed spots bit for bit
+   over two batches, a returned batch unchanged by the next replay, no
+   eager forward (weights moved since a capture are captured again); one
+   profiled replay whose trace holds the family's
+   attention kernel 12 times while its wrapper counts none; host ms to
+   dispatch a batch, replayed and eager.
 - serve_stream — ``InferenceService(spot_streaming=True)`` on the serve
    phase's model over the 96 pages (#1 12 times a forward, the dense
    service's records on every page); one batch's backbone output through
@@ -775,6 +789,7 @@ def phase_serve(ba, tmp):
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     wdir = os.path.join(tmp, "model")
     img_dir, ocr_dir = os.path.join(tmp, "images"), os.path.join(tmp, "ocr")
@@ -785,16 +800,18 @@ def phase_serve(ba, tmp):
     setup_s = time.perf_counter() - t0
 
     ba.biacm_attention_cuda.launches = 0
+    before = tracing.counters()
     results = svc.run(img_dir, ocr_dir)
     torch.cuda.synchronize()
     launches = ba.biacm_attention_cuda.launches
 
     n_forwards = math.ceil(N_PAGES / B)
     layers = svc.cfg.backbone().num_hidden_layers
-    if launches != layers * n_forwards:
+    wrapped = expect_forwards(before, n_forwards, "serve")
+    if launches != layers * wrapped:
         raise RuntimeError(f"kernel launched {launches} times over "
                            f"{n_forwards} forwards, expected "
-                           f"{layers * n_forwards}")
+                           f"{layers * wrapped}")
     expected = {f"page_{i:03d}.png" for i in range(N_PAGES)}
     if set(results) != expected:
         raise RuntimeError(f"{len(expected - set(results))} pages returned "
@@ -817,7 +834,7 @@ def phase_serve(ba, tmp):
           "warm_pages_per_s": statistics.median(warm),
           "warm_pages_per_s_runs": warm,
           "kernel_launches": launches, "forwards": n_forwards,
-          "launches_per_forward": launches / n_forwards,
+          "wrapped_forwards": wrapped,
           "mean_tokens_per_page": sum(tokens) / len(tokens),
           "kv_pairs": sum(len(r["kv_pairs"]) for r in results.values()),
           "lines": sum(len(r["lines"]) for r in results.values())})
@@ -1324,6 +1341,7 @@ def phase_train(ba, tmp):
 
     from peneo_tpu_torch import run_rfund
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     out = os.path.join(tmp, "train")
     argv = ["--synthetic_data", "--synthetic_model", "base",
@@ -1386,9 +1404,12 @@ def phase_train(ba, tmp):
     write_pages(img_dir, ocr_dir, n_pages=1)
     svc = InferenceService(out, batch_size=1, dtype="bfloat16")
     ba.biacm_attention_cuda.launches = 0
+    before = tracing.counters()
     served = svc.run(img_dir, ocr_dir)
     torch.cuda.synchronize()
-    if ba.biacm_attention_cuda.launches != layers or len(served) != 1:
+    wrapped = expect_forwards(before, 1, "train: the saved directory")
+    if ba.biacm_attention_cuda.launches != layers * wrapped \
+            or len(served) != 1:
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {ba.biacm_attention_cuda.launches} "
                            "launches of kernel #1")
@@ -2126,6 +2147,7 @@ def phase_serve_rel(rb, ba, tmp, img_dir, ocr_dir, v2=False):
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     wdir = os.path.join(tmp, "model_v2" if v2 else "model_v3")
     t0 = time.perf_counter()
@@ -2136,6 +2158,7 @@ def phase_serve_rel(rb, ba, tmp, img_dir, ocr_dir, v2=False):
     torch.cuda.reset_peak_memory_stats()
     rb.bias_attention_cuda.launches = 0
     ba.biacm_attention_cuda.launches = 0
+    before = tracing.counters()
     results = svc.run(img_dir, ocr_dir)
     torch.cuda.synchronize()
     launches = rb.bias_attention_cuda.launches
@@ -2143,10 +2166,12 @@ def phase_serve_rel(rb, ba, tmp, img_dir, ocr_dir, v2=False):
 
     n_forwards = math.ceil(N_PAGES / B)
     layers = svc.cfg.backbone().num_hidden_layers
-    if launches != layers * n_forwards or ba.biacm_attention_cuda.launches:
+    wrapped = expect_forwards(before, n_forwards,
+                              "serve_v2" if v2 else "serve_v3")
+    if launches != layers * wrapped or ba.biacm_attention_cuda.launches:
         raise RuntimeError(
             f"kernel #4 launched {launches} times over {n_forwards} "
-            f"forwards (expected {layers * n_forwards}), kernel #1 "
+            f"forwards (expected {layers * wrapped}), kernel #1 "
             f"{ba.biacm_attention_cuda.launches} times (expected 0)")
     expected = {f"page_{i:03d}.png" for i in range(N_PAGES)}
     if set(results) != expected:
@@ -2194,7 +2219,7 @@ def phase_serve_rel(rb, ba, tmp, img_dir, ocr_dir, v2=False):
           "image": [str(image.dtype), *image.shape],
           "max_memory_allocated": peak, **extra,
           "kernel_launches": launches, "forwards": n_forwards,
-          "launches_per_forward": launches / n_forwards,
+          "wrapped_forwards": wrapped,
           "mean_tokens_per_page": sum(p[3] for p in pages) / len(pages),
           "kv_pairs": sum(len(r["kv_pairs"]) for r in results.values()),
           "lines": sum(len(r["lines"]) for r in results.values())})
@@ -2209,6 +2234,7 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
 
     from peneo_tpu_torch import run_rfund
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     tag = "v2" if v2 else "v3"
     out = os.path.join(tmp, f"train_{tag}")
@@ -2270,9 +2296,12 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
     write_pages(img_dir, ocr_dir, n_pages=1)
     svc = InferenceService(out, batch_size=1, dtype="bfloat16")
     rb.bias_attention_cuda.launches = 0
+    before = tracing.counters()
     served = svc.run(img_dir, ocr_dir)
     torch.cuda.synchronize()
-    if rb.bias_attention_cuda.launches != layers or len(served) != 1:
+    wrapped = expect_forwards(before, 1, f"train_{tag}: the saved directory")
+    if rb.bias_attention_cuda.launches != layers * wrapped \
+            or len(served) != 1:
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {rb.bias_attention_cuda.launches} "
                            "launches of kernel #4")
@@ -2297,8 +2326,9 @@ def phase_train_rel(rb, ba, tmp, wdir, v2=False):
 
 def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
     """A rel-bias family's main path at full width and depth (``tag`` "v3":
-    LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown, the family's
-    serve_artifact, then train, train_parity and train_breakdown.
+    LayoutLMv3, "v2": LayoutXLM): serve, parity, breakdown, serve_graph,
+    the family's serve_artifact, then train, train_parity and
+    train_breakdown.
     Returns its launch counts, the train phase's line and its output
     directory."""
     import torch
@@ -2309,6 +2339,8 @@ def run_rel_path(rb, ba, tmp, img_dir, ocr_dir, profile_dir, tag):
     timed(f"parity_{tag}", phase_parity, svc, img_dir, ocr_dir, tag)
     timed(f"breakdown_{tag}", phase_breakdown, svc, img_dir, ocr_dir,
           profile_dir, tag)
+    timed(f"serve_graph_{tag}", phase_serve_graph, ba, rb, tmp, svc,
+          img_dir, ocr_dir, tag)
     # the family's artifact against this live service
     artifact = timed(f"serve_artifact_{tag}", phase_serve_artifact, ba, rb,
                      tmp, svc, wdir, img_dir, ocr_dir, tag)
@@ -2379,6 +2411,32 @@ def expect_counts(counts, want, what):
         raise RuntimeError(f"{what}: launches {counts}, expected {full}")
 
 
+def served_forwards(before):
+    """The service forwards since ``before`` (a ``tracing.counters()``
+    snapshot; ``pipeline/graphs.py`` counts one a forward) → (forwards,
+    the forwards the kernel wrappers count). A wrapper counts its calls,
+    eagerly or under capture (PR 7's rule): an eager forward once, one
+    that captured twice (the warm-up on a side stream, then the capture)
+    and a replay not at all; what a replay launched shows in a trace
+    (``serve_graph`` reads it there)."""
+    from peneo_tpu_torch.pipeline import graphs
+    from peneo_tpu_torch.utils import tracing
+
+    now = tracing.counters()
+    n = {k: now.get(k, 0) - before.get(k, 0)
+         for k in (graphs.REPLAY, graphs.CAPTURE, graphs.EAGER)}
+    return sum(n.values()), n[graphs.EAGER] + 2 * n[graphs.CAPTURE]
+
+
+def expect_forwards(before, n_forwards, what):
+    """Raise unless the service made ``n_forwards`` forwards since
+    ``before``; returns the forwards the kernel wrappers count."""
+    got, wrapped = served_forwards(before)
+    if got != n_forwards:
+        raise RuntimeError(f"{what}: {got} forwards, expected {n_forwards}")
+    return wrapped
+
+
 def records_of(results):
     return {k: (v["kv_pairs"], v["lines"]) for k, v in results.items()}
 
@@ -2431,6 +2489,7 @@ def phase_checkpoints(ba, rb, tmp, img_dir, ocr_dir):
     from peneo_tpu_torch.models.convert import state_dict_to_jax_params
     from peneo_tpu_torch.models.peneo import PEneoModel
     from peneo_tpu_torch.pipeline.infer import InferenceService, load_weights
+    from peneo_tpu_torch.utils import tracing
     from peneo_tpu_torch.pipeline.weights_io import write_flax_msgpack
 
     src = os.path.join(tmp, "model")
@@ -2466,13 +2525,16 @@ def phase_checkpoints(ba, rb, tmp, img_dir, ocr_dir):
     records = {}
     img_dir, ocr_dir = first_pages(tmp, img_dir, ocr_dir, CKPT_PAGES, "ckpt")
     reset_counts(ba, rb)
+    before = tracing.counters()
     for name, d in dirs.items():
         svc = InferenceService(d, batch_size=B, dtype="bfloat16")
         records[name] = records_of(svc.run(img_dir, ocr_dir))
         del svc
     counts = read_counts(ba, rb)
     n_forwards = math.ceil(CKPT_PAGES / B)
-    expect_counts(counts, {"biacm_attention": 12 * n_forwards * len(dirs)},
+    wrapped = expect_forwards(before, n_forwards * len(dirs),
+                              "serving the three files")
+    expect_counts(counts, {"biacm_attention": 12 * wrapped},
                   "serving the three files")
     ref = records["pytorch_model.bin"]
     if len(ref) != CKPT_PAGES or any(r != ref for r in records.values()):
@@ -2576,6 +2638,140 @@ def batch_tensors(svc, pages):
     return ids, bbox, attn, kw
 
 
+GRAPH_VARIANTS = (("lilt_spot_streaming", {"spot_streaming": True}),
+                  ("lilt_int8_pair_head", {"int8_pair_head": True}))
+
+
+def phase_serve_graph(ba, rb, tmp, svc, img_dir, ocr_dir, tag=""):
+    """The serving forward as CUDA-graph replays (``pipeline/graphs.py``)
+    against the eager forward of the same model at B = 32, L = 512: the
+    serve phase's LiLT-base service (``svc``) and, from its directory, one
+    with ``spot_streaming`` and one with ``int8_pair_head``; with ``tag``
+    "v3" / "v2" the family's service alone. Per service, the first two
+    batches of the 96 pages: each replay's packed spots equal to the eager
+    forward's bit for bit, the spots a replay returned unchanged after the
+    next one, every forward through the graphs (none eager) and the last
+    two replays (the first too, unless the weights moved since the
+    service's capture: ``breakdown_v2`` turns the tower to channels_last
+    and back, so its service captures again); one replay
+    profiled, whose trace must hold the family's attention kernel 12 times
+    while its wrapper counts none; and the host ms to dispatch one batch,
+    replayed and eager (no pool threads beside it)."""
+    import torch
+
+    from peneo_tpu_torch.pipeline.infer import InferenceService
+
+    kernel = "bias_fwd_kernel" if tag else "biacm_fwd_kernel"
+    wrapper = rb.bias_attention_cuda if tag else ba.biacm_attention_cuda
+    rows = {tag or "lilt": graph_vs_eager(svc, img_dir, ocr_dir, kernel,
+                                          wrapper)}
+    for name, kw in (() if tag else GRAPH_VARIANTS):
+        other = InferenceService(os.path.join(tmp, "model"), batch_size=B,
+                                 dtype="bfloat16", **kw)
+        rows[name] = graph_vs_eager(other, img_dir, ocr_dir, kernel, wrapper)
+        del other
+        torch.cuda.empty_cache()
+    emit({"phase": f"serve_graph_{tag}" if tag else "serve_graph",
+          "batch_size": B, "L": L, "services": rows})
+
+
+def graph_vs_eager(svc, img_dir, ocr_dir, kernel, wrapper):
+    """:func:`phase_serve_graph`'s gates on one service; returns its row."""
+    import torch
+
+    from peneo_tpu_torch.models.decoder import pack_spots
+    from peneo_tpu_torch.pipeline import graphs
+    from peneo_tpu_torch.utils import tracing
+
+    layers = svc.cfg.backbone().num_hidden_layers
+    pages = [svc.preprocess_page(*page_paths(img_dir, ocr_dir, i))
+             for i in range(2 * B)]
+    batches = []
+    for part in (pages[:B], pages[B:]):
+        ids, bbox, attn, kw = batch_tensors(svc, part)
+        batches.append((ids, bbox, attn, kw.get("image")))
+    with torch.inference_mode():
+        # the same model, its segments not armed: the eager forward
+        eager = [[t.clone() for t in pack_spots(svc.model(
+            ids, bbox, attn, image=image))] for ids, bbox, attn, image in
+            batches]
+        before = tracing.counters()
+        first = svc._forward(*batches[0])
+        again = svc._forward(*batches[0])
+        held = [t.clone() for t in again]
+        other = svc._forward(*batches[1])
+        torch.cuda.synchronize()
+        now = tracing.counters()
+        counts = {k: now.get(k, 0) - before.get(k, 0)
+                  for k in (graphs.REPLAY, graphs.CAPTURE, graphs.EAGER)}
+        equal = {
+            "first": all(map(torch.equal, first, eager[0])),
+            "replay": all(map(torch.equal, again, eager[0])),
+            "second_batch": all(map(torch.equal, other, eager[1])),
+            "held_after_next_replay": all(map(torch.equal, again, held))}
+        # a service that served this shape replays from the first call
+        # unless its weights moved since (breakdown_v2 moves the tower's)
+        if not all(equal.values()) or counts[graphs.EAGER] \
+                or counts[graphs.REPLAY] < 2 or sum(counts.values()) != 3:
+            raise RuntimeError(f"serve_graph: equal {equal}, forwards "
+                               f"{counts}")
+
+        def dispatch_ms(fn):
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        replay_ms = dispatch_ms(lambda: svc._forward(*batches[0]))
+        eager_ms = dispatch_ms(lambda: pack_spots(svc.model(
+            *batches[0][:3], image=batches[0][3])))
+        wrapper.launches = 0
+        traced = traced_launches(lambda: svc._forward(*batches[0]), kernel,
+                                 layers)
+    if traced[-1] != layers or wrapper.launches:
+        raise RuntimeError(f"serve_graph: a replay's trace holds {traced} "
+                           f"launches of {kernel} (expected {layers}), its "
+                           f"wrapper counted {wrapper.launches} (expected 0)")
+    return {"forwards": counts, "equal_bit_for_bit": equal,
+            "traced_launches": traced, "dispatch_ms_replayed": replay_ms,
+            "dispatch_ms_eager": eager_ms}
+
+
+def traced_launches(fn, kernel, want):
+    """Launches of ``kernel`` in the trace of one call of ``fn``: the
+    second of two calls in a profiled window, idle host time around each,
+    up to 3 windows until one traces ``want`` (as :func:`profiled_replay`:
+    a trace has been seen to miss a replay's first kernels). Returns each
+    window's count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []
+    for _ in range(3):
+        got = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.append(sum(
+                         e.count for e in p.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and re.search(rf"\b{kernel}\b", e.key)))) as prof:
+            for _ in range(2):
+                time.sleep(PROFILE_MARGIN_S)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+                prof.step()
+        seen.append(got[0])
+        if got[0] == want:
+            break
+    return seen
+
+
 def phase_serve_int8(ba, rb, tmp, img_dir, ocr_dir, peaks, profile_dir):
     """int8 on the LiLT-base serving path. The library GEMM
     (``torch._int_mm``) against its integer twin, bit for bit, at the pair
@@ -2592,6 +2788,7 @@ def phase_serve_int8(ba, rb, tmp, img_dir, ocr_dir, peaks, profile_dir):
 
     from peneo_tpu_torch.ops import quant
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     int8_peak = INT8_PEAKS[peaks[0]]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2634,6 +2831,7 @@ def phase_serve_int8(ba, rb, tmp, img_dir, ocr_dir, peaks, profile_dir):
                  for i in range(B)]
         ids, bbox, attn, _ = batch_tensors(svc, pages)
         reset_counts(ba, rb)
+        before = tracing.counters()
         svc.run(img_dir, ocr_dir)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2647,9 +2845,11 @@ def phase_serve_int8(ba, rb, tmp, img_dir, ocr_dir, peaks, profile_dir):
         blocks = math.ceil((L - 1) / svc.cfg.pair_block_size)
         per_forward = (5 * blocks if "int8_pair_head" in kw else 0) + (
             12 * 12 if kw.get("int8_backbone") else 0)
+        wrapped = expect_forwards(before, 3 * n_forwards,
+                                  f"serve_int8 {mode}, three runs")
         expect_counts(read_counts(ba, rb),
-                      {"biacm_attention": 12 * 3 * n_forwards,
-                       "int8": per_forward * 3 * n_forwards},
+                      {"biacm_attention": 12 * wrapped,
+                       "int8": per_forward * wrapped},
                       f"serve_int8 {mode}, three runs")
         # one batch's forward and fetch on the host clock, then profiled
         walls = []
@@ -2772,11 +2972,13 @@ def phase_serve_api(ba, rb, svc, tmp, img_dir, ocr_dir):
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     sub_img, sub_ocr = (os.path.join(tmp, "api_images"),
                         os.path.join(tmp, "api_ocr"))
     link_pages(img_dir, ocr_dir, sub_img, sub_ocr, range(API_PAGES))
     reset_counts(ba, rb)
+    before = tracing.counters()
     one = InferenceService(os.path.join(tmp, "model"), batch_size=1,
                            dtype="bfloat16")
     by_run = records_of(one.run(sub_img, sub_ocr))
@@ -2800,8 +3002,8 @@ def phase_serve_api(ba, rb, svc, tmp, img_dir, ocr_dir):
     batch_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts(ba, rb)
     n_forwards = 2 * API_PAGES + math.ceil(N_PAGES / B) + 1
-    expect_counts(counts, {"biacm_attention": 12 * n_forwards},
-                  "serve_api")
+    wrapped = expect_forwards(before, n_forwards, "serve_api")
+    expect_counts(counts, {"biacm_attention": 12 * wrapped}, "serve_api")
     want = records_of(full)
     for i, res in enumerate(batch):
         if as_record(*res) != want[f"page_{i:03d}.png"]:
@@ -2995,6 +3197,7 @@ def phase_serve_v3_procs(ba, rb, tmp, img_dir, ocr_dir):
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     long_img, long_ocr = (os.path.join(tmp, "long_images"),
                           os.path.join(tmp, "long_ocr"))
@@ -3006,6 +3209,7 @@ def phase_serve_v3_procs(ba, rb, tmp, img_dir, ocr_dir):
     svc.run_batch([svc.preprocess_page(*page_paths(img_dir, ocr_dir, 0))])
     procs = min(8, os.cpu_count() or 1)
     reset_counts(ba, rb)
+    before = tracing.counters()
     runs = {}
     for what, kw in (("threads_4", {"workers": 4}),
                      (f"procs_{procs}", {"preprocess_procs": procs})):
@@ -3020,8 +3224,8 @@ def phase_serve_v3_procs(ba, rb, tmp, img_dir, ocr_dir):
                       "warm_pages_per_s": run["warm_pages"]
                       / run["warm_seconds"]}
     counts = read_counts(ba, rb)
-    expect_counts(counts, {"bias_attention": 12 * 2 * math.ceil(n / B)},
-                  "serve_v3_procs")
+    wrapped = expect_forwards(before, 2 * math.ceil(n / B), "serve_v3_procs")
+    expect_counts(counts, {"bias_attention": 12 * wrapped}, "serve_v3_procs")
     a, b = (r.pop("records") for r in runs.values())
     if len(a) != n or a != b:
         raise RuntimeError("preprocess_procs served other records than the "
@@ -3414,6 +3618,7 @@ def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
     from peneo_tpu_torch import run_rfund
     from peneo_tpu_torch.pipeline import train as T
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     name = f"train_graph_{tag}" if tag else "train_graph"
     out = os.path.join(tmp, name)
@@ -3482,9 +3687,11 @@ def phase_train_graph(rb, ba, tmp, argv, eager, tag, profile_dir):
     svc = InferenceService(out, batch_size=1, dtype="bfloat16")
     serve_fn = wrappers[own[2]]
     serve_fn.launches = 0
+    before = tracing.counters()
     served = svc.run(img_dir, ocr_dir)
     torch.cuda.synchronize()
-    if serve_fn.launches != layers or len(served) != 1:
+    wrapped = expect_forwards(before, 1, f"{name}: the saved directory")
+    if serve_fn.launches != layers * wrapped or len(served) != 1:
         raise RuntimeError(f"the trained model served {len(served)} pages "
                            f"with {serve_fn.launches} launches")
     del svc
@@ -4990,15 +5197,17 @@ def phase_serve_stream(ba, rb, svc, tmp, img_dir, ocr_dir, smi):
     import torch
 
     from peneo_tpu_torch.pipeline.infer import InferenceService
+    from peneo_tpu_torch.utils import tracing
 
     stream = InferenceService(os.path.join(tmp, "model"), batch_size=B,
                               dtype="bfloat16", spot_streaming=True)
     reset_counts(ba, rb)
+    before = tracing.counters()
     results = stream.run(img_dir, ocr_dir)
     counts = read_counts(ba, rb)
     n_forwards = math.ceil(N_PAGES / B)
-    expect_counts(counts, {"biacm_attention": 12 * n_forwards},
-                  "serve_stream")
+    wrapped = expect_forwards(before, n_forwards, "serve_stream")
+    expect_counts(counts, {"biacm_attention": 12 * wrapped}, "serve_stream")
     run = stream.last_run
     dense = svc.run(img_dir, ocr_dir)
     ours, theirs = records_of(results), records_of(dense)
@@ -6723,6 +6932,8 @@ def main(argv=None):
                   os.path.join(tmp, "model"), img_dir, ocr_dir),
             timed("serve_stream", phase_serve_stream, ba, rb, svc, tmp,
                   img_dir, ocr_dir, smi)]
+        timed("serve_graph", phase_serve_graph, ba, rb, tmp, svc, img_dir,
+              ocr_dir)
         del svc
         train_launches, train_out, train_record = timed(
             "train", phase_train, ba, tmp)

@@ -54,8 +54,10 @@ MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
     # a device tensor as the divisor: by a Python scalar, CUDA multiplies
-    # by its rounded reciprocal, which is not the quotient JAX computes
-    return amax / amax.new_tensor(127.0)
+    # by its rounded reciprocal, which is not the quotient JAX computes.
+    # Filled on the device: a copy from the host cannot be captured in a
+    # CUDA graph (pipeline/graphs.py)
+    return amax / amax.new_full((), 127.0)
 
 
 def _global_max(x: torch.Tensor, tp: TpShard) -> torch.Tensor:

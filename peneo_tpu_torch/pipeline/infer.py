@@ -27,7 +27,10 @@ collect, the host decode) is :class:`PageServer`, which
 is an exported program instead of the model.
 
 The service runs on ``cuda`` unless ``device="cpu"`` is passed; with no
-GPU and no explicit device it raises.
+GPU and no explicit device it raises. On the card a forward of
+``batch_size`` rows replays CUDA graphs of the backbone and of the pair
+grid, one set per batch shape, captured at its first batch of that shape
+(``pipeline/graphs.py``); other forwards run eagerly.
 
 In a process group of ``dp × tp × sp`` ranks (``InferenceService(dp=,
 tp=, sp=)``; ``peneo_tpu/pipeline/infer.py:186-205,242-270``) each dp index
@@ -54,18 +57,20 @@ import numpy as np
 import torch
 
 from ..config import PEneoConfig
-from ..models.decoder import pack_spots, pair_grid_cells
+from ..models.decoder import pair_grid_cells
 from ..models.peneo import PEneoModel
 from ..parallel import dist as pdist
 from ..registry import get_backbone_info
 from ..utils import tracing
 from . import decode as dec
+from . import graphs
 from .preprocess import PagePreprocessor
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the counters of utils/tracing.py that PageServer.run reports in last_run
 RUN_COUNTERS = ("serve.tokens_real", "serve.token_slots",
                 "serve.pair_cells_real", "serve.pair_cells_computed",
+                graphs.REPLAY, graphs.CAPTURE, graphs.EAGER,
                 "preprocess.pages_cut") + tuple(
     f"decode.spots_{kind}.{head}" for kind in ("found", "dropped")
     for head in dec.HEAD_NAMES)
@@ -272,16 +277,16 @@ class PageServer:
 
     def _dispatch(self, pages, bucket: Optional[int] = None):
         """Stack ``pages`` as they are and launch the forward."""
-        stacked = {k: np.stack([p[0][k][:bucket] if bucket else p[0][k]
-                                for p in pages])
+        stacked = {k: stack_rows([p[0][k][:bucket] if bucket else p[0][k]
+                                  for p in pages])
                    for k in ("input_ids", "bbox", "attention_mask")}
         ids, bbox, attn = (self._to_device(stacked[k]) for k in
                            ("input_ids", "bbox", "attention_mask"))
         with torch.inference_mode():
             image = None
             if "image" in pages[0][0]:
-                image = self._to_device(np.stack([p[0]["image"]
-                                                  for p in pages]))
+                image = self._to_device(stack_rows([p[0]["image"]
+                                                    for p in pages]))
                 if image.dtype == torch.uint8:
                     from ..data.image_processing import device_image_normalize
 
@@ -534,6 +539,22 @@ class PageServer:
         return results
 
 
+def stack_rows(arrays) -> np.ndarray:
+    """``np.stack`` of equal arrays, copied while holding the interpreter
+    lock: numpy releases it for each copy of more than 500 elements, and
+    with the preprocess and decode pools running each release costs the
+    serving thread a wait to win it back (~0.5 ms a page at B 32 on the
+    H100 host, PERF.md §5)."""
+    first = arrays[0]
+    for a in arrays:
+        if a.shape != first.shape or a.dtype != first.dtype:
+            raise ValueError(f"rows of {a.shape} {a.dtype} and "
+                             f"{first.shape} {first.dtype} do not stack")
+    data = bytearray().join(a.tobytes() for a in arrays)
+    return np.frombuffer(data, first.dtype).reshape(len(arrays),
+                                                    *first.shape)
+
+
 def _in_span(span, fn, *args):
     """``fn(*args)`` inside the recorded ``span`` (on a pool thread)."""
     with span:
@@ -622,7 +643,10 @@ class InferenceService(PageServer):
         self.model = model.cast(self.dtype).to(self.device).eval()
         load_family_kernel(self.device, self.info.family)
         self._packed = self.cfg.max_spots_per_head > 0
+        # the forwards of full batches as CUDA-graph replays on the card
+        self.graphs = graphs.ServingGraphs(self.model, batch_size,
+                                           graphs.capture_for(self.device))
 
     def _forward(self, input_ids, bbox, attention_mask, image):
-        out = self.model(input_ids, bbox, attention_mask, image=image)
-        return pack_spots(out) if self._packed else out
+        return self.graphs(input_ids, bbox, attention_mask, image,
+                           pack=self._packed)

@@ -47,7 +47,11 @@ job; ``PERF.md`` names the metric that reads each):
   ``serve.token_slots`` (batch × L, a tail batch's repeated rows
   included), ``serve.pair_cells_real`` (the upper triangle of each real
   page's decoder positions) and ``serve.pair_cells_computed`` (the cells
-  ``models/decoder.py`` computes for the whole batch);
+  ``models/decoder.py`` computes for the whole batch); one a forward of
+  ``serve.graph_replays`` (its segments replayed as CUDA graphs),
+  ``serve.graph_captures`` (a segment captured: the first batch of its
+  shape) or ``serve.eager_forwards`` (it ran eagerly;
+  ``pipeline/graphs.py``);
 - at preprocess: ``preprocess.pages_cut`` (pages cut at
   ``max_token_len``; not counted in ``preprocess_procs`` workers);
 - at decode: ``decode.spots_found.<head>`` (spots the device found) and
