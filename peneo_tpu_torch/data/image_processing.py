@@ -17,12 +17,31 @@ from typing import Callable
 import numpy as np
 
 
-def load_rgb(path: str, size: int) -> np.ndarray:
+def resized_rgb(path: str, size: int):
+    """The page at ``path`` as a (size, size) RGB PIL image: bilinear
+    resize, then RGB. The file is read in one call and decoded in one call,
+    and a grayscale page is resized before its channels are made, which
+    gives the same pixels (PIL resizes each 8-bit channel alike) at a third
+    of the resize. Each call into PIL gives the interpreter lock away and
+    takes it back, and in the serving pools each take can wait out another
+    thread's switch interval: PIL's own reader decodes in 64-KB blocks, a
+    round of the lock each."""
+    import io
+
     from PIL import Image
 
-    with Image.open(path) as im:
-        im = im.convert("RGB").resize((size, size), Image.BILINEAR)
-        return np.asarray(im, dtype=np.float32)  # (H, W, 3) in [0, 255]
+    with open(path, "rb") as f:
+        data = f.read()
+    with Image.open(io.BytesIO(data)) as im:
+        im.decodermaxblock = max(im.decodermaxblock, len(data))
+        if im.mode == "L":
+            return im.resize((size, size), Image.BILINEAR).convert("RGB")
+        return im.convert("RGB").resize((size, size), Image.BILINEAR)
+
+
+def load_rgb(path: str, size: int) -> np.ndarray:
+    # (H, W, 3) in [0, 255]
+    return np.asarray(resized_rgb(path, size), dtype=np.float32)
 
 
 def layoutlmv3_preprocess(path: str, size: int = 224) -> np.ndarray:
@@ -43,11 +62,7 @@ def load_rgb_u8(path: str, size: int) -> np.ndarray:
     and the upload is a quarter of the fp32 one. Values are bit-identical to
     the float path: PIL's resize output is uint8 either way, and u8→f32 is
     exact."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        im = im.convert("RGB").resize((size, size), Image.BILINEAR)
-        return np.asarray(im, dtype=np.uint8)
+    return np.asarray(resized_rgb(path, size), dtype=np.uint8)
 
 
 def make_image_loader(cfg, raw: bool = False) -> Callable[[str], np.ndarray]:

@@ -71,9 +71,20 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 RUN_COUNTERS = ("serve.tokens_real", "serve.token_slots",
                 "serve.pair_cells_real", "serve.pair_cells_computed",
                 graphs.REPLAY, graphs.CAPTURE, graphs.EAGER,
-                "preprocess.pages_cut") + tuple(
+                "serve.visual_tokens", "serve.image_bytes",
+                "preprocess.pages_cut", "preprocess.images",
+                "preprocess.image_bytes") + tuple(
     f"decode.spots_{kind}.{head}" for kind in ("found", "dropped")
     for head in dec.HEAD_NAMES)
+
+
+def visual_positions(cfg: PEneoConfig) -> int:
+    """The attention positions LayoutLMv3's page image adds to each row:
+    its patch grid and its CLS; 0 for any other backbone."""
+    bb = cfg.backbone()
+    if cfg.backbone_family() == "layoutlmv3" and bb.visual_embed:
+        return (bb.input_size // bb.patch_size) ** 2 + 1
+    return 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -202,6 +213,7 @@ class PageServer:
         self.tokenizer = tokenizer
         self.raw_image = raw_image and self.info.has_visual_embeds
         self.image_loader = None
+        self.visual_positions = visual_positions(cfg)
         if self.info.has_visual_embeds:
             from ..data.image_processing import make_image_loader
 
@@ -334,6 +346,11 @@ class PageServer:
         tracing.count("serve.pair_cells_computed", self.batch_size
                       * pair_grid_cells(L - add_cls,
                                         self.cfg.pair_block_size))
+        if "image" in pages[0][0]:
+            tracing.count("serve.visual_tokens",
+                          self.batch_size * self.visual_positions)
+            tracing.count("serve.image_bytes",
+                          self.batch_size * pages[0][0]["image"].nbytes)
 
     def run(self, image_dir: str, ocr_dir: Optional[str] = None,
             visualize_dir: Optional[str] = None, workers: int = 4,

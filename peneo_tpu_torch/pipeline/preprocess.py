@@ -20,6 +20,7 @@ creates a CUDA context, and a text-only (LiLT) worker imports no torch
 from __future__ import annotations
 
 import json
+import os
 import sys
 from concurrent import futures
 from dataclasses import dataclass, field
@@ -156,8 +157,14 @@ class PagePreprocessor:
                 line_texts, line_boxes = tesseract_ocr(image_path)
             else:
                 line_texts, line_boxes = read_ocr_json(ocr_path)
-            loader = self.image_loader()
-            img = loader(image_path) if loader is not None else None
+        loader = self.image_loader()
+        img = None
+        if loader is not None:
+            with tracing.span("serve.preprocess.image"):
+                tracing.count("preprocess.images")
+                tracing.count("preprocess.image_bytes",
+                              os.path.getsize(image_path))
+                img = loader(image_path)
 
         with tracing.span("serve.preprocess.order"):
             order = sort_boxes(line_boxes)

@@ -33,10 +33,12 @@ Spans of ``PageServer.run`` (``pipeline/infer.py``;
   and any wait behind batches dispatched after it;
 - ``serve.preprocess``: one page's preprocess on its pool thread, ``page``,
   with the children ``serve.preprocess.read`` (image size, OCR JSON or
-  tesseract, a visual backbone's image), ``.order`` (reading order),
-  ``.tokenize`` (the line loop) and ``.pack`` (the padded arrays). With
-  ``preprocess_procs`` the pages are preprocessed in other processes and
-  these five are not recorded; ``serve.wait_page`` still shows the wait;
+  tesseract), ``.image`` (a visual backbone's page image: decode, resize
+  and the array; a text-only backbone opens none), ``.order`` (reading
+  order), ``.tokenize`` (the line loop) and ``.pack`` (the padded arrays).
+  With ``preprocess_procs`` the pages are preprocessed in other processes
+  and these six are not recorded; ``serve.wait_page`` still shows the
+  wait;
 - ``serve.decode``: one page's host decode on the decode pool, ``page``
   and ``batch``.
 
@@ -51,9 +53,14 @@ job; ``PERF.md`` names the metric that reads each):
   ``serve.graph_replays`` (its segments replayed as CUDA graphs),
   ``serve.graph_captures`` (a segment captured: the first batch of its
   shape) or ``serve.eager_forwards`` (it ran eagerly;
-  ``pipeline/graphs.py``);
+  ``pipeline/graphs.py``); for a visual backbone ``serve.visual_tokens``
+  (LayoutLMv3's image positions of every row: batch × 197 at 224 px; 0
+  for LayoutXLM) and ``serve.image_bytes`` (the page images' bytes
+  copied to the device, every row's);
 - at preprocess: ``preprocess.pages_cut`` (pages cut at
-  ``max_token_len``; not counted in ``preprocess_procs`` workers);
+  ``max_token_len``), and for a visual backbone ``preprocess.images``
+  (page images loaded) and ``preprocess.image_bytes`` (their files'
+  bytes); none is counted in ``preprocess_procs`` workers;
 - at decode: ``decode.spots_found.<head>`` (spots the device found) and
   ``decode.spots_dropped.<head>`` (those past ``max_spots_per_head``).
 

@@ -176,3 +176,31 @@ def test_layoutlmv3_batches_byte_equal_with_images(tmp_path):
     sep = tsyn.ToyTokenizer().sep_token_id
     for i in range(4):
         assert a.input_ids[i, a.seq_len[i]] == sep
+
+
+@pytest.mark.parametrize("mode", ["L", "P", "RGB", "RGBA", "LA", "1"])
+@pytest.mark.parametrize("shape", [(1400, 1000), (37, 53)])
+def test_page_image_loaders_equal_jax(tmp_path, mode, shape):
+    """The port's page-image loaders (one read, one decode, a grayscale page
+    resized before it is made RGB) give the JAX package's pixels bit for
+    bit, uint8 and float32, for every mode a PNG page may have, large pages
+    (written in many IDAT chunks) and small, at 224 px and at 32."""
+    from PIL import Image
+
+    from peneo_tpu.data import image_processing as jax_ip
+    from peneo_tpu_torch.data import image_processing as ip
+
+    rng = np.random.default_rng(sum(shape) + len(mode))
+    levels = rng.integers(0, 256, shape + (4,), dtype=np.uint8)
+    levels[shape[0] // 3:, shape[1] // 2:] //= 8  # a dark block: ink
+    im = Image.fromarray(levels, "RGBA")
+    im = im.convert(mode) if mode != "P" else im.convert("RGB").quantize(64)
+    path = str(tmp_path / "page.png")
+    im.save(path)
+    for size in (224, 32):
+        want = jax_ip.load_rgb_u8(path, size)
+        got = ip.load_rgb_u8(path, size)
+        assert got.dtype == np.uint8 and got.shape == (size, size, 3)
+        assert got.tobytes() == want.tobytes()
+        assert ip.load_rgb(path, size).tobytes() == \
+            jax_ip.load_rgb(path, size).tobytes()

@@ -130,6 +130,16 @@ def test_spans_are_recorded_when_asked(served, how):
                for s in tracing.spans())
 
 
+def test_a_text_only_page_records_no_image(served):
+    serve(served, "recording")
+    assert not [s for s in tracing.spans()
+                if s.name == "serve.preprocess.image"]
+    image_counters = ("preprocess.images", "preprocess.image_bytes",
+                      "serve.visual_tokens", "serve.image_bytes")
+    assert not set(image_counters) & set(tracing.counters())
+    assert all(served[0].last_run[k] == 0 for k in image_counters)
+
+
 def test_every_page_has_its_chain(served):
     serve(served, "recording")
     names = by_name(tracing.spans())
